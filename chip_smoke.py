@@ -1,0 +1,461 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's serving path on one CUDA card and check its kernels.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with one NVIDIA H100, the CUDA
+toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
+
+1. the card's name and power limit; float32 matmuls and convolutions in full
+   float32 (TF32 off);
+2. build the kernels from the checkout (K1 flash attention with ``nvcc`` for
+   sm_90a, K2 RMSNorm with Triton) and hold each against its plain version on
+   the card: fp32 within 2e-5, bf16 within 2e-2 (``tests/test_kernels.py``),
+   at the tests' shapes and at the llama3-8b serving shapes;
+3. serve llama3-8b at its published width (32 layers, d_model 4096, vocab
+   128256; random weights from a seed): prefill 4 x 512 tokens, then 16
+   greedy decode steps through ``repro_torch.launch.serve``, counting kernel
+   launches: K1 32 per prefill and 0 per decode step, K2 65 per step; then
+   one prefill and two decode steps under ``torch.profiler``: device time by
+   kernel and the card's idle share;
+4. teacher forcing at full width: ``forward`` over 513 tokens against
+   prefill(512) + decode(1), relative L2 error of the last logits <= 3e-2;
+5. card against CPU: reduced llama3-8b with the same weights, kernels on the
+   card and plain PyTorch on the CPU, logits within 3e-2;
+6. each kernel's time at the serving shapes with CUDA events, beside its
+   bound, its plain version's time and one PyTorch library call's time
+   (``ms`` with the launch queue filled first, so the card's time alone;
+   ``host_ms`` as issued one call after another from Python).
+
+Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, then
+``{"ok": true, "device": {...}}`` last. Exits non-zero, without that last
+line, when no CUDA card is present, when run outside a checkout of the
+repository, or when any phase fails.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import sys
+import time
+import traceback
+
+# H100 SXM published peaks (dense, no sparsity), at the 700 W limit.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+L2_BYTES = 50 * 2**20
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+ARCH, BATCH, PROMPT, GEN = "llama3-8b", 4, 512, 16
+FA_TEST_SHAPES = [(2, 128, 4, 2, 64, 128, 0), (1, 200, 8, 1, 64, 200, 0),
+                  (2, 96, 4, 4, 32, 96, 32), (1, 64, 2, 2, 128, 256, 0),
+                  (1, 257, 3, 3, 16, 257, 64)]
+RN_TEST_SHAPES = [((4, 37, 128), "bfloat16"), ((8, 256), "float32"),
+                  ((1, 1, 512), "float32"), ((7, 384), "float32"),
+                  ((7, 384), "bfloat16")]
+
+
+def emit(**obj):
+    print(json.dumps(obj), flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only",
+              file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "src"))
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError:
+        print("chip_smoke: repro_torch not found; run from a checkout of the "
+              "repository", file=sys.stderr)
+        return 2
+    from repro_torch.device import nvidia_smi
+
+    card = nvidia_smi()
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit(settings={"cuda.matmul.allow_tf32": False, "cudnn.allow_tf32": False,
+                   "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    state: dict = {"card": card}
+    failed = []
+    for phase in (phase_kernels, phase_serve, phase_profile, phase_teacher_forcing,
+                  phase_card_vs_cpu, phase_times):
+        t0 = time.perf_counter()
+        try:
+            phase(state)
+        except Exception:  # report the phase, run the rest, then fail
+            traceback.print_exc()
+            failed.append(phase.__name__)
+        torch.cuda.synchronize()
+        emit(phase=phase.__name__, seconds=time.perf_counter() - t0,
+             ok=phase.__name__ not in failed)
+    if failed:
+        print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
+        return 1
+    emit(kernels=state["kernels"])
+    emit(ok=True, device={"platform": "gpu",
+                          "kind": torch.cuda.get_device_name(0),
+                          "count": torch.cuda.device_count()})
+    return 0
+
+
+def _randn(gen, shape, dtype):
+    import torch
+
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _dtype(name):
+    import torch
+
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def _max_err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _check(name, got, want, dtype_name, errs):
+    import torch
+
+    tol = TOL[dtype_name]
+    err = _max_err(got, want)
+    errs.append(err)
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+        raise AssertionError(f"{name}: max abs err {err} beyond {tol}")
+    return err
+
+
+# -- phase 2 ---------------------------------------------------------------------
+def phase_kernels(state):
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+
+    t0 = time.perf_counter()
+    _build.build(["flash_attention"])
+    build_s = time.perf_counter() - t0
+    regs = [ln.split("ptxas info    : ")[-1] for ln in
+            _build.build_log("flash_attention").splitlines() if "Used" in ln]
+    emit(build={"flash_attention.cu": {"nvcc_seconds": build_s, "ptxas": regs}})
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    checks, serving_errs = [], {"flash_attention": [], "rmsnorm": []}
+    seq = FA_TEST_SHAPES + [(BATCH, PROMPT, 32, 8, 128, PROMPT, 0),
+                            (BATCH, PROMPT, 32, 8, 128, PROMPT + GEN, 0),
+                            (2, 130, 4, 2, 16, 130, None)]
+    for b, s, h, kv, d, t, win in seq:
+        causal = win is not None
+        for dn in ("float32", "bfloat16"):
+            dt = _dtype(dn)
+            q = _randn(gen, (b, s, h, d), dt)
+            k, v = _randn(gen, (b, t, kv, d), dt), _randn(gen, (b, t, kv, d), dt)
+            out, lse = fa.flash_attention(q, k, v, causal=causal, window=win or 0)
+            torch.cuda.synchronize()
+            p_out, p_lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                                    window=win or 0)
+            errs = serving_errs["flash_attention"] if (
+                dn == "bfloat16" and s == PROMPT) else []
+            name = f"flash_attention{(b, s, h, kv, d, t, win)} {dn}"
+            e = _check(name, out, p_out, dn, errs)
+            el = _check(name + " lse", lse, p_lse, "float32", [])
+            checks.append({"kernel": "flash_attention", "shape": [b, s, h, kv, d, t],
+                           "window": win, "causal": causal, "dtype": dn,
+                           "max_abs_err": e, "lse_max_abs_err": el,
+                           "tol": TOL[dn]})
+    t1 = time.perf_counter()
+    first = True
+    for shape, dn in RN_TEST_SHAPES + [((BATCH, PROMPT, 4096), "bfloat16"),
+                                       ((BATCH, 1, 4096), "bfloat16"),
+                                       ((BATCH, PROMPT, 4096), "float32")]:
+        dt = _dtype(dn)
+        serving = shape[-1] == 4096
+        x = _randn(gen, shape, dt)
+        w = _randn(gen, shape[-1:], dt if serving else torch.float32)
+        y = rn.rmsnorm(x, w, 1e-6)
+        torch.cuda.synchronize()
+        if first:
+            emit(build={"rmsnorm (triton jit)": {"first_call_seconds":
+                                                 time.perf_counter() - t1}})
+            first = False
+        errs = serving_errs["rmsnorm"] if serving and dn == "bfloat16" else []
+        e = _check(f"rmsnorm{shape} {dn}", y, rn.rmsnorm_plain(x, w, 1e-6),
+                   dn, errs)
+        checks.append({"kernel": "rmsnorm", "shape": list(shape), "dtype": dn,
+                       "max_abs_err": e, "tol": TOL[dn]})
+    emit(kernel_checks=checks)
+    state["serving_err"] = {k: max(v) for k, v in serving_errs.items()}
+
+
+# -- phase 3 ---------------------------------------------------------------------
+def phase_serve(state):
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+
+    server = serve.setup(ARCH, device="cuda", seed=0)
+    cfg = server.cfg
+    tokens = serve.synthetic_prompts(cfg, BATCH, PROMPT, device="cuda")
+    serve.generate(server, tokens[:, :64], 2)          # warm-up, not counted
+    snaps = []
+    reset_launch_counts()
+    res = serve.generate(server, tokens, GEN,
+                         on_step=lambda kind: snaps.append((kind, launch_counts())))
+    total = launch_counts()
+    per_step, prev = [], {"flash_attention": 0, "rmsnorm": 0}
+    for kind, c in snaps:
+        per_step.append((kind, {k: c[k] - prev[k] for k in c}))
+        prev = c
+    expect = {"prefill": {"flash_attention": cfg.num_layers,
+                          "rmsnorm": 2 * cfg.num_layers + 1},
+              "decode": {"flash_attention": 0, "rmsnorm": 2 * cfg.num_layers + 1}}
+    finite = bool(torch.isfinite(res["prefill_logits"].float()).all()
+                  and torch.isfinite(res["last_logits"].float()).all())
+    emit(serve={"arch": ARCH, "layers": cfg.num_layers, "d_model": cfg.d_model,
+                "vocab": cfg.vocab_size, "batch": BATCH, "prompt_len": PROMPT,
+                "gen": GEN, "prefill_ms": res["prefill_ms"],
+                "decode_ms_per_token": res["decode_ms_per_token"],
+                "launches_total": total,
+                "launches_prefill": per_step[0][1],
+                "launches_per_decode_step": [c for _, c in per_step[1:]],
+                "finite": finite, "sample_ids": res["ids"][0].tolist(),
+                "card": state["card"]})
+    assert finite, "non-finite logits"
+    assert len(per_step) == GEN + 1
+    for kind, c in per_step:
+        assert c == expect[kind], f"{kind}: launches {c}, expected {expect[kind]}"
+    state.update(server=server, tokens=tokens, ids=res["ids"], launches=total)
+
+
+# -- phase 3b --------------------------------------------------------------------
+def _kernel_table(prof, wall_ms, steps):
+    """Device time by kernel name from a torch.profiler run over ``wall_ms``
+    of host time; ms per step, busy share, top kernels."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return {"wall_ms_per_step": wall_ms / steps,
+            "device_busy_ms_per_step": busy / steps,
+            "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+            "top": [{"kernel": k[:90], "ms_per_step": t / steps,
+                     "launches_per_step": c / steps} for k, t, c in rows[:14]]}
+
+
+def phase_profile(state):
+    """One prefill and two decode steps of the served model under
+    torch.profiler: device time by kernel and the card's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    server = state["server"]
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits, caches = server.prefill(server.params,
+                                        {"tokens": state["tokens"]}, PROMPT + 2)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    emit(profile_prefill=_kernel_table(prof, wall, 1))
+    tok = logits[:, -1].argmax(-1)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(2):
+            logits, caches = server.decode(server.params, caches, tok, PROMPT + i)
+            tok = logits[:, 0].argmax(-1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    emit(profile_decode=_kernel_table(prof, wall, 2))
+
+
+# -- phase 4 ---------------------------------------------------------------------
+def phase_teacher_forcing(state):
+    import torch
+
+    server = state["server"]
+    toks = torch.cat([state["tokens"], state["ids"][:, :1]], dim=1)   # 513
+    with torch.inference_mode():
+        full = server.api.forward(server.params, toks)[:, -1].float()
+    _, caches = server.prefill(server.params, {"tokens": toks[:, :PROMPT]},
+                               PROMPT + 1)
+    step, _ = server.decode(server.params, caches, toks[:, PROMPT], PROMPT)
+    step = step[:, 0].float()
+    rel = ((step - full).norm() / full.norm()).item()
+    emit(teacher_forcing={"tokens": PROMPT + 1, "rel_l2": rel, "limit": 3e-2,
+                          "max_abs_err": _max_err(step, full)})
+    assert rel <= 3e-2, f"teacher forcing rel L2 {rel} > 3e-2"
+    del state["server"]
+    torch.cuda.empty_cache()
+
+
+# -- phase 5 ---------------------------------------------------------------------
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def phase_card_vs_cpu(state):
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.train.serve import make_serve_fns
+
+    cfg = get_arch(ARCH, reduced=True)
+    api = build_model(cfg)
+    p_cpu = api.init(0, device="cpu")
+    p_gpu = _to(p_cpu, "cuda")
+    pre_c, dec_c = make_serve_fns(api, "cpu")
+    pre_g, dec_g = make_serve_fns(api, "cuda")
+    toks = serve.synthetic_prompts(cfg, 2, 24, seed=1, device="cpu")
+    lc, cc = pre_c(p_cpu, {"tokens": toks}, 28)
+    lg, cg = pre_g(p_gpu, {"tokens": toks}, 28)
+    pairs = [(lg, lc)]
+    for i in range(4):
+        tok = lc[:, -1].argmax(-1)
+        lc, cc = dec_c(p_cpu, cc, tok, 24 + i)
+        lg, cg = dec_g(p_gpu, cg, tok, 24 + i)
+        pairs.append((lg, lc))
+    errs = [_max_err(g.cpu(), c) for g, c in pairs]
+    ok = all(torch.allclose(g.cpu().float(), c.float(), atol=3e-2, rtol=3e-2)
+             for g, c in pairs)
+    emit(card_vs_cpu={"arch": f"{ARCH} reduced", "steps": ["prefill"] + ["decode"] * 4,
+                      "max_abs_err": errs, "tol": 3e-2})
+    assert ok, f"card and CPU logits differ beyond 3e-2: {errs}"
+
+
+# -- phase 6 ---------------------------------------------------------------------
+def _n_sets(set_bytes):
+    """Input sets to cycle so that together they hold twice the L2."""
+    return max(4, math.ceil(2 * L2_BYTES / set_bytes))
+
+
+def _time_ms(fn, inputs, iters, *, queued=True):
+    """Mean ms per call over ``iters`` calls cycling through ``inputs`` (at
+    least ``_n_sets`` of them, twice the L2 in all, so each call reads its
+    inputs cold; the warm-up uses the last sets, the timed calls start at
+    the first).
+
+    ``queued``: a sleep kernel holds the card while the host enqueues every
+    call, so the events time the card alone; without it they also count the
+    gaps where the card waits for the host to launch the next call."""
+    import torch
+
+    for i in range(1, 4):
+        fn(*inputs[-i])
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(100_000_000)
+    t0.record()
+    for i in range(iters):
+        fn(*inputs[i % len(inputs)])
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def _bound(nbytes, ops, dtype_name):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_times(state):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bf = torch.bfloat16
+    kernels = []
+
+    # K1 at the prefill shape: q (4,512,32,128), k/v (4,528,8,128), causal
+    b, s, h, kvh, d, t = BATCH, PROMPT, 32, 8, 128, PROMPT + GEN
+    sets = [(_randn(gen, (b, s, h, d), bf), _randn(gen, (b, t, kvh, d), bf),
+             _randn(gen, (b, t, kvh, d), bf))
+            for _ in range(_n_sets(2 * (b * s * h * d + 2 * b * t * kvh * d)))]
+    ms = _time_ms(lambda q, k, v: fa.flash_attention(q, k, v, causal=True),
+                  sets, 50)
+    host_ms = _time_ms(lambda q, k, v: fa.flash_attention(q, k, v, causal=True),
+                       sets, 50, queued=False)
+    plain_ms = _time_ms(lambda q, k, v: fa.flash_attention_plain(q, k, v, causal=True),
+                        sets, 10)
+    lib_sets = [(q.transpose(1, 2).contiguous(),
+                 k.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous(),
+                 v.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous())
+                for q, k, v in sets]
+    lib_ms = _time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), lib_sets, 50)
+    lib_err = _max_err(F.scaled_dot_product_attention(*lib_sets[0], is_causal=True)
+                       .transpose(1, 2), fa.flash_attention(*sets[0])[0])
+    pairs = sum(min(i + 1, t) for i in range(s))           # unmasked (q, k) pairs
+    nbytes = 2 * (2 * b * s * h * d + 2 * b * t * kvh * d) + 4 * b * h * s
+    bound_ms, bound_by = _bound(nbytes, 4 * d * pairs * b * h, "bfloat16")
+    kernels.append({"name": "flash_attention", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                    "replaces": "src/repro/kernels/flash_attention.py:76",
+                    "launches": state["launches"]["flash_attention"],
+                    "max_abs_err": state["serving_err"]["flash_attention"],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": lib_ms, "host_ms": host_ms,
+                    "shape": {"q": [b, s, h, d], "kv": [b, t, kvh, d],
+                              "dtype": "bfloat16", "causal": True},
+                    "library": "F.scaled_dot_product_attention, GQA expanded",
+                    "library_max_abs_err": lib_err})
+    del sets, lib_sets
+
+    # K2 at the prefill shape (4,512,4096) and the decode shape (4,1,4096), bf16
+    for shape in ((BATCH, PROMPT, 4096), (BATCH, 1, 4096)):
+        n = _n_sets(2 * (math.prod(shape) + shape[-1]))
+        sets = [(_randn(gen, shape, bf), _randn(gen, shape[-1:], bf))
+                for _ in range(n)]
+        ms = _time_ms(lambda x, w: rn.rmsnorm(x, w, 1e-6), sets, 200)
+        host_ms = _time_ms(lambda x, w: rn.rmsnorm(x, w, 1e-6), sets, 200,
+                           queued=False)
+        plain_ms = _time_ms(lambda x, w: rn.rmsnorm_plain(x, w, 1e-6), sets, 50)
+        lib_ms = _time_ms(lambda x, w: F.rms_norm(x, (shape[-1],), w, 1e-6),
+                          sets, 200)
+        elems = math.prod(shape)
+        bound_ms, bound_by = _bound(2 * (2 * elems + shape[-1]), 4 * elems,
+                                    "float32")
+        row = {"name": "rmsnorm", "route": "triton",
+               "source": "src/repro_torch/kernels/rmsnorm.py",
+               "replaces": "src/repro/kernels/rmsnorm.py:20",
+               "launches": state["launches"]["rmsnorm"],
+               "max_abs_err": state["serving_err"]["rmsnorm"],
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": lib_ms, "host_ms": host_ms,
+               "shape": {"x": list(shape), "dtype": "bfloat16"},
+               "library": "F.rms_norm"}
+        if shape[1] > 1:
+            kernels.append(row)
+        else:
+            emit(rmsnorm_decode_shape=row)
+        del sets
+    emit(times={"card": state["card"], "peak_bytes_per_s": PEAK_BYTES_PER_S,
+                "peak_ops_per_s": PEAK_OPS_PER_S})
+    state["kernels"] = kernels
+
+
+if __name__ == "__main__":
+    sys.exit(main())

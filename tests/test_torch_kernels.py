@@ -1,0 +1,133 @@
+"""The port's kernels against the reference's Pallas kernels, on the CPU.
+
+On a CPU tensor each wrapper runs its kernel's plain version; here that is
+held against the Pallas kernel run in interpret mode (as
+``tests/test_kernels.py`` runs it) and against ``ref.py``'s oracles, with
+``test_kernels.py``'s shapes and tolerances. The CUDA kernels themselves
+are checked against these plain versions on the card by ``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as fa_raw
+from repro.kernels.rmsnorm import rmsnorm as rn_raw
+from repro.models.common import _flash_fwd_impl, flash_attention_xla
+from repro_torch import bridge
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rmsnorm as trn
+
+FA_SHAPES = [
+    (2, 128, 4, 2, 64, 128, 0),
+    (1, 200, 8, 1, 64, 200, 0),       # MQA + ragged seq
+    (2, 96, 4, 4, 32, 96, 32),        # sliding window
+    (1, 64, 2, 2, 128, 256, 0),       # cross-length kv
+    (1, 257, 3, 3, 16, 257, 64),      # odd sizes
+]
+DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _inputs(seed, shapes, dtype):
+    """Both frameworks' copies of the same seeded inputs, rounded once."""
+    rng = np.random.default_rng(seed)
+    js = [jnp.asarray(rng.standard_normal(s), DTYPES[dtype]) for s in shapes]
+    ts = [bridge.params_from_jax(np.asarray(j), "cpu") for j in js]
+    return js, ts
+
+
+def _f32(x):
+    return np.asarray(jnp.asarray(x, jnp.float32)) if not isinstance(
+        x, torch.Tensor) else bridge.to_numpy(x)
+
+
+def _close(got, want, dtype, fp32_tol=(5e-6, 5e-5)):
+    atol, rtol = fp32_tol if dtype == "float32" else (2e-2, 2e-2)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=atol, rtol=rtol)
+
+
+# -- K1: flash attention ------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kv,d,tk,win", FA_SHAPES)
+def test_flash_attention_plain_matches_pallas_and_oracle(b, s, h, kv, d, tk,
+                                                         win, dtype):
+    (jq, jk, jv), (q, k, v) = _inputs(
+        0, [(b, s, h, d), (b, tk, kv, d), (b, tk, kv, d)], dtype)
+    out, lse = tfa.flash_attention(q, k, v, causal=True, window=win)
+    assert out.dtype == q.dtype and lse.shape == (b, h, s)
+    pallas = fa_raw(jq, jk, jv, causal=True, window=win, block_q=64,
+                    block_k=64, interpret=True)
+    _close(out, pallas, dtype)
+    _close(out, jref.flash_attention_ref(jq, jk, jv, causal=True, window=win),
+           dtype)
+    _close(tref.flash_attention_ref(q, k, v, causal=True, window=win),
+           jref.flash_attention_ref(jq, jk, jv, causal=True, window=win), dtype)
+    # the per-row log-sum-exp the kernel also writes, against the reference's
+    # blockwise forward on the fp32-upcast inputs (the kernel's arithmetic;
+    # the blockwise path itself rounds bf16 scores before the upcast)
+    up = [x.astype(jnp.float32) for x in (jq, jk, jv)]
+    _, jlse = _flash_fwd_impl(*up, 0, True, win, 64, 64)
+    np.testing.assert_allclose(_f32(lse), _f32(jlse), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_non_causal_and_gqa(causal):
+    (jq, jk, jv), (q, k, v) = _inputs(
+        1, [(2, 130, 4, 16), (2, 130, 2, 16), (2, 130, 2, 16)], "float32")
+    out, _ = tfa.flash_attention(q, k, v, causal=causal)
+    _close(out, fa_raw(jq, jk, jv, causal=causal, block_q=32, block_k=32,
+                       interpret=True), "float32")
+
+
+def test_flash_attention_wrapper_rejects_non_cpu_non_cuda():
+    q = torch.zeros((1, 8, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        trn.rmsnorm(torch.zeros((4, 16), device="meta"),
+                    torch.zeros((16,), device="meta"))
+
+
+# -- K2: RMSNorm --------------------------------------------------------------
+@pytest.mark.parametrize("shape,dtype", [
+    ((4, 37, 128), "bfloat16"),
+    ((8, 256), "float32"),
+    ((1, 1, 512), "float32"),
+    ((7, 384), "float32"),
+    ((7, 384), "bfloat16"),
+])
+def test_rmsnorm_plain_matches_pallas(shape, dtype):
+    (jx,), (x,) = _inputs(2, [shape], dtype)
+    (jw,), (w,) = _inputs(3, [shape[-1:]], "float32")
+    out = trn.rmsnorm(x, w)
+    assert out.dtype == x.dtype and out.shape == x.shape
+    tol = (2e-5, 2e-5)
+    _close(out, rn_raw(jx, jw, interpret=True), dtype, fp32_tol=tol)
+    _close(tref.rmsnorm_ref(x, w), jref.rmsnorm_ref(jx, jw), dtype, fp32_tol=tol)
+
+
+# -- ops on the CPU -------------------------------------------------------------
+def test_ops_take_plain_paths_on_cpu_and_count_nothing():
+    reset_launch_counts()
+    (jq, jk, jv), (q, k, v) = _inputs(
+        4, [(1, 64, 4, 32), (1, 64, 2, 32), (1, 64, 2, 32)], "float32")
+    _close(tops.flash_attention(q, k, v), jops.flash_attention(jq, jk, jv),
+           "float32")
+    (jx,), (x,) = _inputs(5, [(3, 5, 64)], "bfloat16")
+    (jw,), (w,) = _inputs(6, [(64,)], "bfloat16")
+    _close(tops.rmsnorm(x, w), jops.rmsnorm(jx, jw), "bfloat16")
+    assert launch_counts() == {"flash_attention": 0, "rmsnorm": 0}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ops_flash_attention_q_offset_matches_xla_flash(dtype):
+    (jq, jk, jv), (q, k, v) = _inputs(
+        7, [(2, 16, 4, 32), (2, 48, 2, 32), (2, 48, 2, 32)], dtype)
+    got = tops.flash_attention(q, k, v, causal=True, q_offset=32)
+    want = flash_attention_xla(jq, jk, jv, causal=True, q_offset=32)
+    _close(got, want, dtype)
