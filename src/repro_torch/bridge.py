@@ -21,11 +21,13 @@ def _to_tensor(a, device):
 
 
 def params_from_jax(tree, device=None):
-    """Nested dicts of numpy arrays (the reference's param layout) -> the
-    port's params: the same nesting, as tensors on ``device``."""
+    """Nested dicts and lists of numpy arrays (the reference's param layout)
+    -> the port's params: the same nesting, as tensors on ``device``."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_jax(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_jax(v, dev) for v in tree]
     return _to_tensor(tree, dev)
 
 
@@ -37,5 +39,10 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def cache_to_numpy(caches: dict) -> dict:
-    return {k: to_numpy(v) for k, v in caches.items()}
+def cache_to_numpy(caches):
+    """Nested dicts and lists of tensors -> the same nesting of arrays."""
+    if isinstance(caches, dict):
+        return {k: cache_to_numpy(v) for k, v in caches.items()}
+    if isinstance(caches, (list, tuple)):
+        return [cache_to_numpy(v) for v in caches]
+    return to_numpy(caches)

@@ -22,11 +22,17 @@
 // skipped, which leaves every row that sees at least one key unchanged. GQA
 // maps q head h to kv head h / (H / KV).
 //
-// Bound on this card: at the serving shapes (bf16, d = 128, causal) the
-// least time is set by the bytes (q, k, v, out and lse once each) at
-// 3.35 TB/s, just above the bf16 tensor-core operation time. This simple
-// kernel does its products with fp32 FMAs from shared memory and is far
-// from that bound; wgmma and TMA come in a later change.
+// Shared memory: at D = 256 a block needs 115,968 bytes in bf16 and
+// 215,296 in fp32, under the 232,448 a block may opt in to, so one block
+// runs per SM there; each thread then holds 4 x 16 accumulators.
+//
+// Bound on this card: at the dense serving shapes (bf16, d = 128, causal,
+// 512 positions) the least time is set by the bytes (q, k, v, out and lse
+// once each) at 3.35 TB/s, just above the bf16 tensor-core operation time;
+// at the hybrid shapes (d = 256, 4096 positions, window 2048) the
+// operations inside the window set it. This simple kernel does its
+// products with fp32 FMAs from shared memory and is far from either bound;
+// wgmma and TMA come in a later change.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -218,6 +224,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, voi
     case 32: return launch<T, 32>(q, k, v, o, lse, B, S, Tk, H, KV, scale, causal, window, stream);
     case 64: return launch<T, 64>(q, k, v, o, lse, B, S, Tk, H, KV, scale, causal, window, stream);
     case 128: return launch<T, 128>(q, k, v, o, lse, B, S, Tk, H, KV, scale, causal, window, stream);
+    case 256: return launch<T, 256>(q, k, v, o, lse, B, S, Tk, H, KV, scale, causal, window, stream);
     default: return cudaErrorInvalidValue;
   }
 }

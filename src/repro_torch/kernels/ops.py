@@ -9,6 +9,7 @@ backward comes with the training path.
 from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rglru as _rg
 from repro_torch.kernels import rmsnorm as _rn
 
 
@@ -20,6 +21,10 @@ def flash_attention(q, k, v, causal=True, window=0, q_offset=0):
                                    q_offset=q_offset)
     out, _ = _fa.flash_attention(q, k, v, causal=causal, window=window)
     return out
+
+
+def rglru_scan(a, b, h0=None):
+    return _rg.rglru_scan(a, b, h0)
 
 
 def rmsnorm(x, w, eps=1e-6):

@@ -11,15 +11,21 @@ writes one position of it and returns the same dict. Writing past
 ``max_len`` raises, where the reference's ``dynamic_update_slice`` would
 clamp the position and overwrite the last slot.
 
-Only the dense family is ported: MoE comes with ROADMAP item M11, and so do
-the sliding-window ring-buffer cache of the hybrid family and VLM patches.
+``apply_attn`` also serves the hybrid family's local attention
+(``window > 0``, ``models/recurrent.py``) with its ring-buffer cache. The
+dense family is the only one built here: MoE and VLM patches come with
+ROADMAP item M11.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (
+    NEG_INF,
+    _repeat_kv,
     apply_mlp,
     apply_rope,
     attention,
@@ -38,7 +44,7 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def check_family(cfg: ModelConfig):
     """Raise for a model family the port does not run yet."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP M11)")
 
@@ -67,12 +73,14 @@ def _impl(cfg: ModelConfig) -> str:
 
 
 def apply_attn(p, x, cfg: ModelConfig, *, pos0: int, cache: dict | None = None,
-               layer: int = 0):
+               window: int = 0):
     """Returns the attention output. x: (B,S,D) at positions pos0 .. pos0+S-1.
 
-    With ``cache`` (stacked (L, B, max_len, ...) tensors), layer ``layer``'s
-    k/v are written at ``pos0`` in place and attention reads the whole cached
-    sequence, rounded to the cache's dtype, as the reference does."""
+    ``cache`` holds this layer's tensors, written in place. Dense: k/v of
+    (B, max_len, ...) are written at ``pos0`` and attention reads the whole
+    cached sequence, rounded to the cache's dtype, as the reference does.
+    ``window > 0``: a ring buffer of ``window`` slots with their absolute
+    positions (``pos``, -1 where empty); see ``_apply_window_cache``."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     dt = x.dtype
@@ -90,31 +98,79 @@ def apply_attn(p, x, cfg: ModelConfig, *, pos0: int, cache: dict | None = None,
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
-    if cache is not None:
-        max_len = cache["k"].shape[2]
-        if pos0 < 0 or pos0 + s > max_len:
-            raise ValueError(f"positions {pos0}..{pos0 + s - 1} do not fit a "
-                             f"cache of {max_len}")
-        sl = slice(pos0, pos0 + s)
-        if cfg.kv_quant:
-            # int8 KV cache with per-(token, head) max-abs bf16 scales.
-            kq, ks = _kv_quantize(k)
-            vq, vs = _kv_quantize(v)
-            cache["k"][layer, :, sl] = kq
-            cache["v"][layer, :, sl] = vq
-            cache["k_scale"][layer, :, sl] = ks
-            cache["v_scale"][layer, :, sl] = vs
-            k = cache["k"][layer].to(dt) * cache["k_scale"][layer].to(dt)[..., None]
-            v = cache["v"][layer].to(dt) * cache["v_scale"][layer].to(dt)[..., None]
-        else:
-            cache["k"][layer, :, sl] = k.to(cache["k"].dtype)
-            cache["v"][layer, :, sl] = v.to(cache["v"].dtype)
-            k, v = cache["k"][layer].to(dt), cache["v"][layer].to(dt)
-
-    out = attention(q, k, v, impl=_impl(cfg), causal=True,
-                    q_offset=pos0)
+    if cache is not None and window > 0:
+        out = _apply_window_cache(q, k, v, cache, cfg, positions, pos0, window)
+    else:
+        if cache is not None:
+            k, v = _write_cache(k, v, cache, cfg, pos0)
+        out = attention(q, k, v, impl=_impl(cfg), causal=True, window=window,
+                        q_offset=pos0)
     out = out.reshape(b, s, cfg.num_heads * hd)
     return out @ p["wo"].to(dt)
+
+
+def _write_cache(k, v, cache, cfg: ModelConfig, pos0: int):
+    """Write k/v at ``pos0`` into the dense cache; return the whole cached
+    k/v in k's dtype."""
+    s, dt = k.shape[1], k.dtype
+    max_len = cache["k"].shape[1]
+    if pos0 < 0 or pos0 + s > max_len:
+        raise ValueError(f"positions {pos0}..{pos0 + s - 1} do not fit a "
+                         f"cache of {max_len}")
+    sl = slice(pos0, pos0 + s)
+    if cfg.kv_quant:
+        # int8 KV cache with per-(token, head) max-abs bf16 scales.
+        kq, ks = _kv_quantize(k)
+        vq, vs = _kv_quantize(v)
+        cache["k"][:, sl] = kq
+        cache["v"][:, sl] = vq
+        cache["k_scale"][:, sl] = ks
+        cache["v_scale"][:, sl] = vs
+        return (cache["k"].to(dt) * cache["k_scale"].to(dt)[..., None],
+                cache["v"].to(dt) * cache["v_scale"].to(dt)[..., None])
+    cache["k"][:, sl] = k.to(cache["k"].dtype)
+    cache["v"][:, sl] = v.to(cache["v"].dtype)
+    return cache["k"].to(dt), cache["v"].to(dt)
+
+
+def _apply_window_cache(q, k, v, cache, cfg: ModelConfig, positions, pos0: int,
+                        window: int):
+    """Local attention with a ring-buffer cache. Decode (S == 1) writes slot
+    ``pos0 % window`` and attends over the buffer by absolute position;
+    prefill attends over the prompt with the window mask (K1 on the card)
+    and fills the buffer from its last ``min(S, window)`` positions. The
+    buffer is bf16 (the reference's int8 branch never sees it)."""
+    s, dt = q.shape[1], q.dtype
+    if s == 1:
+        slot = pos0 % window
+        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        cache["pos"][:, slot] = pos0
+        return _window_cache_attention(q, cache["k"].to(dt), cache["v"].to(dt),
+                                       cache["pos"], pos0, window)
+    out = attention(q, k, v, impl=_impl(cfg), causal=True, window=window,
+                    q_offset=pos0)
+    wlen = min(s, window)
+    slots = positions[-wlen:] % window
+    cache["k"][:, slots] = k[:, -wlen:].to(cache["k"].dtype)
+    cache["v"][:, slots] = v[:, -wlen:].to(cache["v"].dtype)
+    cache["pos"][:, slots] = positions[-wlen:].to(cache["pos"].dtype)
+    return out
+
+
+def _window_cache_attention(q, k, v, kpos, cur_pos: int, window: int):
+    """Attention over a ring-buffer cache with absolute-position masking.
+    q: (B,S,H,hd); k, v: (B,W,KV,hd); kpos: (B,W). Scores in q's dtype,
+    then fp32; probabilities rounded to q's dtype, as the reference."""
+    h, hd = q.shape[2], q.shape[3]
+    k = _repeat_kv(k, h // k.shape[2])
+    v = _repeat_kv(v, h // v.shape[2])
+    sc = torch.einsum("bshd,bthd->bhst", q, k).float() / math.sqrt(hd)
+    kp = kpos[:, None, None, :]
+    valid = (kp <= cur_pos) & (kp > cur_pos - window)
+    sc = torch.where(valid, sc, NEG_INF)
+    pr = torch.softmax(sc, dim=-1).to(q.dtype)
+    return torch.einsum("bhst,bthd->bshd", pr, v)
 
 
 def init_block(gen, cfg: ModelConfig, dtype=torch.float32, device=None,
@@ -128,9 +184,9 @@ def init_block(gen, cfg: ModelConfig, dtype=torch.float32, device=None,
     }
 
 
-def apply_block(p, x, cfg: ModelConfig, *, pos0: int, cache=None, layer=0):
+def apply_block(p, x, cfg: ModelConfig, *, pos0: int, cache=None):
     h = apply_attn(p["attn"], rms_norm(x, p["ln1"].to(x.dtype), cfg.norm_eps),
-                   cfg, pos0=pos0, cache=cache, layer=layer)
+                   cfg, pos0=pos0, cache=cache)
     x = x + h
     h = rms_norm(x, p["ln2"].to(x.dtype), cfg.norm_eps)
     return x + apply_mlp(p["mlp"], h, gated=cfg.gated_mlp)
@@ -153,6 +209,8 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 
 
 def _layer(tree, i: int):
+    """Layer ``i`` of a dict of stacked tensors: views, so writes to a
+    cache's layer land in the stacked cache."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
@@ -161,7 +219,7 @@ def _layer(tree, i: int):
 def _run_blocks(params, x, cfg: ModelConfig, *, pos0: int, caches=None):
     for i in range(cfg.num_layers):
         x = apply_block(_layer(params["blocks"], i), x, cfg, pos0=pos0,
-                        cache=caches, layer=i)
+                        cache=None if caches is None else _layer(caches, i))
     return x
 
 

@@ -33,6 +33,13 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+def test_checked_files_cover_every_kernel_and_model_module():
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES
+             if "repro_torch" in p.parts}
+    assert {"models/recurrent.py", "models/transformer.py", "kernels/rglru.py",
+            "kernels/flash_attention.py", "kernels/rmsnorm.py"} <= names
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from repro_torch import bridge

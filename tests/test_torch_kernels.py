@@ -14,6 +14,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as fa_raw
+from repro.kernels.rglru import rglru_scan as rg_raw
 from repro.kernels.rmsnorm import rmsnorm as rn_raw
 from repro.models.common import _flash_fwd_impl, flash_attention_xla
 from repro_torch import bridge
@@ -21,6 +22,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rglru as trg
 from repro_torch.kernels import rmsnorm as trn
 
 FA_SHAPES = [
@@ -75,6 +77,23 @@ def test_flash_attention_plain_matches_pallas_and_oracle(b, s, h, kv, d, tk,
     np.testing.assert_allclose(_f32(lse), _f32(jlse), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kv,tk,win", [
+    (1, 80, 10, 1, 80, 32),           # recurrentgemma's MQA, S > window
+    (2, 70, 4, 2, 70, 0),
+])
+def test_flash_attention_plain_head_dim_256(b, s, h, kv, tk, win, dtype):
+    """d = 256, the hybrid family's head dim, against the Pallas kernel."""
+    (jq, jk, jv), (q, k, v) = _inputs(
+        8, [(b, s, h, 256), (b, tk, kv, 256), (b, tk, kv, 256)], dtype)
+    out, lse = tfa.flash_attention(q, k, v, causal=True, window=win)
+    _close(out, fa_raw(jq, jk, jv, causal=True, window=win, block_q=32,
+                       block_k=32, interpret=True), dtype)
+    up = [x.astype(jnp.float32) for x in (jq, jk, jv)]
+    _, jlse = _flash_fwd_impl(*up, 0, True, win, 32, 32)
+    np.testing.assert_allclose(_f32(lse), _f32(jlse), atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_plain_non_causal_and_gqa(causal):
     (jq, jk, jv), (q, k, v) = _inputs(
@@ -111,6 +130,35 @@ def test_rmsnorm_plain_matches_pallas(shape, dtype):
     _close(tref.rmsnorm_ref(x, w), jref.rmsnorm_ref(jx, jw), dtype, fp32_tol=tol)
 
 
+# -- K3: RG-LRU scan -----------------------------------------------------------
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("b,s,c", [
+    (2, 100, 96), (1, 257, 64), (3, 16, 300),      # test_kernels.py's shapes
+    (2, 1, 8), (1, 33, 130), (3, 128, 8),          # its sweep's sizes
+])
+def test_rglru_scan_plain_matches_pallas_and_oracle(b, s, c, with_h0):
+    rng = np.random.default_rng(9)
+    ja = jnp.asarray(rng.uniform(0.0, 0.999, (b, s, c)), jnp.float32)
+    (jb, jh0), (tb, th0) = _inputs(10, [(b, s, c), (b, c)], "float32")
+    ta = bridge.params_from_jax(np.asarray(ja), "cpu")
+    jh0, th0 = (jh0, th0) if with_h0 else (None, None)
+    out = trg.rglru_scan(ta, tb, th0)
+    assert out.dtype == torch.float32 and out.shape == (b, s, c)
+    want = jref.rglru_scan_ref(ja, jb, jh0)
+    np.testing.assert_allclose(_f32(out), _f32(want), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(
+        _f32(out), _f32(rg_raw(ja, jb, jh0, block_c=64, block_t=64,
+                               interpret=True)), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(_f32(tref.rglru_scan_ref(ta, tb, th0)),
+                               _f32(want), atol=1e-5, rtol=1e-5)
+
+
+def test_rglru_scan_wrapper_rejects_non_cpu_non_cuda():
+    a = torch.zeros((1, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        trg.rglru_scan(a, a)
+
+
 # -- ops on the CPU -------------------------------------------------------------
 def test_ops_take_plain_paths_on_cpu_and_count_nothing():
     reset_launch_counts()
@@ -121,7 +169,13 @@ def test_ops_take_plain_paths_on_cpu_and_count_nothing():
     (jx,), (x,) = _inputs(5, [(3, 5, 64)], "bfloat16")
     (jw,), (w,) = _inputs(6, [(64,)], "bfloat16")
     _close(tops.rmsnorm(x, w), jops.rmsnorm(jx, jw), "bfloat16")
-    assert launch_counts() == {"flash_attention": 0, "rmsnorm": 0}
+    (ja, jb, jh0), (a, b, h0) = _inputs(11, [(2, 20, 16), (2, 20, 16), (2, 16)],
+                                        "float32")
+    np.testing.assert_allclose(_f32(tops.rglru_scan(a * 0.5, b, h0)),
+                               _f32(jops.rglru_scan(ja * 0.5, jb, jh0)),
+                               atol=1e-5, rtol=1e-5)
+    assert launch_counts() == {"flash_attention": 0, "rmsnorm": 0,
+                               "rglru_scan": 0}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
