@@ -8,26 +8,32 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
 
 1. the card's name and power limit; float32 matmuls and convolutions in full
    float32 (TF32 off);
-2. build the kernels from the checkout (K1 flash attention and K3 the RG-LRU
-   scan with ``nvcc`` for sm_90a, one process each, started together; K2
-   RMSNorm with Triton) and hold each against its plain version on the
-   card: fp32 within 2e-5, bf16 within 2e-2, the scan within 1e-5
-   (``tests/test_kernels.py``), at the tests' shapes and at the serving
-   shapes of both paths;
+2. build the kernels from the checkout (K1 flash attention's two sources,
+   the sm90 kernel for bf16 at head dim 64-256 and the SIMT kernel for the
+   rest, and K3 the RG-LRU scan, with ``nvcc`` for sm_90a, one process each,
+   started together; K2 RMSNorm with Triton), report each library's
+   ptxas lines and its HGMMA / UTMALDG / SYNCS instruction counts from
+   ``cuobjdump -sass``, and hold each kernel against its plain version on
+   the card: fp32 within 2e-5, bf16 within 2e-2, the LSE within 2e-5, the
+   scan within 1e-5 (``tests/test_kernels.py``), at the tests' shapes, at
+   non-causal shapes with T != S, on strided views (sm90 route) and at the
+   serving shapes of both paths, each check naming its route;
 3. serve llama3-8b at its published width (32 layers, d_model 4096, vocab
    128256; random weights from a seed): prefill 4 x 512 tokens, then 16
    greedy decode steps through ``repro_torch.launch.serve``, counting kernel
-   launches: K1 32 per prefill and 0 per decode step, K2 65 per step; then
+   launches: K1 32 per prefill (all 32 on the sm90 kernel) and 0 per decode
+   step, K2 65 per step; then
    one prefill and two decode steps under ``torch.profiler``: device time by
    kernel and the card's idle share; teacher forcing at full width
    (``forward`` over 513 tokens against prefill(512) + decode(1), relative
    L2 of the last logits <= 3e-2); the reduced config on the card against
-   the CPU with the same weights, logits within 3e-2;
+   the CPU with the same weights, logits within 3e-2 (head dim 16: K1 takes
+   the SIMT kernel, no sm90 launch);
 4. the same for recurrentgemma-2b at its published width (26 layers: 18
    RG-LRU and 8 local attention with window 2048, d_model 2560, head dim
    256, vocab 256000): prefill 4 x 4096 tokens (longer than the window, so
-   the ring buffer wraps), 16 decode steps, launches K1 8 / K2 53 / K3 18
-   per prefill and 0 / 53 / 0 per decode step; the profile; teacher
+   the ring buffer wraps), 16 decode steps, launches K1 8 (all sm90) / K2
+   53 / K3 18 per prefill and 0 / 53 / 0 per decode step; the profile; teacher
    forcing at batch 1 over 4097 tokens (rel. L2 <= 1e-1 with bf16
    activations, the reference's own bound, and <= 3e-2 with fp32
    activations); the reduced config (40-token prompt, window 32) on the
@@ -36,7 +42,9 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    bound, its plain version's time and one PyTorch library call's time
    where one computes the same function (``ms`` with the launch queue
    filled first, so the card's time alone; ``host_ms`` as issued one call
-   after another from Python).
+   after another from Python); K1's rows also time the SIMT kernel at the
+   same shapes (``previous_ms``) and give the achieved TFLOP/s and
+   ``bound_ms / ms``.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` last. Exits non-zero, without that last
@@ -48,6 +56,9 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
+import shutil
+import subprocess
 import sys
 import time
 import traceback
@@ -101,10 +112,10 @@ def main() -> int:
 
     state: dict = {"card": card}
     failed = []
-    for phase in (phase_kernels, phase_serve, phase_profile, phase_teacher_forcing,
-                  phase_card_vs_cpu, phase_hybrid_serve, phase_hybrid_profile,
-                  phase_hybrid_teacher_forcing, phase_hybrid_card_vs_cpu,
-                  phase_times):
+    phases = (phase_kernels, phase_serve, phase_profile, phase_teacher_forcing,
+              phase_card_vs_cpu, phase_hybrid_serve, phase_hybrid_profile,
+              phase_hybrid_teacher_forcing, phase_hybrid_card_vs_cpu, phase_times)
+    for phase in phases:
         t0 = time.perf_counter()
         try:
             phase(state)
@@ -168,15 +179,17 @@ def phase_kernels(state):
     from repro_torch.kernels import rglru as rg
     from repro_torch.kernels import rmsnorm as rn
 
+    sources = ["flash_attention_sm90", "flash_attention", "rglru_scan"]
     t0 = time.perf_counter()
-    _build.build(["flash_attention", "rglru_scan"])
+    libs = _build.build(sources)
     build_s = time.perf_counter() - t0
     emit(build={f"{name}.cu": {
         "nvcc_seconds_all": build_s,
         "ptxas": [ln.split("ptxas info    : ")[-1]
                   for ln in _build.build_log(name).splitlines()
-                  if "Used" in ln or "spill" in ln]}
-        for name in ("flash_attention", "rglru_scan")})
+                  if "Used" in ln or "spill" in ln or "C7508" in ln],
+        "sass_counts": _sass_counts(libs[name])}
+        for name in sources})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = []
@@ -187,6 +200,9 @@ def phase_kernels(state):
     seq = FA_TEST_SHAPES + [(BATCH, PROMPT, 32, 8, 128, PROMPT, 0),
                             (BATCH, PROMPT, 32, 8, 128, PROMPT + GEN, 0),
                             (2, 130, 4, 2, 16, 130, None),
+                            (2, 200, 8, 2, 64, 300, None),
+                            (1, 300, 4, 1, 128, 130, None),
+                            (1, 130, 2, 1, 256, 200, None),
                             (2, 300, 10, 1, 256, 300, 128), hyb]
     for b, s, h, kv, d, t, win in seq:
         causal = win is not None
@@ -206,11 +222,31 @@ def phase_kernels(state):
             name = f"flash_attention{(b, s, h, kv, d, t, win)} {dn}"
             e = _check(name, out, p_out, TOL[dn], errs)
             el = _check(name + " lse", lse, p_lse, TOL["float32"], [])
-            checks.append({"kernel": "flash_attention", "shape": [b, s, h, kv, d, t],
+            checks.append({"kernel": "flash_attention", "route": fa.route(dt, d),
+                           "shape": [b, s, h, kv, d, t],
                            "window": win, "causal": causal, "dtype": dn,
                            "max_abs_err": e, "lse_max_abs_err": el,
                            "tol": TOL[dn]})
             del q, k, v, out, lse, p_out, p_lse
+    # the sm90 kernel reads views through their strides: q from a packed QKV
+    # projection, k and v from a packed cache longer than T (llama3-8b shape)
+    b, s, h, kv, d, t = BATCH, PROMPT, 32, 8, 128, PROMPT + GEN
+    qkv = _randn(gen, (b, s, h + 2 * kv, d), torch.bfloat16)
+    cache = _randn(gen, (b, t + 64, 2, kv, d), torch.bfloat16)
+    q, k, v = qkv[:, :, :h], cache[:, :t, 0], cache[:, :t, 1]
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    out, lse = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    p_out, p_lse = fa.flash_attention_plain(q, k, v, causal=True)
+    name = f"flash_attention{(b, s, h, kv, d, t, 0)} bfloat16 strided views"
+    checks.append({"kernel": "flash_attention", "route": fa.route(q.dtype, d),
+                   "shape": [b, s, h, kv, d, t], "window": 0, "causal": True,
+                   "dtype": "bfloat16", "layout": "strided views",
+                   "max_abs_err": _check(name, out, p_out, TOL["bfloat16"], []),
+                   "lse_max_abs_err": _check(name + " lse", lse, p_lse,
+                                             TOL["float32"], []),
+                   "tol": TOL["bfloat16"]})
+    del qkv, cache, q, k, v, out, lse, p_out, p_lse
     t1 = time.perf_counter()
     first = True
     for shape, dn in RN_TEST_SHAPES + [((BATCH, PROMPT, 4096), "bfloat16"),
@@ -250,6 +286,18 @@ def phase_kernels(state):
     emit(kernel_checks=checks)
     state["serving_err"] = {k: max(v) for k, v in serving_errs.items()}
     torch.cuda.empty_cache()
+
+
+def _sass_counts(so):
+    """HGMMA (wgmma), UTMALDG (TMA load) and SYNCS (mbarrier) instructions in
+    ``cuobjdump -sass`` of the built library, where the toolkit has it."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return None
+    sass = subprocess.run([exe, "-sass", str(so)], capture_output=True, text=True,
+                          timeout=300).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HGMMA", "UTMALDG", "SYNCS")}
 
 
 # -- phase 3 and 4: the two serving paths ---------------------------------------
@@ -296,16 +344,19 @@ def _serve(state, arch, prompt, expect):
 def phase_serve(state):
     n = 32
     state[ARCH] = _serve(state, ARCH, PROMPT, {
-        "prefill": {"flash_attention": n, "rmsnorm": 2 * n + 1, "rglru_scan": 0},
-        "decode": {"flash_attention": 0, "rmsnorm": 2 * n + 1, "rglru_scan": 0}})
+        "prefill": {"flash_attention": n, "flash_attention_sm90": n,
+                    "rmsnorm": 2 * n + 1, "rglru_scan": 0},
+        "decode": {"flash_attention": 0, "flash_attention_sm90": 0,
+                   "rmsnorm": 2 * n + 1, "rglru_scan": 0}})
 
 
 def phase_hybrid_serve(state):
     n, attn, rec = 26, 8, 18
     state[HYB_ARCH] = _serve(state, HYB_ARCH, HYB_PROMPT, {
-        "prefill": {"flash_attention": attn, "rmsnorm": 2 * n + 1,
-                    "rglru_scan": rec},
-        "decode": {"flash_attention": 0, "rmsnorm": 2 * n + 1, "rglru_scan": 0}})
+        "prefill": {"flash_attention": attn, "flash_attention_sm90": attn,
+                    "rmsnorm": 2 * n + 1, "rglru_scan": rec},
+        "decode": {"flash_attention": 0, "flash_attention_sm90": 0,
+                   "rmsnorm": 2 * n + 1, "rglru_scan": 0}})
 
 
 def _kernel_table(prof, wall_ms, steps):
@@ -424,10 +475,12 @@ def _to(tree, dev):
 def _card_vs_cpu(arch, prompt, steps=4):
     """The reduced config with the same weights, kernels on the card and
     plain PyTorch on the CPU: prefill and ``steps`` decode steps, logits
-    within 3e-2."""
+    within 3e-2. The reduced configs' head dim is 16, so K1 takes the SIMT
+    kernel: launches there, none on the sm90 kernel."""
     import torch
 
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
     from repro_torch.models import build_model
     from repro_torch.train.serve import make_serve_fns
@@ -439,6 +492,7 @@ def _card_vs_cpu(arch, prompt, steps=4):
     pre_c, dec_c = make_serve_fns(api, "cpu")
     pre_g, dec_g = make_serve_fns(api, "cuda")
     toks = serve.synthetic_prompts(cfg, 2, prompt, seed=1, device="cpu")
+    reset_launch_counts()
     lc, cc = pre_c(p_cpu, {"tokens": toks}, prompt + steps)
     lg, cg = pre_g(p_gpu, {"tokens": toks}, prompt + steps)
     pairs = [(lg, lc)]
@@ -447,13 +501,16 @@ def _card_vs_cpu(arch, prompt, steps=4):
         lc, cc = dec_c(p_cpu, cc, tok, prompt + i)
         lg, cg = dec_g(p_gpu, cg, tok, prompt + i)
         pairs.append((lg, lc))
+    counts = launch_counts()
     errs = [_max_err(g.cpu(), c) for g, c in pairs]
     ok = all(torch.allclose(g.cpu().float(), c.float(), atol=3e-2, rtol=3e-2)
              for g, c in pairs)
     emit(card_vs_cpu={"arch": f"{arch} reduced", "prompt_len": prompt,
                       "steps": ["prefill"] + ["decode"] * steps,
-                      "max_abs_err": errs, "tol": 3e-2})
+                      "max_abs_err": errs, "tol": 3e-2, "launches": counts})
     assert ok, f"card and CPU logits differ beyond 3e-2: {errs}"
+    assert counts["flash_attention"] > 0 and counts["flash_attention_sm90"] == 0, (
+        f"reduced {arch}: K1 launches {counts}, expected SIMT only")
 
 
 def phase_card_vs_cpu(state):
@@ -502,7 +559,10 @@ def _bound(nbytes, ops, dtype_name):
 
 
 def _time_flash(state, gen, path, b, s, h, kvh, d, t, window, iters):
-    """K1's row at q (b,s,h,d), k/v (b,t,kvh,d), bf16, causal, ``window``."""
+    """K1's row at q (b,s,h,d), k/v (b,t,kvh,d), bf16, causal, ``window``:
+    the sm90 kernel that the serving path runs, and beside it the earlier
+    SIMT kernel at the same shape (``previous_ms``, launched directly
+    through its route; not on the main path)."""
     import torch
     import torch.nn.functional as F
 
@@ -516,8 +576,13 @@ def _time_flash(state, gen, path, b, s, h, kvh, d, t, window, iters):
     def kern(q, k, v):
         return fa.flash_attention(q, k, v, causal=True, window=window)
 
+    def simt(q, k, v):
+        return fa.run_kernel("simt", q, k, v, causal=True, window=window)
+
     ms = _time_ms(kern, sets, iters)
     host_ms = _time_ms(kern, sets, iters, queued=False)
+    previous_ms = _time_ms(simt, sets, max(5, iters // 4))
+    ms_again = _time_ms(kern, sets, iters)
     plain_ms = _time_ms(lambda q, k, v: fa.flash_attention_plain(
         q, k, v, causal=True, window=window), sets, 5)
     # SDPA with the KV heads expanded; is_causal has no window, so a window
@@ -537,19 +602,27 @@ def _time_flash(state, gen, path, b, s, h, kvh, d, t, window, iters):
 
     lib_ms = _time_ms(lib, lib_sets, iters)
     lib_err = _max_err(lib(*lib_sets[0]).transpose(1, 2), kern(*sets[0])[0])
+    prev_err = _max_err(simt(*sets[0])[0], kern(*sets[0])[0])
     w = window or t
     pairs = sum(min(i + 1, t, w) for i in range(s))       # unmasked (q, k) pairs
+    ops = 4 * d * pairs * b * h
     nbytes = 2 * (2 * b * s * h * d + 2 * b * t * kvh * d) + 4 * b * h * s
-    bound_ms, bound_by = _bound(nbytes, 4 * d * pairs * b * h, "bfloat16")
+    bound_ms, bound_by = _bound(nbytes, ops, "bfloat16")
     run = state[path]
     return {"name": "flash_attention", "route": "cuda", "path": path,
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
             "replaces": "src/repro/kernels/flash_attention.py:76",
-            "launches": run["launches"]["flash_attention"],
+            "launches": run["launches"]["flash_attention_sm90"],
             "max_abs_err": state["serving_err"][
                 "flash_attention" if path == ARCH else "flash_attention_hybrid"],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms, "host_ms": host_ms,
+            "ms_second_pass": ms_again, "previous_ms": previous_ms,
+            "previous_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "previous_max_abs_diff": prev_err,
+            "tflops": ops / (ms * 1e-3) / 1e12,
+            "previous_tflops": ops / (previous_ms * 1e-3) / 1e12,
+            "bound_fraction": bound_ms / ms,
             "shape": {"q": [b, s, h, d], "kv": [b, t, kvh, d],
                       "dtype": "bfloat16", "causal": True, "window": window},
             "library": "F.scaled_dot_product_attention, KV heads expanded"

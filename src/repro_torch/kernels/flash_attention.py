@@ -1,13 +1,19 @@
-"""Flash attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention forward: the CUDA kernels' wrapper and its plain version.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
-(``flash_attention``, body ``_attn_kernel``). The kernel is
-``csrc/flash_attention.cu`` (see its note for the design and what bounds
-it), built with ``nvcc`` at first use and called through ``ctypes``.
+(``flash_attention``, body ``_attn_kernel``) with two hand-written kernels,
+each built with ``nvcc`` at first use and called through ``ctypes``
+(see each source's note for its design and what bounds it):
 
-``flash_attention`` launches the kernel on a CUDA tensor and runs the plain
+- ``csrc/flash_attention_sm90.cu``: bf16 with head dim 64, 128 or 256, a
+  warp-specialised kernel with TMA loads and wgmma products (route "sm90");
+- ``csrc/flash_attention.cu``: every other call, fp32 or head dim 16 or 32,
+  a SIMT kernel with fp32 FMAs (route "simt").
+
+``flash_attention`` launches a kernel on a CUDA tensor and runs the plain
 version on a CPU tensor; it never falls back from one to the other. Each
-launch adds one to the module's ``launches`` count.
+launch adds one to the module's ``launches`` count, and a launch of the
+sm90 kernel also to ``launches_sm90``.
 """
 from __future__ import annotations
 
@@ -20,22 +26,65 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0          # kernel launches since the last reset
-_fn = None
+SM90_HEAD_DIMS = (64, 128, 256)
+TMA_ALIGN = 16        # bytes: TMA's base-pointer and stride granule
+
+launches = 0          # kernel launches since the last reset, both routes
+launches_sm90 = 0     # of which the sm90 kernel
+_fns: dict = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(route_name: str):
+    if route_name not in _fns:
         from repro_torch.kernels import _build
 
-        fn = _build.load("flash_attention").repro_flash_attention_fwd
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, ctypes.c_float,
-                       i, i, vp]
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if route_name == "sm90":
+            fn = _build.load("flash_attention_sm90").repro_flash_attention_sm90_fwd
+            fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, vp, vp, vp, f,
+                           i, i, vp]
+        else:
+            fn = _build.load("flash_attention").repro_flash_attention_fwd
+            fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, f, i, i, vp]
         fn.restype = i
-        _fn = fn
-    return _fn
+        _fns[route_name] = fn
+    return _fns[route_name]
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel a CUDA call takes: "sm90" for bf16 at head dim 64, 128 or
+    256, "simt" for everything else (fp32, head dim 16 or 32)."""
+    return "sm90" if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS else "simt"
+
+
+def check_tma_layout(t: torch.Tensor, name: str = "tensor") -> None:
+    """Raise ``ValueError`` unless TMA can read ``t`` as it lies: its base
+    pointer 16-byte aligned, its last dim contiguous, and every other stride
+    a multiple of 16 bytes."""
+    size = t.element_size()
+    if t.data_ptr() % TMA_ALIGN:
+        raise ValueError(f"flash_attention: {name}'s base pointer is not "
+                         f"{TMA_ALIGN}-byte aligned (offset {t.data_ptr() % TMA_ALIGN})")
+    if t.stride(-1) != 1:
+        raise ValueError(f"flash_attention: {name}'s last dim is not contiguous")
+    bad = [st * size for st in t.stride()[:-1] if (st * size) % TMA_ALIGN]
+    if bad:
+        raise ValueError(f"flash_attention: {name}'s strides {bad} bytes are not "
+                         f"multiples of {TMA_ALIGN}")
+
+
+def check_layout(route_name: str, q, k, v) -> None:
+    """Raise ``ValueError`` unless the kernel of ``route_name`` can read q, k
+    and v as they lie. The sm90 kernel reads them through TMA tensor maps
+    built from their strides, so views such as slices of a packed QKV
+    projection or of a longer cache need no copy (``check_tma_layout``);
+    the SIMT kernel indexes them as contiguous tensors."""
+    if route_name == "sm90":
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            check_tma_layout(x, name)
+    elif not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: the SIMT kernel (fp32, or head dim "
+                         "16 or 32) takes contiguous q, k, v")
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
@@ -81,34 +130,56 @@ def _check(q, k, v):
                          f"k/v {tuple(k.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k, v must be contiguous")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B,S,H,d); k, v: (B,T,KV,d) -> (out (B,S,H,d), lse (B,H,S) fp32).
-
-    CUDA tensors go to the kernel, CPU tensors to ``flash_attention_plain``;
-    tensors elsewhere raise."""
-    global launches
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    _check(q, k, v)
+def run_kernel(route_name, q, k, v, *, causal: bool = True, window: int = 0):
+    """Launch the kernel of ``route_name`` ("sm90" or "simt") on CUDA tensors
+    that ``_check`` accepts, count the launch, and return (out, lse), both
+    contiguous."""
+    global launches, launches_sm90
     b, s, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if b == 0 or s == 0:
         return out, lse
     if t == 0:
         raise ValueError("flash_attention: empty key sequence")
-    fn = _kernel()
+    if route_name == "sm90" and route(q.dtype, d) != "sm90":
+        raise ValueError(f"flash_attention: the sm90 kernel takes bf16 at head "
+                         f"dim {SM90_HEAD_DIMS} (got {q.dtype}, {d})")
+    check_layout(route_name, q, k, v)
+    fn = _kernel(route_name)
+    scale = 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), b, s, t, h, kvh, d, _DTYPE_CODE[q.dtype],
-                 1.0 / math.sqrt(d), int(causal), int(window), stream)
+        if route_name == "sm90":
+            strides = [(ctypes.c_longlong * 3)(*x.stride()[:3]) for x in (q, k, v)]
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     lse.data_ptr(), b, s, t, h, kvh, d, *strides, scale,
+                     int(causal), int(window), stream)
+        else:
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     lse.data_ptr(), b, s, t, h, kvh, d, _DTYPE_CODE[q.dtype],
+                     scale, int(causal), int(window), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+        what = ("cuTensorMapEncodeTiled not found" if err == -1 else
+                f"tensor map refused, CUresult {-err - 1000}" if err < -1 else
+                f"cudaError {err}")
+        raise RuntimeError(f"flash_attention {route_name} kernel launch failed: {what}")
     launches += 1
+    if route_name == "sm90":
+        launches_sm90 += 1
     return out, lse
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B,S,H,d); k, v: (B,T,KV,d) -> (out (B,S,H,d), lse (B,H,S) fp32).
+
+    CUDA tensors go to the kernel that ``route`` picks, CPU tensors to
+    ``flash_attention_plain``; tensors elsewhere raise."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    _check(q, k, v)
+    return run_kernel(route(q.dtype, q.shape[-1]), q, k, v, causal=causal,
+                      window=window)

@@ -112,6 +112,136 @@ def test_flash_attention_wrapper_rejects_non_cpu_non_cuda():
                     torch.zeros((16,), device="meta"))
 
 
+# -- K1's sm90 route: its numerics, route choice and layout check --------------
+def _sm90_scheme(q, k, v, *, causal, window):
+    """Test-local emulation of ``csrc/flash_attention_sm90.cu``'s arithmetic:
+    128-row q tiles in two 64-row warpgroups, BK = 128 kv rows at d <= 128
+    and 64 at d = 256, the kernel's tile skipping and edge-only masking,
+    online softmax in base 2 with scale * log2(e) folded in, l summed from
+    fp32 p, P rounded to bf16 before P.V, fp32 accumulation."""
+    b, s, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    bq, bk = 128, 64 if d == 256 else 128
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    neg2 = torch.tensor(-1e30, dtype=torch.float32) * log2e
+    scale_log2 = torch.tensor(1.0 / np.sqrt(d), dtype=torch.float32) * log2e
+    heads = torch.arange(h) // (h // kvh)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.zeros((b, s, h, d))
+    lse = torch.zeros((b, h, s))
+    for q0 in range(0, s, bq):
+        k_end = min(t, q0 + bq, s) if causal else t
+        k_begin = max(0, q0 - window + 1) if window > 0 else 0
+        kt_begin = k_begin // bk
+        n_tiles = max(0, -(-k_end // bk) - kt_begin)
+        for qa in (q0, q0 + 64):
+            qb = qa + 63
+            if qa >= s:
+                continue                  # rows the kernel computes, never stores
+            rows = torch.arange(qa, min(qa + 64, s))
+            qq = qf[:, rows]
+            m = torch.full((b, h, len(rows)), neg2.item())
+            l = torch.zeros((b, h, len(rows)))
+            acc = torch.zeros((b, h, len(rows), d))
+            for i in range(n_tiles):
+                k0 = (kt_begin + i) * bk
+                if (causal and k0 > qb) or (window > 0 and k0 + bk - 1 <= qa - window):
+                    continue
+                cols = torch.arange(k0, k0 + bk)
+                valid = cols < t
+                kt = torch.zeros((b, bk, kvh, d))
+                vt = torch.zeros((b, bk, kvh, d))
+                kt[:, valid], vt[:, valid] = kf[:, cols[valid]], vf[:, cols[valid]]
+                sc = torch.einsum("brhd,bchd->bhrc", qq, kt[:, :, heads])
+                if (k0 + bk > t or (causal and k0 + bk - 1 > qa)
+                        or (window > 0 and k0 <= qb - window)):
+                    qpos, kpos = rows[:, None], cols[None, :]
+                    ok = valid[None, :] & torch.ones_like(qpos, dtype=torch.bool)
+                    if causal:
+                        ok &= qpos >= kpos
+                    if window > 0:
+                        ok &= kpos > qpos - window
+                    sc = torch.where(ok, sc * scale_log2, neg2)
+                else:
+                    sc = sc * scale_log2
+                mx = torch.maximum(m, sc.amax(-1))
+                corr = torch.exp2(m - mx)
+                m = mx
+                p = torch.exp2(sc - m[..., None])
+                l = l * corr + p.sum(-1)
+                acc = acc * corr[..., None] + torch.einsum(
+                    "bhrc,bchd->bhrd", p.to(torch.bfloat16).float(), vt[:, :, heads])
+            denom = l.clamp_min(1e-30)
+            out[:, rows] = (acc / denom[..., None]).permute(0, 2, 1, 3)
+            lse[:, :, rows] = m * np.log(2.0) + torch.log(denom)
+    return out.to(torch.bfloat16), lse
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,tk,win", [
+    *[c for c in FA_SHAPES if c[4] >= 64],
+    (2, 300, 10, 1, 256, 300, 128),   # chip_smoke's hybrid-like shape
+    (2, 160, 8, 2, 128, 200, 0),      # d = 128 GQA, T > S
+    # window None: not causal, as in chip_smoke.py
+    (2, 200, 8, 2, 64, 300, None),
+    (1, 300, 4, 1, 128, 130, None),
+    (1, 130, 2, 1, 256, 200, None),
+])
+def test_sm90_scheme_matches_pallas_and_plain(b, s, h, kv, d, tk, win):
+    """The sm90 kernel's numerics, rehearsed on the CPU: output within the
+    bf16 2e-2 of the Pallas kernel, LSE within the fp32 2e-5 of the plain
+    version (``chip_smoke.py``'s tolerances for the kernel on the card)."""
+    (jq, jk, jv), (q, k, v) = _inputs(
+        12, [(b, s, h, d), (b, tk, kv, d), (b, tk, kv, d)], "bfloat16")
+    causal, win = win is not None, win or 0
+    out, lse = _sm90_scheme(q, k, v, causal=causal, window=win)
+    blk = 32 if d == 256 else 64
+    _close(out, fa_raw(jq, jk, jv, causal=causal, window=win, block_q=blk,
+                       block_k=blk, interpret=True), "bfloat16")
+    p_out, p_lse = tfa.flash_attention_plain(q, k, v, causal=causal, window=win)
+    _close(out, p_out, "bfloat16")
+    np.testing.assert_allclose(_f32(lse), _f32(p_lse), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.bfloat16, 256, "sm90"), (torch.bfloat16, 16, "simt"),
+    (torch.bfloat16, 32, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt"), (torch.float32, 256, "simt"),
+    (torch.float32, 16, "simt"),
+])
+def test_flash_attention_route_choice(dtype, d, want):
+    assert tfa.route(dtype, d) == want
+
+
+def test_tma_layout_check_rejects_misalignment_and_odd_strides():
+    bf = torch.bfloat16
+    tfa.check_tma_layout(torch.zeros((2, 8, 4, 64), dtype=bf), "q")
+    misaligned = torch.zeros(1 + 2 * 8 * 4 * 64, dtype=bf)[1:].view(2, 8, 4, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.check_tma_layout(misaligned, "q")
+    odd_stride = torch.zeros((2, 8, 4, 68), dtype=bf)[..., :64]   # 136-byte rows
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tfa.check_tma_layout(odd_stride, "k")
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.check_tma_layout(torch.zeros((2, 8, 64, 4), dtype=bf).transpose(2, 3), "v")
+
+
+def test_layout_check_by_route():
+    """The sm90 kernel takes strided views (TMA reads them through their
+    strides); the SIMT kernel takes contiguous tensors only."""
+    bf = torch.bfloat16
+    qkv = torch.zeros((2, 8, 4 + 2 * 2, 64), dtype=bf)
+    cache = torch.zeros((2, 12, 2, 2, 64), dtype=bf)
+    q, k, v = qkv[:, :, :4], cache[:, :8, 0], cache[:, :8, 1]
+    tfa.check_layout("sm90", q, k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.check_layout("simt", q, k, v)
+    tfa.check_layout("simt", q.contiguous(), k.contiguous(), v.contiguous())
+    misaligned = torch.zeros(1 + 2 * 8 * 2 * 64, dtype=bf)[1:].view(2, 8, 2, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.check_layout("sm90", q, misaligned, v)
+
+
 # -- K2: RMSNorm --------------------------------------------------------------
 @pytest.mark.parametrize("shape,dtype", [
     ((4, 37, 128), "bfloat16"),
@@ -175,7 +305,7 @@ def test_ops_take_plain_paths_on_cpu_and_count_nothing():
                                _f32(jops.rglru_scan(ja * 0.5, jb, jh0)),
                                atol=1e-5, rtol=1e-5)
     assert launch_counts() == {"flash_attention": 0, "rmsnorm": 0,
-                               "rglru_scan": 0}
+                               "rglru_scan": 0, "flash_attention_sm90": 0}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

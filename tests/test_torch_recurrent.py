@@ -41,7 +41,8 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-1, 0.0)}   # (atol, rtol)
 BF16_ULP = (2e-2, 2e-2)      # bf16-stored caches in the fp32 config
 LAYER_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-ZERO_LAUNCHES = {"flash_attention": 0, "rmsnorm": 0, "rglru_scan": 0}
+ZERO_LAUNCHES = {"flash_attention": 0, "rmsnorm": 0, "rglru_scan": 0,
+                 "flash_attention_sm90": 0}
 
 
 def _cfgs(dtype="float32"):
