@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and
+check its kernels.
 
     python3 chip_smoke.py
 
@@ -38,13 +39,37 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    activations, the reference's own bound, and <= 3e-2 with fp32
    activations); the reduced config (40-token prompt, window 32) on the
    card against the CPU;
-5. each kernel's time at the serving shapes with CUDA events, beside its
+5. train qwen2.5-3b at its published width and depth (36 layers, d_model
+   2048, vocab 151936, tied embeddings, 3.09 B params in fp32, bf16
+   activations, remat "full"; random weights from a seed) through
+   ``repro_torch.launch.train`` (``--dp-sync gspmd``, mesh 1x1), batch
+   4 x 1024 on one fixed batch for 6 steps: finite losses, the last below
+   the first; step ms (median of steps 2-6, host clock after a
+   synchronize), tokens/s, peak memory, launches per step held to K1 72
+   (36 forward + 36 recomputed, all sm90) and K2 145; one more step under
+   ``torch.profiler`` (card busy, idle share, time by kernel group and by
+   the port's profiler ranges); the Themis step on one card at full width
+   cut to 18 layers, 16 chunks (1.70 B params: it keeps an fp32 master, m,
+   v and a flat gradient buffer beside the params), 2 steps from the same
+   weights and batch as the GSPMD step: losses and gnorms within 1e-5
+   relative, params per leaf within 1e-2 of the update's L2 and 0.1 lr per
+   element (AdamW divides each gradient element by its own RMS, so
+   elements whose gradient is near eps carry rounding into their update at
+   full scale); the reduced qwen2.5-3b (head dim 16, the SIMT route) on
+   the card against the CPU with the same weights and batch, loss and
+   per-leaf grads within 1e-4 relative L2 with fp32 activations, and within
+   3e-2 with bf16 or the CPU's own bf16-to-fp32 gap for a leaf where that
+   is larger;
+6. each kernel's time at the serving and training shapes with CUDA events, beside its
    bound, its plain version's time and one PyTorch library call's time
    where one computes the same function (``ms`` with the launch queue
    filled first, so the card's time alone; ``host_ms`` as issued one call
    after another from Python); K1's rows also time the SIMT kernel at the
    same shapes (``previous_ms``) and give the achieved TFLOP/s and
-   ``bound_ms / ms``.
+   ``bound_ms / ms``; at the training shapes also the attention backward
+   (the plain recompute) beside SDPA's backward and its bound, K2's
+   backward, and the training step's floor (its FLOPs at the bf16 peak)
+   beside the measured step time.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` last. Exits non-zero, without that last
@@ -72,6 +97,10 @@ SCAN_TOL = 1e-5
 ARCH, BATCH, PROMPT, GEN = "llama3-8b", 4, 512, 16
 HYB_ARCH, HYB_PROMPT = "recurrentgemma-2b", 4096
 HYB = dict(h=10, kv=1, d=256, window=2048, d_model=2560)
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen2.5-3b", 4, 1024, 6
+QWEN = dict(h=16, kv=2, d=128, d_model=2048, layers=36)
+THEMIS_LAYERS, THEMIS_STEPS = 18, 2
+GRAD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": 2e-2}
 FA_TEST_SHAPES = [(2, 128, 4, 2, 64, 128, 0), (1, 200, 8, 1, 64, 200, 0),
                   (2, 96, 4, 4, 32, 96, 32), (1, 64, 2, 2, 128, 256, 0),
                   (1, 257, 3, 3, 16, 257, 64)]
@@ -114,7 +143,9 @@ def main() -> int:
     failed = []
     phases = (phase_kernels, phase_serve, phase_profile, phase_teacher_forcing,
               phase_card_vs_cpu, phase_hybrid_serve, phase_hybrid_profile,
-              phase_hybrid_teacher_forcing, phase_hybrid_card_vs_cpu, phase_times)
+              phase_hybrid_teacher_forcing, phase_hybrid_card_vs_cpu,
+              phase_train, phase_train_profile, phase_themis_train,
+              phase_train_card_vs_cpu, phase_times)
     for phase in phases:
         t0 = time.perf_counter()
         try:
@@ -194,16 +225,18 @@ def phase_kernels(state):
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = []
     serving_errs = {k: [] for k in ("flash_attention", "rmsnorm", "rglru_scan",
-                                    "flash_attention_hybrid", "rmsnorm_hybrid")}
+                                    "flash_attention_hybrid", "rmsnorm_hybrid",
+                                    "flash_attention_train", "rmsnorm_train")}
     hyb = (BATCH, HYB_PROMPT, HYB["h"], HYB["kv"], HYB["d"], HYB_PROMPT,
            HYB["window"])
+    train = (TRAIN_BATCH, TRAIN_SEQ, QWEN["h"], QWEN["kv"], QWEN["d"], TRAIN_SEQ, 0)
     seq = FA_TEST_SHAPES + [(BATCH, PROMPT, 32, 8, 128, PROMPT, 0),
                             (BATCH, PROMPT, 32, 8, 128, PROMPT + GEN, 0),
                             (2, 130, 4, 2, 16, 130, None),
                             (2, 200, 8, 2, 64, 300, None),
                             (1, 300, 4, 1, 128, 130, None),
                             (1, 130, 2, 1, 256, 200, None),
-                            (2, 300, 10, 1, 256, 300, 128), hyb]
+                            (2, 300, 10, 1, 256, 300, 128), hyb, train]
     for b, s, h, kv, d, t, win in seq:
         causal = win is not None
         for dn in ("float32", "bfloat16"):
@@ -219,6 +252,8 @@ def phase_kernels(state):
                 errs = serving_errs["flash_attention"]
             elif dn == "bfloat16" and (b, s, h, kv, d, t, win) == hyb:
                 errs = serving_errs["flash_attention_hybrid"]
+            elif dn == "bfloat16" and (b, s, h, kv, d, t, win) == train:
+                errs = serving_errs["flash_attention_train"]
             name = f"flash_attention{(b, s, h, kv, d, t, win)} {dn}"
             e = _check(name, out, p_out, TOL[dn], errs)
             el = _check(name + " lse", lse, p_lse, TOL["float32"], [])
@@ -253,9 +288,10 @@ def phase_kernels(state):
                                        ((BATCH, 1, 4096), "bfloat16"),
                                        ((BATCH, PROMPT, 4096), "float32"),
                                        ((BATCH, HYB_PROMPT, 2560), "bfloat16"),
-                                       ((BATCH, 1, 2560), "bfloat16")]:
+                                       ((BATCH, 1, 2560), "bfloat16"),
+                                       ((TRAIN_BATCH, TRAIN_SEQ, 2048), "bfloat16")]:
         dt = _dtype(dn)
-        serving = shape[-1] in (4096, 2560)
+        serving = shape[-1] in (4096, 2560, 2048)
         x = _randn(gen, shape, dt)
         w = _randn(gen, shape[-1:], dt if serving else torch.float32)
         y = rn.rmsnorm(x, w, 1e-6)
@@ -266,7 +302,8 @@ def phase_kernels(state):
             first = False
         errs = []
         if serving and dn == "bfloat16":
-            errs = serving_errs["rmsnorm" if shape[-1] == 4096 else "rmsnorm_hybrid"]
+            errs = serving_errs[{4096: "rmsnorm", 2560: "rmsnorm_hybrid",
+                                 2048: "rmsnorm_train"}[shape[-1]]]
         e = _check(f"rmsnorm{shape} {dn}", y, rn.rmsnorm_plain(x, w, 1e-6),
                    TOL[dn], errs)
         checks.append({"kernel": "rmsnorm", "shape": list(shape), "dtype": dn,
@@ -286,6 +323,86 @@ def phase_kernels(state):
     emit(kernel_checks=checks)
     state["serving_err"] = {k: max(v) for k, v in serving_errs.items()}
     torch.cuda.empty_cache()
+    _grad_checks(gen)
+    torch.cuda.empty_cache()
+
+
+def _grad_close(name, got, want, dn, errs):
+    """fp32: elementwise within 1e-5 abs / 1e-4 rel; bf16: max abs error
+    within 2e-2 of max(1, the gradient's largest magnitude)."""
+    import torch
+
+    err = _max_err(got, want)
+    scale = want.float().abs().max().item()
+    errs.append({"grad": name, "max_abs_err": err, "max_abs": scale})
+    if dn == "float32":
+        atol, rtol = GRAD_TOL[dn]
+        ok = torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol)
+        tol = f"{atol} abs / {rtol} rel"
+    else:
+        tol = GRAD_TOL[dn] * max(1.0, scale)
+        ok = err <= tol
+    if not ok:
+        raise AssertionError(f"{name}: max abs err {err} beyond {tol}")
+
+
+def _grad_checks(gen):
+    """K1's and K2's gradients on the card: each autograd path that the
+    training step runs (``ops.flash_attention``, ``ops.rmsnorm``) against
+    PyTorch's autograd through the kernel's plain version, with one random
+    cotangent."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rn
+
+    checks = []
+    train = (TRAIN_BATCH, TRAIN_SEQ, QWEN["h"], QWEN["kv"], QWEN["d"], TRAIN_SEQ,
+             0)
+    shapes = (FA_TEST_SHAPES + [(b, s, h, kv, d, t, 16)
+                                for b, s, h, kv, d, t, _ in FA_TEST_SHAPES]
+              + [train])
+    for b, s, h, kv, d, t, win in shapes:
+        for dn in ("float32", "bfloat16"):
+            dt = _dtype(dn)
+            q = _randn(gen, (b, s, h, d), dt).requires_grad_(True)
+            k = _randn(gen, (b, t, kv, d), dt).requires_grad_(True)
+            v = _randn(gen, (b, t, kv, d), dt).requires_grad_(True)
+            dout = _randn(gen, (b, s, h, d), dt)
+            got = torch.autograd.grad(ops.flash_attention(q, k, v, True, win),
+                                      (q, k, v), dout)
+            p_out, _ = fa.flash_attention_plain(q, k, v, causal=True, window=win)
+            want = torch.autograd.grad(p_out, (q, k, v), dout)
+            torch.cuda.synchronize()
+            errs = []
+            for n, a, w in zip(("dq", "dk", "dv"), got, want):
+                _grad_close(f"flash_attention{(b, s, h, kv, d, t, win)} {dn} {n}",
+                            a, w, dn, errs)
+            checks.append({"kernel": "flash_attention", "route": fa.route(dt, d),
+                           "backward": "recompute (plain torch) from the kernel's "
+                                       "out and lse",
+                           "shape": [b, s, h, kv, d, t], "window": win,
+                           "dtype": dn, "grads": errs,
+                           "tol": GRAD_TOL[dn]})
+            del q, k, v, dout, got, p_out, want
+    for shape, dn in RN_TEST_SHAPES + [((TRAIN_BATCH, TRAIN_SEQ, 2048), "bfloat16"),
+                                       ((TRAIN_BATCH, TRAIN_SEQ, 2048), "float32")]:
+        dt = _dtype(dn)
+        x = _randn(gen, shape, dt).requires_grad_(True)
+        w = _randn(gen, shape[-1:], dt).requires_grad_(True)
+        dy = _randn(gen, shape, dt)
+        got = torch.autograd.grad(ops.rmsnorm(x, w, 1e-6), (x, w), dy)
+        want = torch.autograd.grad(rn.rmsnorm_plain(x, w, 1e-6), (x, w), dy)
+        torch.cuda.synchronize()
+        errs = []
+        for n, a, b in zip(("dx", "dw"), got, want):
+            _grad_close(f"rmsnorm{shape} {dn} {n}", a, b, dn, errs)
+        checks.append({"kernel": "rmsnorm", "route": "triton",
+                       "backward": "rmsnorm_backward (plain torch)",
+                       "shape": list(shape), "dtype": dn, "grads": errs,
+                       "tol": GRAD_TOL[dn]})
+    emit(grad_checks=checks)
 
 
 def _sass_counts(so):
@@ -359,14 +476,21 @@ def phase_hybrid_serve(state):
                    "rmsnorm": 2 * n + 1, "rglru_scan": 0}})
 
 
+def _is_kernel(e, device_type):
+    """A kernel's row of ``key_averages``: device time, and not the
+    device-side copy of one of the port's profiler ranges (``repro_torch.*``),
+    whose time its kernels already count."""
+    return (e.device_type == device_type.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith("repro_torch."))
+
+
 def _kernel_table(prof, wall_ms, steps):
     """Device time by kernel name from a torch.profiler run over ``wall_ms``
     of host time; ms per step, busy share, top kernels."""
     from torch.autograd import DeviceType
 
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            for e in prof.key_averages() if _is_kernel(e, DeviceType)]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     return {"wall_ms_per_step": wall_ms / steps,
@@ -521,7 +645,251 @@ def phase_hybrid_card_vs_cpu(state):
     _card_vs_cpu(HYB_ARCH, 40)          # longer than the reduced window of 32
 
 
-# -- phase 5 ---------------------------------------------------------------------
+# -- phase 5: training ----------------------------------------------------------
+def _train_argv(*extra):
+    return ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--fixed-batch", "--log-every", "1", "--device",
+            "cuda", *extra]
+
+
+def _step_floor_flop(cfg, batch, seq):
+    """FLOPs of one remat "full" training step: matmuls forward (2 per
+    weight per token, the tied head included), backward (twice that), the
+    blocks' recomputed forward, and causal attention's forward, recompute
+    and backward (2.5x the forward)."""
+    hd = cfg.resolved_head_dim
+    d, f = cfg.d_model, cfg.d_ff
+    per_layer = (d * cfg.num_heads * hd * 2 + 2 * d * cfg.num_kv_heads * hd
+                 + (3 if cfg.gated_mlp else 2) * d * f)
+    tokens = batch * seq
+    dense = 2 * tokens * (cfg.num_layers * per_layer + d * cfg.vocab_size)
+    recompute = 2 * tokens * cfg.num_layers * per_layer
+    attn_fwd = 4 * hd * (seq * (seq + 1) // 2) * batch * cfg.num_heads
+    return 3 * dense + recompute + cfg.num_layers * attn_fwd * (1 + 1 + 2.5)
+
+
+def phase_train(state):
+    """Full qwen2.5-3b through ``launch/train.py --dp-sync gspmd``: six
+    steps on one fixed batch, launches counted per step."""
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+
+    snaps = []
+    reset_launch_counts()
+    res = train.main(_train_argv("--steps", str(TRAIN_STEPS), "--dp-sync", "gspmd"),
+                     on_step=lambda step, m: snaps.append(launch_counts()))
+    total = launch_counts()
+    per_step, prev = [], {k: 0 for k in total}
+    for c in snaps:
+        per_step.append({k: c[k] - prev[k] for k in c})
+        prev = c
+    cfg = res["cfg"]
+    steady = res["step_ms"][1:]
+    step_ms = statistics.median(steady)
+    flop = _step_floor_flop(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    floor_ms = flop / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    losses = res["losses"]
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "params": sum(p.numel() for p in
+                                                  _leaves(res["params"])),
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "dp_sync": "gspmd",
+           "losses": losses, "gnorms": res["gnorms"], "lrs": res["lrs"],
+           "step_ms": res["step_ms"], "step_ms_median_2_6": step_ms,
+           "tokens_per_s": res["tokens_per_step"] / (step_ms / 1e3),
+           "peak_mem_gib": res["peak_mem_bytes"] / 2**30,
+           "launches_per_step": per_step, "launches_total": total,
+           "floor_tflop": flop / 1e12, "floor_ms": floor_ms,
+           "floor_share": floor_ms / step_ms, "card": state["card"]}
+    emit(train=out)
+    state["train"] = {"launches": total, "step_ms": step_ms, "floor_ms": floor_ms}
+    state["trainer"] = res
+    assert all(math.isfinite(x) for x in losses), f"non-finite loss {losses}"
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    n = cfg.num_layers
+    want = {"flash_attention": 2 * n, "flash_attention_sm90": 2 * n,
+            "rmsnorm": 4 * n + 1, "rglru_scan": 0}
+    for i, c in enumerate(per_step):
+        assert c == want, f"step {i + 1}: launches {c}, expected {want}"
+    assert len(per_step) == TRAIN_STEPS
+    torch.cuda.synchronize()
+
+
+def _leaves(tree):
+    from repro_torch.models.registry import leaves
+
+    return leaves(tree)
+
+
+_GROUPS = (("K1 forward (attn_fwd)", ("attn_fwd",)),
+           ("K2 (_rmsnorm_kernel)", ("_rmsnorm_kernel",)),
+           ("GEMMs (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
+           ("copies and dtype casts", ("copy",)))
+
+
+def phase_train_profile(state):
+    """One more training step under torch.profiler: card busy time and idle
+    share, device time by kernel group (by name) and by the port's
+    profiler ranges (each range's total holds the GEMMs it launched)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    res = state.pop("trainer")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res["step_fn"](res["params"], res["opt"], res["batch"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    groups = {name: 0.0 for name, _ in _GROUPS}
+    groups["other kernels (elementwise, reductions)"] = 0.0
+    for e in events:
+        if not _is_kernel(e, DeviceType):
+            continue
+        key = e.key.lower()
+        name = next((g for g, pats in _GROUPS if any(p in key for p in pats)),
+                    "other kernels (elementwise, reductions)")
+        groups[name] += e.self_device_time_total / 1e3
+    # a range's kernel time: the device time of the kernels its CPU side
+    # launched; its device-side span also holds the gaps between them
+    ranges = {e.key: {"kernels_ms": e.device_time_total / 1e3, "calls": e.count}
+              for e in events if e.key.startswith("repro_torch.")
+              and e.device_type == DeviceType.CPU}
+    for e in events:
+        if e.key.startswith("repro_torch.") and e.device_type == DeviceType.CUDA:
+            ranges.setdefault(e.key, {})["span_ms"] = e.self_device_time_total / 1e3
+    emit(profile_train={"arch": TRAIN_ARCH, **_kernel_table(prof, wall, 1),
+                        "groups_ms": groups, "ranges": ranges,
+                        "card": state["card"]})
+    del res
+    torch.cuda.empty_cache()
+
+
+def phase_themis_train(state):
+    """qwen2.5-3b at full width cut to 18 layers: two GSPMD steps and two
+    Themis steps (one rank, 16 chunks, no collective) from the same seed
+    and batch; losses and gnorms within 1e-5 relative, params per leaf
+    within 1e-4 of the update's L2 and 1e-2 lr per element. Both sides are
+    the port on one card, so these limits come from this phase's own
+    readings (2.0e-6 of the update, 4e-4 lr on an H100), with room on
+    both sides, not from the CPU comparison against the reference."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+
+    argv = _train_argv("--steps", str(THEMIS_STEPS), "--layers",
+                       str(THEMIS_LAYERS))
+    runs = {}
+    final = {}
+    for mode in ("gspmd", "themis"):
+        torch.cuda.empty_cache()
+        res = train.main(argv + ["--dp-sync", mode])
+        runs[mode] = {"losses": res["losses"], "gnorms": res["gnorms"],
+                      "lrs": res["lrs"], "step_ms": res["step_ms"],
+                      "peak_mem_gib": res["peak_mem_bytes"] / 2**30,
+                      "orders": sorted({"->".join(o) or "()"
+                                        for o in (res["orders"] or [])})}
+        final[mode] = [p.detach().cpu() for p in _leaves(res["params"])]
+        del res
+    torch.cuda.empty_cache()
+    cfg = get_arch(TRAIN_ARCH).replace(num_layers=THEMIS_LAYERS)
+    init = _leaves(build_model(cfg).init(0, "cuda"))
+    lr_max = max(runs["gspmd"]["lrs"])
+    diff_over_update, max_abs_over_lr = 0.0, 0.0
+    for a, b, c in zip(final["themis"], final["gspmd"], init):
+        a, b = a.cuda(), b.cuda()
+        diff_over_update = max(diff_over_update,
+                               ((a - b).norm() / (b - c).norm()).item())
+        max_abs_over_lr = max(max_abs_over_lr, (a - b).abs().max().item() / lr_max)
+        del a, b
+    del init, final
+    torch.cuda.empty_cache()
+    rel = {k: max(abs(x - y) / abs(y) for x, y in zip(runs["themis"][k],
+                                                       runs["gspmd"][k]))
+           for k in ("losses", "gnorms")}
+    emit(themis_train={"arch": TRAIN_ARCH, "layers": THEMIS_LAYERS,
+                       "d_model": cfg.d_model, "chunks": 16,
+                       "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, **runs,
+                       "rel_diff": rel,
+                       "params_diff_over_update": diff_over_update,
+                       "params_max_abs_over_lr": max_abs_over_lr,
+                       "card": state["card"]})
+    assert rel["losses"] <= 1e-5 and rel["gnorms"] <= 1e-5, rel
+    assert diff_over_update <= 1e-4 and max_abs_over_lr <= 1e-2, (
+        diff_over_update, max_abs_over_lr)
+
+
+def phase_train_card_vs_cpu(state):
+    """Reduced qwen2.5-3b (head dim 16: K1 takes the SIMT kernel) with the
+    same weights and batch on the card and on the CPU: the loss and every
+    leaf's gradient, relative L2 within 1e-4 with fp32 activations; with
+    bf16 within 3e-2, or the CPU's own distance between its bf16 and fp32
+    gradients where that is larger."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+
+    base = get_arch(TRAIN_ARCH, reduced=True)
+    rng = np.random.default_rng(3)
+    batch = {k: torch.as_tensor(rng.integers(0, base.vocab_size, (2, 64)))
+             for k in ("tokens", "labels")}
+    p_cpu = build_model(base).init(0, device="cpu")
+
+    def copy(tree, dev):
+        if isinstance(tree, dict):
+            return {k: copy(v, dev) for k, v in tree.items()}
+        return tree.detach().to(dev, copy=True).requires_grad_(True)
+
+    def grads(cfg, dev):
+        params = copy(p_cpu, dev)
+        leaves = _leaves(params)
+        loss = build_model(cfg).loss_fn(params, {k: v.to(dev)
+                                                 for k, v in batch.items()})
+        return loss.item(), [g.cpu().float() for g in
+                             torch.autograd.grad(loss, leaves)]
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    out, fails = {}, []
+    cpu32 = grads(base.replace(dtype="float32"), "cpu")
+    reset_launch_counts()
+    for dtype in ("float32", "bfloat16"):
+        cfg = base.replace(dtype=dtype)
+        gl, gg = grads(cfg, "cuda")
+        cl, cg = cpu32 if dtype == "float32" else grads(cfg, "cpu")
+        rels = [rel(a, b) for a, b in zip(gg, cg)]
+        if dtype == "float32":
+            tols = [1e-4] * len(rels)
+        else:
+            tols = [max(3e-2, rel(a, b)) for a, b in zip(cg, cpu32[1])]
+        out[dtype] = {"loss_card": gl, "loss_cpu": cl,
+                      "loss_rel": abs(gl - cl) / abs(cl),
+                      "grad_rel_l2": rels, "tols": tols}
+        if out[dtype]["loss_rel"] > min(tols):
+            fails.append(f"{dtype} loss {gl} vs {cl}")
+        fails += [f"{dtype} leaf {i}: {r} > {t}" for i, (r, t) in
+                  enumerate(zip(rels, tols)) if r > t]
+    counts = launch_counts()
+    emit(train_card_vs_cpu={"arch": f"{TRAIN_ARCH} reduced", "batch": [2, 64],
+                            **out, "launches": counts})
+    assert not fails, fails
+    assert counts["flash_attention"] > 0 and counts["flash_attention_sm90"] == 0, (
+        f"reduced {TRAIN_ARCH}: K1 launches {counts}, expected SIMT only")
+    assert counts["rmsnorm"] > 0
+
+
+# -- phase 6 ---------------------------------------------------------------------
 def _n_sets(set_bytes):
     """Input sets to cycle so that together they hold twice the L2."""
     return max(4, math.ceil(2 * L2_BYTES / set_bytes))
@@ -556,6 +924,10 @@ def _bound(nbytes, ops, dtype_name):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+PATH_NAME = {ARCH: ARCH, HYB_ARCH: HYB_ARCH, "train": f"train {TRAIN_ARCH}"}
+ERR_SUFFIX = {ARCH: "", HYB_ARCH: "_hybrid", "train": "_train"}
 
 
 def _time_flash(state, gen, path, b, s, h, kvh, d, t, window, iters):
@@ -609,12 +981,11 @@ def _time_flash(state, gen, path, b, s, h, kvh, d, t, window, iters):
     nbytes = 2 * (2 * b * s * h * d + 2 * b * t * kvh * d) + 4 * b * h * s
     bound_ms, bound_by = _bound(nbytes, ops, "bfloat16")
     run = state[path]
-    return {"name": "flash_attention", "route": "cuda", "path": path,
+    return {"name": "flash_attention", "route": "cuda", "path": PATH_NAME[path],
             "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
             "replaces": "src/repro/kernels/flash_attention.py:76",
             "launches": run["launches"]["flash_attention_sm90"],
-            "max_abs_err": state["serving_err"][
-                "flash_attention" if path == ARCH else "flash_attention_hybrid"],
+            "max_abs_err": state["serving_err"]["flash_attention" + ERR_SUFFIX[path]],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms, "host_ms": host_ms,
             "ms_second_pass": ms_again, "previous_ms": previous_ms,
@@ -650,12 +1021,11 @@ def _time_rmsnorm(state, gen, path, shape):
     elems = math.prod(shape)
     bound_ms, bound_by = _bound(2 * (2 * elems + shape[-1]), 4 * elems,
                                 "float32")
-    return {"name": "rmsnorm", "route": "triton", "path": path,
+    return {"name": "rmsnorm", "route": "triton", "path": PATH_NAME[path],
             "source": "src/repro_torch/kernels/rmsnorm.py",
             "replaces": "src/repro/kernels/rmsnorm.py:20",
             "launches": state[path]["launches"]["rmsnorm"],
-            "max_abs_err": state["serving_err"][
-                "rmsnorm" if path == ARCH else "rmsnorm_hybrid"],
+            "max_abs_err": state["serving_err"]["rmsnorm" + ERR_SUFFIX[path]],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms, "host_ms": host_ms,
             "shape": {"x": list(shape), "dtype": "bfloat16"},
@@ -688,6 +1058,107 @@ def _time_rglru(state, gen, b, s, c):
                        "that underflows)"}
 
 
+def _time_attention_backward(state, gen, b, s, h, kvh, d, iters):
+    """The attention backward that training runs, the plain recompute of
+    ``models/common.py::flash_attention_bwd`` fed with K1's out and LSE, at
+    q (b,s,h,d), k/v (b,s,kvh,d) bf16, causal; beside SDPA's backward
+    (SDPA forward + backward minus its forward, KV heads expanded) and the
+    backward of the materialising plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.common import flash_attention_bwd
+
+    bf = torch.bfloat16
+    per_set = 2 * (3 * b * s * h * d + 2 * b * s * kvh * d) + 4 * b * h * s
+    sets = []
+    for _ in range(_n_sets(per_set)):
+        q, k, v = (_randn(gen, (b, s, n, d), bf) for n in (h, kvh, kvh))
+        out, lse = fa.flash_attention(q, k, v, causal=True)
+        sets.append((q, k, v, out, lse, _randn(gen, (b, s, h, d), bf)))
+    ms = _time_ms(flash_attention_bwd, sets, iters)
+    ms_again = _time_ms(flash_attention_bwd, sets, iters)
+
+    def grad_sets(expand):
+        out = []
+        for q, k, v, _, _, g in sets:
+            if expand:
+                q, k, v, g = (x.repeat_interleave(h // x.shape[2], dim=2)
+                              .transpose(1, 2).contiguous() for x in (q, k, v, g))
+            out.append(tuple(x.detach().requires_grad_(True) for x in (q, k, v))
+                       + (g,))
+        return out
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    def plain(q, k, v):
+        return fa.flash_attention_plain(q, k, v, causal=True)[0]
+
+    def fwd_bwd(f):
+        return lambda q, k, v, g: torch.autograd.grad(f(q, k, v), (q, k, v), g)
+
+    lib = grad_sets(True)
+    lib_ms = (_time_ms(fwd_bwd(sdpa), lib, iters)
+              - _time_ms(lambda q, k, v, g: sdpa(q, k, v), lib, iters))
+    pl = grad_sets(False)
+    plain_ms = (_time_ms(fwd_bwd(plain), pl, 3)
+                - _time_ms(lambda q, k, v, g: plain(q, k, v), pl, 3))
+    pairs = s * (s + 1) // 2
+    ops = 2.5 * 4 * d * pairs * b * h
+    nbytes = per_set + 2 * (b * s * h * d + 2 * b * s * kvh * d)
+    bound_ms, bound_by = _bound(nbytes, ops, "bfloat16")
+    return {"name": "attention_backward", "route": "plain torch (recompute)",
+            "source": "src/repro_torch/models/common.py (flash_attention_bwd)",
+            "replaces": "src/repro/models/common.py:265 (_flash_vjp_bwd, XLA)",
+            "calls_per_step": QWEN["layers"],
+            "ms": ms, "ms_second_pass": ms_again, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "bound_fraction": bound_ms / ms,
+            "shape": {"q": [b, s, h, d], "kv": [b, s, kvh, d], "dtype": "bfloat16",
+                      "causal": True},
+            "library": "F.scaled_dot_product_attention forward+backward minus "
+                       "forward, KV heads expanded",
+            "plain": "autograd through flash_attention_plain (materialised "
+                     "scores), forward+backward minus forward",
+            "card": state["card"]}
+
+
+def _time_rmsnorm_backward(state, gen, shape):
+    """K2's backward (``rmsnorm_backward``, plain torch) at x ``shape``
+    bf16, w bf16; beside ``F.rms_norm``'s backward (forward+backward minus
+    forward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rmsnorm as rn
+
+    bf = torch.bfloat16
+    elems = math.prod(shape)
+    sets = [(_randn(gen, shape, bf), _randn(gen, shape[-1:], bf),
+             _randn(gen, shape, bf))
+            for _ in range(_n_sets(2 * (3 * elems + shape[-1])))]
+    ms = _time_ms(lambda x, w, g: rn.rmsnorm_backward(x, w, g, 1e-6), sets, 50)
+    lib = [(x.requires_grad_(True), w.requires_grad_(True), g)
+           for x, w, g in ((x.clone(), w.clone(), g) for x, w, g in sets)]
+
+    def lib_fwd(x, w, g):
+        return F.rms_norm(x, (shape[-1],), w, 1e-6)
+
+    lib_ms = (_time_ms(lambda x, w, g: torch.autograd.grad(
+        lib_fwd(x, w, g), (x, w), g), lib, 50) - _time_ms(lib_fwd, lib, 50))
+    bound_ms, bound_by = _bound(2 * (3 * elems + 2 * shape[-1]), 10 * elems,
+                                "float32")
+    return {"name": "rmsnorm_backward", "route": "plain torch",
+            "source": "src/repro_torch/kernels/rmsnorm.py (rmsnorm_backward)",
+            "calls_per_step": 2 * QWEN["layers"] + 1,
+            "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "shape": {"x": list(shape), "dtype": "bfloat16"},
+            "library": "F.rms_norm forward+backward minus forward",
+            "card": state["card"]}
+
+
 def phase_times(state):
     import torch
 
@@ -702,10 +1173,23 @@ def phase_times(state):
         _time_flash(state, gen, HYB_ARCH, BATCH, HYB_PROMPT, HYB["h"], HYB["kv"],
                     HYB["d"], HYB_PROMPT, HYB["window"], iters=20),
         _time_rmsnorm(state, gen, HYB_ARCH, (BATCH, HYB_PROMPT, HYB["d_model"])),
+        # K1 and K2 at qwen2.5-3b's training shapes: q (4,1024,16,128),
+        # k/v (4,1024,2,128); x (4,1024,2048)
+        _time_flash(state, gen, "train", TRAIN_BATCH, TRAIN_SEQ, QWEN["h"],
+                    QWEN["kv"], QWEN["d"], TRAIN_SEQ, 0, iters=50),
+        _time_rmsnorm(state, gen, "train", (TRAIN_BATCH, TRAIN_SEQ, QWEN["d_model"])),
     ]
     emit(rmsnorm_decode_shape=_time_rmsnorm(state, gen, ARCH, (BATCH, 1, 4096)))
+    emit(attention_backward=_time_attention_backward(
+        state, gen, TRAIN_BATCH, TRAIN_SEQ, QWEN["h"], QWEN["kv"], QWEN["d"], 20))
+    emit(rmsnorm_backward=_time_rmsnorm_backward(
+        state, gen, (TRAIN_BATCH, TRAIN_SEQ, QWEN["d_model"])))
     emit(times={"card": state["card"], "peak_bytes_per_s": PEAK_BYTES_PER_S,
-                "peak_ops_per_s": PEAK_OPS_PER_S})
+                "peak_ops_per_s": PEAK_OPS_PER_S,
+                "train_step_ms": state["train"]["step_ms"],
+                "train_step_floor_ms": state["train"]["floor_ms"],
+                "train_floor_share": state["train"]["floor_ms"]
+                / state["train"]["step_ms"]})
     state["kernels"] = kernels
 
 

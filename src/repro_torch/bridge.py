@@ -31,6 +31,35 @@ def params_from_jax(tree, device=None):
     return _to_tensor(tree, dev)
 
 
+def opt_state_from_jax(opt: dict, device=None, *, block=None) -> dict:
+    """The reference's optimizer state as numpy (nested dicts) -> the
+    port's: the same keys as tensors on ``device``, ``count`` as an int.
+
+    The GSPMD state is ``{"m", "v", "count"}`` with m and v shaped like the
+    params. The Themis state holds global arrays whose devices own blocks:
+    ``master``, ``m`` and ``v`` of (C, per_chunk) are split along their
+    second dim, the int8 error feedback ``err`` of (world, n_params) along
+    its first. ``block=(i, n)`` keeps block i of n of those, this rank's
+    shard (``Mesh.block_index`` of the step's axes)."""
+    dev = resolve_device(device)
+    out = {}
+    for key, val in opt.items():
+        if key == "count":
+            out[key] = int(np.asarray(val))
+            continue
+        if block is not None and not isinstance(val, dict):
+            a = np.asarray(val)
+            i, n = block
+            if key in ("master", "m", "v"):
+                w = a.shape[1] // n
+                val = a[:, i * w:(i + 1) * w]
+            elif key == "err" and a.ndim == 2:
+                w = a.shape[0] // n
+                val = a[i * w:(i + 1) * w].reshape(-1)
+        out[key] = params_from_jax(val, dev)
+    return out
+
+
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A tensor as a numpy array; bfloat16 widens to float32 (exactly)."""
     t = t.detach().cpu()

@@ -8,6 +8,7 @@ from repro_torch.configs.base import (  # noqa: F401
     ModelConfig,
     ParallelConfig,
     ShapeConfig,
+    TrainConfig,
     get_arch,
     list_archs,
 )

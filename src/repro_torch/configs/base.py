@@ -1,4 +1,5 @@
-"""Config system of the PyTorch port: model architecture, input shapes, parallelism.
+"""Config system of the PyTorch port: model architecture, input shapes,
+parallelism, training.
 
 The port keeps its own copy of the reference package's config dataclasses
 (``repro/configs/base.py``) so that it imports nothing from that package.
@@ -107,6 +108,23 @@ class ParallelConfig:
     @property
     def mesh_axes(self) -> tuple[str, ...]:
         return ("pod", "data", "model") if self.pods > 1 else ("data", "model")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    seed: int = 0
+    microbatch: int = 0                # 0 = no gradient accumulation
+    checkpoint_every: int = 50
+    checkpoint_dir: str = "checkpoints"
+    keep_checkpoints: int = 3
 
 
 # -- registry ---------------------------------------------------------------

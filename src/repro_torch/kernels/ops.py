@@ -1,16 +1,63 @@
 """Public wrappers for the kernels, as in ``repro/kernels/ops.py``.
 
-On a CUDA tensor they launch the hand-written kernels; on a CPU tensor they
-run the kernels' plain versions. ``flash_attention`` sends a non-zero
-``q_offset`` to the blockwise ``flash_attention_xla`` port, since the kernel
-assumes offset 0 (the same split as the reference). Forward only: the
-backward comes with the training path.
+K1 and K2 run inside autograd functions, so that training differentiates
+through them: on a CUDA tensor their forwards launch the hand-written
+kernels, on a CPU tensor the kernels' plain versions; the backwards are
+plain PyTorch on either device.
+
+- ``flash_attention``: K1's forward, with the recompute backward of the
+  reference's ``flash_attention_xla`` (``models/common.py::
+  flash_attention_bwd``, plain PyTorch fed with the kernel's LSE), as the
+  reference's ``custom_vjp`` pairs its Pallas forward with an XLA
+  backward. A non-zero ``q_offset`` goes to the blockwise
+  ``flash_attention_xla`` port, since the kernel assumes offset 0 (the
+  same split as the reference).
+- ``rmsnorm``: K2's forward, with ``rmsnorm.rmsnorm_backward`` (plain
+  PyTorch) as its gradient.
+
+A recompute under activation checkpointing runs the forward again, so it
+launches (and counts) the kernel again.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rglru as _rg
 from repro_torch.kernels import rmsnorm as _rn
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = _fa.flash_attention(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.models.common import flash_attention_bwd
+
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _rn.rmsnorm(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        with torch.profiler.record_function("repro_torch.rmsnorm_backward"):
+            dx, dw = _rn.rmsnorm_backward(x, w, dy, ctx.eps)
+        return dx, dw, None
 
 
 def flash_attention(q, k, v, causal=True, window=0, q_offset=0):
@@ -19,8 +66,7 @@ def flash_attention(q, k, v, causal=True, window=0, q_offset=0):
 
         return flash_attention_xla(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)
-    out, _ = _fa.flash_attention(q, k, v, causal=causal, window=window)
-    return out
+    return _FlashAttention.apply(q, k, v, causal, window)
 
 
 def rglru_scan(a, b, h0=None):
@@ -28,4 +74,4 @@ def rglru_scan(a, b, h0=None):
 
 
 def rmsnorm(x, w, eps=1e-6):
-    return _rn.rmsnorm(x, w, eps)
+    return _RMSNorm.apply(x, w, eps)

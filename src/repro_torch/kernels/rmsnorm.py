@@ -14,6 +14,11 @@ written once, and ``D = 384`` works as well as ``D = 4096``.
 on a CPU tensor; it never falls back from one to the other. Each launch adds
 one to the module's ``launches`` count. ``triton`` is imported, and the
 kernel defined, at the first launch: importing this module needs no Triton.
+``rmsnorm_backward`` is the gradient of the function the kernel computes,
+in plain PyTorch (the Pallas kernel has no backward either; the reference
+differentiates its jnp ``rms_norm``). ``ops.rmsnorm`` pairs the two in an
+autograd function on CUDA tensors.
+
 (No ``from __future__ import annotations`` here: Triton reads the
 ``tl.constexpr`` annotation of the kernel as an object.)
 """
@@ -53,6 +58,24 @@ def rmsnorm_plain(x, w, eps: float = 1e-6):
     xf = x.float()
     var = xf.square().mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def rmsnorm_backward(x, w, dy, eps: float = 1e-6):
+    """Gradient of ``y = (x32 * rsqrt(mean(x32^2) + eps) * w32)`` rounded
+    once to x's dtype: returns (dx in x's dtype, dw in w's dtype), with dw
+    summed over every row in fp32 before its one rounding.
+
+    With ``n = x32 * r`` and ``r = rsqrt(mean(x32^2) + eps)``:
+    ``dw = sum_rows(dy * n)``, ``dx = r * (dy*w - n * mean(dy*w * n))``."""
+    d = x.shape[-1]
+    xf = x.float()
+    g = dy.float()
+    r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    n = xf * r
+    dw = (g * n).reshape(-1, d).sum(0)
+    dn = g * w.float()
+    dx = r * (dn - n * (dn * n).mean(-1, keepdim=True))
+    return dx.to(x.dtype), dw.to(w.dtype)
 
 
 def rmsnorm(x, w, eps: float = 1e-6):

@@ -1,20 +1,24 @@
-"""Shared layers: norms, RoPE, attention (naive + blockwise flash), MLP, inits.
+"""Shared layers: norms, RoPE, attention (naive + blockwise flash), MLP,
+inits, the loss and the remat policy.
 
 Port of ``repro/models/common.py``. Functions take tensors in the reference's
 layouts (q ``(B,S,H,hd)``, k/v ``(B,T,KV,hd)``) so tests compare like with
 like. Sharding constraints and the mesh context have no counterpart here:
-the port serves on one device.
+the model runs on one device, and data parallelism lives in
+``train/step.py``.
 
 Dispatch to the hand-written kernels:
 
 - On a CUDA tensor, ``attention`` sends S > 1 to ``ops.flash_attention``
-  (kernel K1 when ``q_offset == 0``) for both ``impl="xla_flash"`` (the
+  (kernel K1 when ``q_offset == 0``, differentiable through the recompute
+  backward ``flash_attention_bwd``) for both ``impl="xla_flash"`` (the
   default, which ``attention_impl="reference"`` selects) and
   ``impl="pallas"``, and ``rms_norm`` goes to ``ops.rmsnorm`` (kernel K2,
   which rounds once where the reference rounds twice).
 - On a CPU tensor, ``"xla_flash"`` and ``rms_norm`` run the line-for-line
-  ports of the reference functions below, and ``"pallas"`` runs K1's plain
-  version.
+  ports of the reference functions below (``flash_attention_xla`` with the
+  reference's recompute ``custom_vjp`` as an autograd function), and
+  ``"pallas"`` runs K1's plain version.
 - Decode (S == 1) and ``impl="naive"`` run ``naive_attention`` on either
   device, as in the reference.
 """
@@ -30,6 +34,26 @@ from repro_torch.kernels import ops
 
 Params = Any
 NEG_INF = -1e30
+
+
+def remat_policy(cfg):
+    """Activation-checkpoint policy of the per-layer remat wrapper, read from
+    ``cfg.remat_policy`` alone.
+
+    ``"full"`` (the default) saves nothing inside a block: each layer keeps
+    only its input and recomputes the rest in the backward, as
+    ``jax.checkpoint`` with no policy does; returns None (the default
+    context of ``torch.utils.checkpoint``). ``"dots"`` (save the matmul
+    outputs) is not ported yet and raises rather than running ``"full"`` in
+    its place."""
+    policy = cfg.remat_policy
+    if policy == "dots":
+        raise NotImplementedError(
+            "remat_policy 'dots' is not ported yet (ROADMAP, training slice); "
+            "use remat_policy='full'")
+    if policy != "full":
+        raise ValueError(f"unknown remat_policy {policy!r}")
+    return None
 
 
 # -- inits ------------------------------------------------------------------
@@ -170,14 +194,87 @@ def _flash_fwd_impl(q, k, v, q_offset, causal, window, block_q, block_k):
     return out[:, :s], lse[:, :, :s]
 
 
+@torch.profiler.record_function("repro_torch.attention_backward")
+def flash_attention_bwd(q, k, v, out, lse, g, *, q_offset: int = 0,
+                        causal: bool = True, window: int = 0,
+                        block_q: int = 512, block_k: int = 1024):
+    """Recompute-based flash backward (the reference's ``_flash_vjp_bwd``):
+    O(S) memory, no saved probabilities. For each q block the probabilities
+    are recomputed from (q, k, lse); dk/dv accumulate in fp32 and the GQA
+    groups fold back onto the KV heads. ``lse`` (B,H,S) fp32 may come from
+    the blockwise forward or from kernel K1. Returns (dq, dk, dv) in the
+    dtypes of q, k, v. Runs inside the profiler range
+    ``repro_torch.attention_backward``."""
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    groups = h // kvh
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    qb, kb, vb, (bq, bk, nq, nk) = _flash_blocks(q, k, v, block_q, block_k)
+    pad_q = nq * bq - s
+    gp = F.pad(g, (0, 0, 0, 0, 0, pad_q)) if pad_q else g
+    op = F.pad(out, (0, 0, 0, 0, 0, pad_q)) if pad_q else out
+    gq = gp.reshape(b, nq, bq, h, hd).transpose(0, 1)       # (nq,B,bq,H,hd)
+    ob = op.reshape(b, nq, bq, h, hd).transpose(0, 1)
+    lseb = F.pad(lse, (0, pad_q)).reshape(b, h, nq, bq).permute(2, 0, 1, 3)
+    delta = (gq.float() * ob.float()).sum(-1).transpose(2, 3)  # (nq,B,H,bq)
+    dk = torch.zeros((b, nk * bk, kvh, hd), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    dqs = []
+    for qi in range(nq):
+        qblk, gblk, lse_i, d_i = qb[qi], gq[qi], lseb[qi], delta[qi]
+        qpos = qi * bq + torch.arange(bq, device=dev) + q_offset
+        dq_b = torch.zeros((b, bq, h, hd), dtype=torch.float32, device=dev)
+        for ki in range(nk):
+            kr = _repeat_kv(kb[ki], groups)                  # (B,bk,H,hd)
+            vr = _repeat_kv(vb[ki], groups)
+            sc = torch.einsum("bqhd,bkhd->bhqk", qblk, kr).float() * scale
+            kpos = ki * bk + torch.arange(bk, device=dev)
+            mask = _block_mask(qpos, kpos, t, causal, window)
+            sc = torch.where(mask[None, None], sc, NEG_INF)
+            p = torch.exp(sc - lse_i[..., None])             # (B,H,bq,bk)
+            dp = torch.einsum("bqhd,bkhd->bhqk", gblk, vr).float()
+            ds = p * (dp - d_i[..., None]) * scale
+            dv_h = torch.einsum("bhqk,bqhd->bkhd", p.to(gblk.dtype), gblk)
+            dk_h = torch.einsum("bhqk,bqhd->bkhd", ds.to(qblk.dtype), qblk)
+            # fold GQA groups back onto kv heads
+            ks = slice(ki * bk, (ki + 1) * bk)
+            dv[:, ks] += dv_h.reshape(b, bk, kvh, groups, hd).sum(3).float()
+            dk[:, ks] += dk_h.reshape(b, bk, kvh, groups, hd).sum(3).float()
+            dq_b = dq_b + torch.einsum("bhqk,bkhd->bqhd", ds.to(kr.dtype),
+                                       kr).float()
+        dqs.append(dq_b)
+    dq = torch.cat(dqs, dim=1)[:, :s]
+    return dq.to(q.dtype), dk[:, :t].to(k.dtype), dv[:, :t].to(v.dtype)
+
+
+class _FlashAttentionXla(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, causal, window, block_q, block_k):
+        out, lse = _flash_fwd_impl(q, k, v, q_offset, causal, window,
+                                   block_q, block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (q_offset, causal, window, block_q, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        q_offset, causal, window, block_q, block_k = ctx.args
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, g, q_offset=q_offset, causal=causal,
+            window=window, block_q=block_q, block_k=block_k)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention_xla(q, k, v, *, causal: bool = True, window: int = 0,
                         q_offset: int = 0, block_q: int = 512,
                         block_k: int = 1024):
-    """Blockwise online-softmax attention (forward of the reference's
-    ``flash_attention_xla``; the recompute backward comes with training)."""
-    out, _ = _flash_fwd_impl(q, k, v, int(q_offset), causal, window,
-                             block_q, block_k)
-    return out
+    """Blockwise online-softmax attention with a recompute-based backward
+    (``flash_attention_bwd``): O(S) memory in both passes, where autograd
+    through the blocks would save the O(S^2) probabilities."""
+    return _FlashAttentionXla.apply(q, k, v, int(q_offset), causal, window,
+                                    block_q, block_k)
 
 
 def attention(q, k, v, *, impl: str = "xla_flash", causal=True, window=0,
@@ -213,3 +310,48 @@ def apply_mlp(p: Params, x, gated: bool):
     else:
         h = F.gelu(h, approximate="tanh")
     return h @ p["wo"].to(x.dtype)
+
+
+# -- losses -------------------------------------------------------------------
+def _ce_fwd_impl(logits, labels):
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    return lse - gold, lse
+
+
+class _CrossEntropy(torch.autograd.Function):
+    """Token-weighted cross entropy with the reference's memory-lean
+    backward (``_ce_from_logits``): saves only the logits in their dtype and
+    the per-token LSE, and recomputes the softmax in the backward. Profiler
+    ranges ``repro_torch.cross_entropy`` and ``..._backward``."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, weights):
+        with torch.profiler.record_function("repro_torch.cross_entropy"):
+            nll, lse = _ce_fwd_impl(logits, labels)
+            ctx.save_for_backward(logits, labels, weights, lse)
+            return (nll * weights).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, weights, lse = ctx.saved_tensors
+        with torch.profiler.record_function("repro_torch.cross_entropy_backward"):
+            p = torch.sub(logits.float(), lse[..., None]).exp_()
+            # p - onehot: subtract 1 at each label instead of materialising a
+            # (tokens x vocab) one-hot; the same values
+            p.scatter_add_(-1, labels[..., None].long(),
+                           p.new_full((*labels.shape, 1), -1.0))
+            p.mul_((g * weights)[..., None])
+            return p.to(logits.dtype), None, None
+
+
+def cross_entropy(logits, labels, mask=None):
+    """logits (B,S,V); labels (B,S) int; mean over valid tokens."""
+    if mask is None:
+        weights = torch.full(labels.shape, 1.0 / labels.numel(),
+                             dtype=torch.float32, device=logits.device)
+    else:
+        m = mask.float()
+        weights = m / m.sum().clamp_min(1.0)
+    return _CrossEntropy.apply(logits, labels, weights)

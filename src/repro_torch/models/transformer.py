@@ -2,8 +2,13 @@
 
 Params are nested dicts of tensors in the reference's layout: the layers'
 weights are stacked along a leading axis under ``"blocks"``, and a loop over
-that axis takes the place of ``jax.lax.scan``. Serving path: prefill +
-single-token decode with a static KV cache of ``max_len`` positions.
+that axis takes the place of ``jax.lax.scan``. The loop takes each layer's
+weights as views from ``torch.unbind``, whose backward stacks the layers'
+gradients once (a view from indexing would add a zero-filled gradient of
+the whole stack per layer). Training path: ``loss_fn``, with per-layer
+activation checkpointing (``cfg.remat``, ``models/common.remat_policy``).
+Serving path: prefill + single-token decode with a static KV cache of
+``max_len`` positions; training never passes a cache.
 
 Unlike the reference, the cache is updated in place (the reference returns a
 new one from a pure function): ``prefill`` allocates it and ``decode_step``
@@ -21,6 +26,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (
@@ -29,9 +35,11 @@ from repro_torch.models.common import (
     apply_mlp,
     apply_rope,
     attention,
+    cross_entropy,
     dense_init,
     embed_init,
     init_mlp,
+    remat_policy,
     rms_norm,
 )
 
@@ -216,10 +224,29 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _unbind(tree) -> list:
+    """A dict of stacked tensors -> one dict of views per layer."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def _run_blocks(params, x, cfg: ModelConfig, *, pos0: int, caches=None):
-    for i in range(cfg.num_layers):
-        x = apply_block(_layer(params["blocks"], i), x, cfg, pos0=pos0,
-                        cache=None if caches is None else _layer(caches, i))
+    """With ``cfg.remat`` and autograd recording, each layer runs under
+    ``torch.utils.checkpoint``: it saves only its input, and its forward
+    (K1 and K2 included) runs again in the backward."""
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    if remat:
+        remat_policy(cfg)              # "full" only; "dots" raises
+    for i, p_l in enumerate(_unbind(params["blocks"])):
+        if remat:
+            x = checkpoint(apply_block, p_l, x, cfg, pos0=pos0,
+                           use_reentrant=False)
+        else:
+            x = apply_block(p_l, x, cfg, pos0=pos0,
+                            cache=None if caches is None else _layer(caches, i))
     return x
 
 
@@ -241,6 +268,13 @@ def forward(params, tokens, cfg: ModelConfig):
     x = _embed(params, tokens, cfg, dt)
     x = _run_blocks(params, x, cfg, pos0=0)
     return _logits(params, x, cfg)
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Mean next-token cross entropy of ``batch`` ({"tokens", "labels"} of
+    (B,S), optional "mask")."""
+    logits = forward(params, batch["tokens"], cfg)
+    return cross_entropy(logits, batch["labels"], batch.get("mask"))
 
 
 # -- serving ------------------------------------------------------------------

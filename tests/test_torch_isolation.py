@@ -37,7 +37,9 @@ def test_checked_files_cover_every_kernel_and_model_module():
     names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES
              if "repro_torch" in p.parts}
     assert {"models/recurrent.py", "models/transformer.py", "kernels/rglru.py",
-            "kernels/flash_attention.py", "kernels/rmsnorm.py"} <= names
+            "kernels/flash_attention.py", "kernels/rmsnorm.py", "train/step.py",
+            "comms/hierarchical.py", "comms/schedule_bridge.py",
+            "core/scheduler.py"} <= names
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -45,7 +47,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from repro_torch import bridge
     from repro_torch.configs import get_arch
     from repro_torch.device import resolve_device
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import build_model
     from repro_torch.train.serve import make_serve_fns
 
@@ -55,7 +57,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                  lambda: make_serve_fns(api),
                  lambda: bridge.params_from_jax({}),
                  lambda: serve.setup("llama3-8b", reduced=True),
-                 lambda: serve.main(["--reduced"])):
+                 lambda: serve.main(["--reduced"]),
+                 lambda: train.main(["--reduced"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
