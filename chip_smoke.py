@@ -9,16 +9,29 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
 
 1. the card's name and power limit; float32 matmuls and convolutions in full
    float32 (TF32 off);
-2. build the kernels from the checkout (K1 flash attention's two sources,
-   the sm90 kernel for bf16 at head dim 64-256 and the SIMT kernel for the
-   rest, and K3 the RG-LRU scan, with ``nvcc`` for sm_90a, one process each,
-   started together; K2 RMSNorm with Triton), report each library's
-   ptxas lines and its HGMMA / UTMALDG / SYNCS instruction counts from
-   ``cuobjdump -sass``, and hold each kernel against its plain version on
-   the card: fp32 within 2e-5, bf16 within 2e-2, the LSE within 2e-5, the
-   scan within 1e-5 (``tests/test_kernels.py``), at the tests' shapes, at
-   non-causal shapes with T != S, on strided views (sm90 route) and at the
-   serving shapes of both paths, each check naming its route;
+2. build the kernels from the checkout (K1 flash attention's four sources:
+   the forward's sm90 kernel for bf16 at head dim 64-256 and SIMT kernel for
+   the rest, the backward's sm90 kernel for bf16 at head dim 64 and 128 and
+   SIMT kernel for the rest; and K3 the RG-LRU scan; with ``nvcc`` for
+   sm_90a, one process each, started together; K2 RMSNorm's forward and
+   backward with Triton), report each library's ptxas lines and its HGMMA /
+   UTMALDG / SYNCS instruction counts from ``cuobjdump -sass``, and hold
+   each kernel against its plain version on the card: fp32 within 2e-5,
+   bf16 within 2e-2, the LSE within 2e-5, the scan within 1e-5
+   (``tests/test_kernels.py``), at the tests' shapes, at non-causal shapes
+   with T != S, on strided views (sm90 route) and at the serving shapes of
+   both paths, each check naming its route; then K1's and K2's gradients
+   through their autograd functions (the backward kernels) against autograd
+   through their plain versions and against the plain backwards
+   (``flash_attention_bwd``, ``rmsnorm_backward``) on the same inputs: fp32
+   within 1e-5 abs / 1e-4 rel, bf16 within 2e-2 of max(1, the gradient's
+   largest magnitude), at the tests' shapes with and without a window, at
+   the training shape, at a windowed shape of training width and on views
+   of a packed projection with a strided cotangent, each check naming its
+   backward route (K2's fp32 gradients also against autograd through
+   ``rmsnorm_plain`` and against ``rmsnorm_backward`` on fp64 copies of the
+   inputs, since the kernel sums dw in fp64; the fp32 versions' distances
+   to those are printed beside);
 3. serve llama3-8b at its published width (32 layers, d_model 4096, vocab
    128256; random weights from a seed): prefill 4 x 512 tokens, then 16
    greedy decode steps through ``repro_torch.launch.serve``, counting kernel
@@ -46,16 +59,17 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    4 x 1024 on one fixed batch for 6 steps: finite losses, the last below
    the first; step ms (median of steps 2-6, host clock after a
    synchronize), tokens/s, peak memory, launches per step held to K1 72
-   (36 forward + 36 recomputed, all sm90) and K2 145; one more step under
+   (36 forward + 36 recomputed, all sm90), K1's backward 36 (all sm90), K2
+   145 and K2's backward 73; one more step under
    ``torch.profiler`` (card busy, idle share, time by kernel group and by
    the port's profiler ranges); the Themis step on one card at full width
    cut to 18 layers, 16 chunks (1.70 B params: it keeps an fp32 master, m,
    v and a flat gradient buffer beside the params), 2 steps from the same
    weights and batch as the GSPMD step: losses and gnorms within 1e-5
-   relative, params per leaf within 1e-2 of the update's L2 and 0.1 lr per
-   element (AdamW divides each gradient element by its own RMS, so
-   elements whose gradient is near eps carry rounding into their update at
-   full scale); the reduced qwen2.5-3b (head dim 16, the SIMT route) on
+   relative, params per leaf within 1e-4 of the update's L2 and 1e-2 lr per
+   element (set from that phase's own readings on an H100, 2.0e-6 and
+   4e-4, with room on both sides); the reduced qwen2.5-3b (head dim 16,
+   the SIMT routes) on
    the card against the CPU with the same weights and batch, loss and
    per-leaf grads within 1e-4 relative L2 with fp32 activations, and within
    3e-2 with bf16 or the CPU's own bf16-to-fp32 gap for a leaf where that
@@ -66,10 +80,11 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    filled first, so the card's time alone; ``host_ms`` as issued one call
    after another from Python); K1's rows also time the SIMT kernel at the
    same shapes (``previous_ms``) and give the achieved TFLOP/s and
-   ``bound_ms / ms``; at the training shapes also the attention backward
-   (the plain recompute) beside SDPA's backward and its bound, K2's
-   backward, and the training step's floor (its FLOPs at the bf16 peak)
-   beside the measured step time.
+   ``bound_ms / ms``; at the training shapes also K1's and K2's backward
+   kernels beside their plain versions (``previous_ms``, the code the
+   training path ran before them), the library's backward and their bounds,
+   and the training step's floor (its FLOPs at the bf16 peak) beside the
+   measured step time.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` last. Exits non-zero, without that last
@@ -210,7 +225,8 @@ def phase_kernels(state):
     from repro_torch.kernels import rglru as rg
     from repro_torch.kernels import rmsnorm as rn
 
-    sources = ["flash_attention_sm90", "flash_attention", "rglru_scan"]
+    sources = ["flash_attention_sm90", "flash_attention", "flash_attention_bwd_sm90",
+               "flash_attention_bwd", "rglru_scan"]
     t0 = time.perf_counter()
     libs = _build.build(sources)
     build_s = time.perf_counter() - t0
@@ -323,7 +339,7 @@ def phase_kernels(state):
     emit(kernel_checks=checks)
     state["serving_err"] = {k: max(v) for k, v in serving_errs.items()}
     torch.cuda.empty_cache()
-    _grad_checks(gen)
+    state["grad_err"] = _grad_checks(gen)
     torch.cuda.empty_cache()
 
 
@@ -348,21 +364,27 @@ def _grad_close(name, got, want, dn, errs):
 
 def _grad_checks(gen):
     """K1's and K2's gradients on the card: each autograd path that the
-    training step runs (``ops.flash_attention``, ``ops.rmsnorm``) against
-    PyTorch's autograd through the kernel's plain version, with one random
-    cotangent."""
+    training step runs (``ops.flash_attention``, ``ops.rmsnorm``, whose
+    backwards launch the backward kernels) against PyTorch's autograd
+    through the kernel's plain version, and against the plain backward
+    (``flash_attention_bwd`` fed with the kernel's out and LSE;
+    ``rmsnorm_backward``) on the same inputs, with one random cotangent.
+    Returns the largest bf16 error at the training shapes, by kernel."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models.common import flash_attention_bwd
 
     checks = []
+    worst = {"flash_attention_backward": 0.0, "rmsnorm_backward": 0.0}
     train = (TRAIN_BATCH, TRAIN_SEQ, QWEN["h"], QWEN["kv"], QWEN["d"], TRAIN_SEQ,
              0)
+    train_window = (2, TRAIN_SEQ, QWEN["h"], QWEN["kv"], QWEN["d"], TRAIN_SEQ, 300)
     shapes = (FA_TEST_SHAPES + [(b, s, h, kv, d, t, 16)
                                 for b, s, h, kv, d, t, _ in FA_TEST_SHAPES]
-              + [train])
+              + [train, train_window])
     for b, s, h, kv, d, t, win in shapes:
         for dn in ("float32", "bfloat16"):
             dt = _dtype(dn)
@@ -374,18 +396,46 @@ def _grad_checks(gen):
                                       (q, k, v), dout)
             p_out, _ = fa.flash_attention_plain(q, k, v, causal=True, window=win)
             want = torch.autograd.grad(p_out, (q, k, v), dout)
+            with torch.no_grad():
+                out, lse = fa.flash_attention(q, k, v, causal=True, window=win)
+                plain = flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
+                                            window=win)
             torch.cuda.synchronize()
-            errs = []
-            for n, a, w in zip(("dq", "dk", "dv"), got, want):
-                _grad_close(f"flash_attention{(b, s, h, kv, d, t, win)} {dn} {n}",
-                            a, w, dn, errs)
+            errs, plain_errs = [], []
+            for n, a, w, pl in zip(("dq", "dk", "dv"), got, want, plain):
+                name = f"flash_attention{(b, s, h, kv, d, t, win)} {dn} {n}"
+                _grad_close(name, a, w, dn, errs)
+                _grad_close(name + " vs flash_attention_bwd", a, pl, dn, plain_errs)
+            if dn == "bfloat16" and (b, s, h, kv, d, t, win) == train:
+                worst["flash_attention_backward"] = max(
+                    e["max_abs_err"] for e in errs + plain_errs)
             checks.append({"kernel": "flash_attention", "route": fa.route(dt, d),
-                           "backward": "recompute (plain torch) from the kernel's "
-                                       "out and lse",
+                           "backward_route": fa.bwd_route(dt, d),
                            "shape": [b, s, h, kv, d, t], "window": win,
                            "dtype": dn, "grads": errs,
-                           "tol": GRAD_TOL[dn]})
-            del q, k, v, dout, got, p_out, want
+                           "vs_plain_backward": plain_errs, "tol": GRAD_TOL[dn]})
+            del q, k, v, dout, got, p_out, want, out, lse, plain
+    # the sm90 backward reads q, k and v through their strides: views of one
+    # packed projection, with a cotangent that is not contiguous
+    b, s, h, kv, d = 2, 256, 8, 2, 128
+    qkv = _randn(gen, (b, s, h + 2 * kv, d), torch.bfloat16).requires_grad_(True)
+    dout = _randn(gen, (b, h, s, d), torch.bfloat16).transpose(1, 2)
+
+    def split(x):
+        return x[:, :, :h], x[:, :, h:h + kv], x[:, :, h + kv:]
+
+    got = torch.autograd.grad(ops.flash_attention(*split(qkv), True, 0), qkv, dout)[0]
+    want = torch.autograd.grad(fa.flash_attention_plain(*split(qkv), causal=True)[0],
+                               qkv, dout)[0]
+    errs = []
+    _grad_close(f"flash_attention{(b, s, h, kv, d, s, 0)} bfloat16 views dqkv", got,
+                want, "bfloat16", errs)
+    checks.append({"kernel": "flash_attention", "route": fa.route(qkv.dtype, d),
+                   "backward_route": fa.bwd_route(qkv.dtype, d),
+                   "shape": [b, s, h, kv, d, s], "window": 0, "dtype": "bfloat16",
+                   "layout": "q, k, v views of one packed tensor; strided cotangent",
+                   "grads": errs, "tol": GRAD_TOL["bfloat16"]})
+    del qkv, dout, got, want
     for shape, dn in RN_TEST_SHAPES + [((TRAIN_BATCH, TRAIN_SEQ, 2048), "bfloat16"),
                                        ((TRAIN_BATCH, TRAIN_SEQ, 2048), "float32")]:
         dt = _dtype(dn)
@@ -394,15 +444,62 @@ def _grad_checks(gen):
         dy = _randn(gen, shape, dt)
         got = torch.autograd.grad(ops.rmsnorm(x, w, 1e-6), (x, w), dy)
         want = torch.autograd.grad(rn.rmsnorm_plain(x, w, 1e-6), (x, w), dy)
+        plain = rn.rmsnorm_backward(x.detach(), w.detach(), dy, 1e-6)
+        refs = {"": want, " vs rmsnorm_backward": plain}
+        fp32_readings = None
+        if dn == "float32":
+            # the kernel sums dw in fp64 and rounds once, where the fp32
+            # versions sum 4,096 rows in fp32: fp32 also holds the kernel to
+            # both versions on fp64 copies of the inputs (they then compute
+            # in fp64), and reports the fp32 versions' distances to those
+            want64, plain64 = _rmsnorm_grads_fp64(x, w, dy)
+            refs.update({" vs fp64 autograd": want64,
+                         " vs fp64 rmsnorm_backward": plain64})
+            fp32_readings = {"autograd32_vs_fp64": _rmsnorm_readings(want, want64),
+                             "plain32_vs_fp64": _rmsnorm_readings(plain, plain64)}
         torch.cuda.synchronize()
-        errs = []
-        for n, a, b in zip(("dx", "dw"), got, want):
-            _grad_close(f"rmsnorm{shape} {dn} {n}", a, b, dn, errs)
+        errs = {label: [] for label in refs}
+        for label, ref in refs.items():
+            for n, a, r in zip(("dx", "dw"), got, ref):
+                _grad_close(f"rmsnorm{shape} {dn} {n}{label}", a, r, dn, errs[label])
+        if dn == "bfloat16" and shape == (TRAIN_BATCH, TRAIN_SEQ, 2048):
+            worst["rmsnorm_backward"] = max(e["max_abs_err"] for v in errs.values()
+                                            for e in v)
         checks.append({"kernel": "rmsnorm", "route": "triton",
-                       "backward": "rmsnorm_backward (plain torch)",
-                       "shape": list(shape), "dtype": dn, "grads": errs,
-                       "tol": GRAD_TOL[dn]})
+                       "backward_route": "triton", "shape": list(shape), "dtype": dn,
+                       "grads": errs[""], "vs_plain_backward": errs[" vs rmsnorm_backward"],
+                       "vs_fp64": (errs[" vs fp64 autograd"]
+                                   + errs[" vs fp64 rmsnorm_backward"]
+                                   if fp32_readings else None),
+                       "fp32_readings": fp32_readings, "tol": GRAD_TOL[dn]})
     emit(grad_checks=checks)
+    return worst
+
+
+def _rmsnorm_grads_fp64(x, w, dy):
+    """((dx, dw) of autograd through ``rmsnorm_plain``, and the result of
+    ``rmsnorm_backward``) on fp64 copies of the inputs, cast to the inputs'
+    dtypes."""
+    import torch
+
+    from repro_torch.kernels import rmsnorm as rn
+
+    xd, wd, gd = (t.detach().double() for t in (x, w, dy))
+    xd.requires_grad_(True)
+    wd.requires_grad_(True)
+    auto = torch.autograd.grad(rn.rmsnorm_plain(xd, wd, 1e-6), (xd, wd), gd)
+    plain = rn.rmsnorm_backward(xd.detach(), wd.detach(), gd, 1e-6)
+    return tuple((a.to(x.dtype), b.to(w.dtype)) for a, b in (auto, plain))
+
+
+def _rmsnorm_readings(got, want):
+    """Max abs error of (dx, dw) and the count of elements beyond GRAD_TOL's
+    fp32 bound, against ``want``."""
+    atol, rtol = GRAD_TOL["float32"]
+    return {n: {"max_abs_err": _max_err(a, b),
+                "beyond_tol": int(((a.float() - b.float()).abs()
+                                   > atol + rtol * b.float().abs()).sum())}
+            for n, a, b in zip(("dx", "dw"), got, want)}
 
 
 def _sass_counts(so):
@@ -458,22 +555,26 @@ def _serve(state, arch, prompt, expect):
             "launches": total, "prompt": prompt}
 
 
+NO_BACKWARD = {"flash_attention_bwd": 0, "flash_attention_bwd_sm90": 0,
+               "rmsnorm_bwd": 0}
+
+
 def phase_serve(state):
     n = 32
     state[ARCH] = _serve(state, ARCH, PROMPT, {
         "prefill": {"flash_attention": n, "flash_attention_sm90": n,
-                    "rmsnorm": 2 * n + 1, "rglru_scan": 0},
+                    "rmsnorm": 2 * n + 1, "rglru_scan": 0, **NO_BACKWARD},
         "decode": {"flash_attention": 0, "flash_attention_sm90": 0,
-                   "rmsnorm": 2 * n + 1, "rglru_scan": 0}})
+                   "rmsnorm": 2 * n + 1, "rglru_scan": 0, **NO_BACKWARD}})
 
 
 def phase_hybrid_serve(state):
     n, attn, rec = 26, 8, 18
     state[HYB_ARCH] = _serve(state, HYB_ARCH, HYB_PROMPT, {
         "prefill": {"flash_attention": attn, "flash_attention_sm90": attn,
-                    "rmsnorm": 2 * n + 1, "rglru_scan": rec},
+                    "rmsnorm": 2 * n + 1, "rglru_scan": rec, **NO_BACKWARD},
         "decode": {"flash_attention": 0, "flash_attention_sm90": 0,
-                   "rmsnorm": 2 * n + 1, "rglru_scan": 0}})
+                   "rmsnorm": 2 * n + 1, "rglru_scan": 0, **NO_BACKWARD}})
 
 
 def _is_kernel(e, device_type):
@@ -711,7 +812,8 @@ def phase_train(state):
     assert losses[-1] < losses[0], f"loss did not fall: {losses}"
     n = cfg.num_layers
     want = {"flash_attention": 2 * n, "flash_attention_sm90": 2 * n,
-            "rmsnorm": 4 * n + 1, "rglru_scan": 0}
+            "flash_attention_bwd": n, "flash_attention_bwd_sm90": n,
+            "rmsnorm": 4 * n + 1, "rmsnorm_bwd": 2 * n + 1, "rglru_scan": 0}
     for i, c in enumerate(per_step):
         assert c == want, f"step {i + 1}: launches {c}, expected {want}"
     assert len(per_step) == TRAIN_STEPS
@@ -725,7 +827,10 @@ def _leaves(tree):
 
 
 _GROUPS = (("K1 forward (attn_fwd)", ("attn_fwd",)),
+           ("K1 backward (attn_bwd)", ("attn_bwd",)),
            ("K2 (_rmsnorm_kernel)", ("_rmsnorm_kernel",)),
+           ("K2 backward (_rmsnorm_bwd_kernel, _rmsnorm_dw_kernel)",
+            ("_rmsnorm_bwd_kernel", "_rmsnorm_dw_kernel")),
            ("GEMMs (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
            ("copies and dtype casts", ("copy",)))
 
@@ -827,11 +932,11 @@ def phase_themis_train(state):
 
 
 def phase_train_card_vs_cpu(state):
-    """Reduced qwen2.5-3b (head dim 16: K1 takes the SIMT kernel) with the
-    same weights and batch on the card and on the CPU: the loss and every
-    leaf's gradient, relative L2 within 1e-4 with fp32 activations; with
-    bf16 within 3e-2, or the CPU's own distance between its bf16 and fp32
-    gradients where that is larger."""
+    """Reduced qwen2.5-3b (head dim 16: K1's forward and backward take the
+    SIMT kernels) with the same weights and batch on the card and on the
+    CPU: the loss and every leaf's gradient, relative L2 within 1e-4 with
+    fp32 activations; with bf16 within 3e-2, or the CPU's own distance
+    between its bf16 and fp32 gradients where that is larger."""
     import numpy as np
     import torch
 
@@ -886,7 +991,10 @@ def phase_train_card_vs_cpu(state):
     assert not fails, fails
     assert counts["flash_attention"] > 0 and counts["flash_attention_sm90"] == 0, (
         f"reduced {TRAIN_ARCH}: K1 launches {counts}, expected SIMT only")
-    assert counts["rmsnorm"] > 0
+    assert (counts["flash_attention_bwd"] > 0
+            and counts["flash_attention_bwd_sm90"] == 0), (
+        f"reduced {TRAIN_ARCH}: K1 backward launches {counts}, expected SIMT only")
+    assert counts["rmsnorm"] > 0 and counts["rmsnorm_bwd"] > 0
 
 
 # -- phase 6 ---------------------------------------------------------------------
@@ -1059,11 +1167,13 @@ def _time_rglru(state, gen, b, s, c):
 
 
 def _time_attention_backward(state, gen, b, s, h, kvh, d, iters):
-    """The attention backward that training runs, the plain recompute of
-    ``models/common.py::flash_attention_bwd`` fed with K1's out and LSE, at
-    q (b,s,h,d), k/v (b,s,kvh,d) bf16, causal; beside SDPA's backward
-    (SDPA forward + backward minus its forward, KV heads expanded) and the
-    backward of the materialising plain version."""
+    """K1's backward kernel at q (b,s,h,d), k/v (b,s,kvh,d) bf16, causal, as
+    training calls it (``flash_attention_backward`` from the forward's out
+    and LSE); beside it the plain recompute ``flash_attention_bwd`` that the
+    training path ran before (``previous_ms``, also ``plain_ms``: it is the
+    kernel's plain version), SDPA's backward (SDPA forward + backward minus
+    its forward, KV heads expanded) and the backward of the materialising
+    plain version (``materialised_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1077,8 +1187,14 @@ def _time_attention_backward(state, gen, b, s, h, kvh, d, iters):
         q, k, v = (_randn(gen, (b, s, n, d), bf) for n in (h, kvh, kvh))
         out, lse = fa.flash_attention(q, k, v, causal=True)
         sets.append((q, k, v, out, lse, _randn(gen, (b, s, h, d), bf)))
-    ms = _time_ms(flash_attention_bwd, sets, iters)
-    ms_again = _time_ms(flash_attention_bwd, sets, iters)
+
+    def kern(q, k, v, out, lse, g):
+        return fa.flash_attention_backward(q, k, v, out, lse, g, causal=True)
+
+    ms = _time_ms(kern, sets, iters)
+    host_ms = _time_ms(kern, sets, iters, queued=False)
+    previous_ms = _time_ms(flash_attention_bwd, sets, max(3, iters // 4))
+    ms_again = _time_ms(kern, sets, iters)
 
     def grad_sets(expand):
         out = []
@@ -1103,32 +1219,40 @@ def _time_attention_backward(state, gen, b, s, h, kvh, d, iters):
     lib_ms = (_time_ms(fwd_bwd(sdpa), lib, iters)
               - _time_ms(lambda q, k, v, g: sdpa(q, k, v), lib, iters))
     pl = grad_sets(False)
-    plain_ms = (_time_ms(fwd_bwd(plain), pl, 3)
-                - _time_ms(lambda q, k, v, g: plain(q, k, v), pl, 3))
+    materialised_ms = (_time_ms(fwd_bwd(plain), pl, 3)
+                       - _time_ms(lambda q, k, v, g: plain(q, k, v), pl, 3))
     pairs = s * (s + 1) // 2
     ops = 2.5 * 4 * d * pairs * b * h
     nbytes = per_set + 2 * (b * s * h * d + 2 * b * s * kvh * d)
     bound_ms, bound_by = _bound(nbytes, ops, "bfloat16")
-    return {"name": "attention_backward", "route": "plain torch (recompute)",
-            "source": "src/repro_torch/models/common.py (flash_attention_bwd)",
-            "replaces": "src/repro/models/common.py:265 (_flash_vjp_bwd, XLA)",
+    return {"name": "flash_attention_backward", "route": "cuda",
+            "path": PATH_NAME["train"],
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
+            "replaces": "src/repro/kernels/ops.py:42 (_fa_bwd: the XLA recompute "
+                        "src/repro/models/common.py:265 _flash_vjp_bwd)",
+            "launches": state["train"]["launches"]["flash_attention_bwd_sm90"],
+            "max_abs_err": state["grad_err"]["flash_attention_backward"],
+            "ms": ms, "plain_ms": previous_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms, "host_ms": host_ms,
+            "ms_second_pass": ms_again, "previous_ms": previous_ms,
+            "previous_source": "src/repro_torch/models/common.py "
+                               "(flash_attention_bwd, plain recompute)",
+            "materialised_ms": materialised_ms,
+            "tflops": ops / (ms * 1e-3) / 1e12, "bound_fraction": bound_ms / ms,
             "calls_per_step": QWEN["layers"],
-            "ms": ms, "ms_second_pass": ms_again, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-            "bound_fraction": bound_ms / ms,
             "shape": {"q": [b, s, h, d], "kv": [b, s, kvh, d], "dtype": "bfloat16",
                       "causal": True},
             "library": "F.scaled_dot_product_attention forward+backward minus "
                        "forward, KV heads expanded",
-            "plain": "autograd through flash_attention_plain (materialised "
-                     "scores), forward+backward minus forward",
-            "card": state["card"]}
+            "materialised": "autograd through flash_attention_plain (materialised "
+                            "scores), forward+backward minus forward"}
 
 
 def _time_rmsnorm_backward(state, gen, shape):
-    """K2's backward (``rmsnorm_backward``, plain torch) at x ``shape``
-    bf16, w bf16; beside ``F.rms_norm``'s backward (forward+backward minus
-    forward)."""
+    """K2's backward kernels (``rmsnorm_grad``) at x ``shape`` bf16, w bf16;
+    beside its plain version ``rmsnorm_backward`` (``previous_ms``, the code
+    the training path ran before; also ``plain_ms``) and ``F.rms_norm``'s
+    backward (forward+backward minus forward)."""
     import torch
     import torch.nn.functional as F
 
@@ -1139,7 +1263,14 @@ def _time_rmsnorm_backward(state, gen, shape):
     sets = [(_randn(gen, shape, bf), _randn(gen, shape[-1:], bf),
              _randn(gen, shape, bf))
             for _ in range(_n_sets(2 * (3 * elems + shape[-1])))]
-    ms = _time_ms(lambda x, w, g: rn.rmsnorm_backward(x, w, g, 1e-6), sets, 50)
+
+    def kern(x, w, g):
+        return rn.rmsnorm_grad(x, w, g, 1e-6)
+
+    ms = _time_ms(kern, sets, 200)
+    host_ms = _time_ms(kern, sets, 200, queued=False)
+    previous_ms = _time_ms(lambda x, w, g: rn.rmsnorm_backward(x, w, g, 1e-6), sets, 50)
+    ms_again = _time_ms(kern, sets, 200)
     lib = [(x.requires_grad_(True), w.requires_grad_(True), g)
            for x, w, g in ((x.clone(), w.clone(), g) for x, w, g in sets)]
 
@@ -1148,15 +1279,26 @@ def _time_rmsnorm_backward(state, gen, shape):
 
     lib_ms = (_time_ms(lambda x, w, g: torch.autograd.grad(
         lib_fwd(x, w, g), (x, w), g), lib, 50) - _time_ms(lib_fwd, lib, 50))
+    # x and dy read once, w read once; dx and dw written once
     bound_ms, bound_by = _bound(2 * (3 * elems + 2 * shape[-1]), 10 * elems,
                                 "float32")
-    return {"name": "rmsnorm_backward", "route": "plain torch",
-            "source": "src/repro_torch/kernels/rmsnorm.py (rmsnorm_backward)",
+    return {"name": "rmsnorm_backward", "route": "triton",
+            "path": PATH_NAME["train"],
+            "source": "src/repro_torch/kernels/rmsnorm.py",
+            "replaces": "src/repro/kernels/rmsnorm.py:20 (its gradient: the "
+                        "reference differentiates src/repro/models/common.py:103 "
+                        "rms_norm)",
+            "launches": state["train"]["launches"]["rmsnorm_bwd"],
+            "max_abs_err": state["grad_err"]["rmsnorm_backward"],
+            "ms": ms, "plain_ms": previous_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms, "host_ms": host_ms,
+            "ms_second_pass": ms_again, "previous_ms": previous_ms,
+            "previous_source": "src/repro_torch/kernels/rmsnorm.py "
+                               "(rmsnorm_backward, plain torch)",
+            "bound_fraction": bound_ms / ms,
             "calls_per_step": 2 * QWEN["layers"] + 1,
-            "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms, "shape": {"x": list(shape), "dtype": "bfloat16"},
-            "library": "F.rms_norm forward+backward minus forward",
-            "card": state["card"]}
+            "shape": {"x": list(shape), "dtype": "bfloat16"},
+            "library": "F.rms_norm forward+backward minus forward"}
 
 
 def phase_times(state):
@@ -1178,12 +1320,12 @@ def phase_times(state):
         _time_flash(state, gen, "train", TRAIN_BATCH, TRAIN_SEQ, QWEN["h"],
                     QWEN["kv"], QWEN["d"], TRAIN_SEQ, 0, iters=50),
         _time_rmsnorm(state, gen, "train", (TRAIN_BATCH, TRAIN_SEQ, QWEN["d_model"])),
+        # K1's and K2's backward kernels at the same training shapes
+        _time_attention_backward(state, gen, TRAIN_BATCH, TRAIN_SEQ, QWEN["h"],
+                                 QWEN["kv"], QWEN["d"], 50),
+        _time_rmsnorm_backward(state, gen, (TRAIN_BATCH, TRAIN_SEQ, QWEN["d_model"])),
     ]
     emit(rmsnorm_decode_shape=_time_rmsnorm(state, gen, ARCH, (BATCH, 1, 4096)))
-    emit(attention_backward=_time_attention_backward(
-        state, gen, TRAIN_BATCH, TRAIN_SEQ, QWEN["h"], QWEN["kv"], QWEN["d"], 20))
-    emit(rmsnorm_backward=_time_rmsnorm_backward(
-        state, gen, (TRAIN_BATCH, TRAIN_SEQ, QWEN["d_model"])))
     emit(times={"card": state["card"], "peak_bytes_per_s": PEAK_BYTES_PER_S,
                 "peak_ops_per_s": PEAK_OPS_PER_S,
                 "train_step_ms": state["train"]["step_ms"],

@@ -1,26 +1,32 @@
 """The port's hand-written Hopper kernels, their plain versions and launch counts.
 
 K1 flash attention forward (CUDA C++: ``csrc/flash_attention_sm90.cu`` for
-bf16 at head dim 64-256, ``csrc/flash_attention.cu`` otherwise), K2
-RMSNorm (Triton, ``rmsnorm.py``) and K3 the RG-LRU scan (CUDA C++,
-``csrc/rglru_scan.cu``). Each wrapper adds one to its module's
-``launches`` where it launches its kernel, and nowhere else;
-``flash_attention_sm90`` counts the K1 launches that took the sm90 kernel,
-and ``flash_attention`` stays the total.
+bf16 at head dim 64-256, ``csrc/flash_attention.cu`` otherwise) and
+backward (``csrc/flash_attention_bwd_sm90.cu`` for bf16 at head dim 64 and
+128, ``csrc/flash_attention_bwd.cu`` otherwise), K2 RMSNorm forward and
+backward (Triton, ``rmsnorm.py``) and K3 the RG-LRU scan (CUDA C++,
+``csrc/rglru_scan.cu``). Each wrapper adds one to its count where it
+launches its kernel, and nowhere else: ``flash_attention``, ``rmsnorm``
+and ``rglru_scan`` count the forwards, ``flash_attention_bwd`` and
+``rmsnorm_bwd`` the backwards; ``flash_attention_sm90`` and
+``flash_attention_bwd_sm90`` count the K1 launches that took an sm90
+kernel, of the totals beside them.
 """
 from repro_torch.kernels import flash_attention, rglru, rmsnorm
 
-_MODULES = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
-            "rglru_scan": rglru}
+_COUNTS = {"flash_attention": (flash_attention, "launches"),
+           "rmsnorm": (rmsnorm, "launches"),
+           "rglru_scan": (rglru, "launches"),
+           "flash_attention_sm90": (flash_attention, "launches_sm90"),
+           "flash_attention_bwd": (flash_attention, "launches_bwd"),
+           "flash_attention_bwd_sm90": (flash_attention, "launches_bwd_sm90"),
+           "rmsnorm_bwd": (rmsnorm, "launches_bwd")}
 
 
 def launch_counts() -> dict[str, int]:
-    counts = {name: mod.launches for name, mod in _MODULES.items()}
-    counts["flash_attention_sm90"] = flash_attention.launches_sm90
-    return counts
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _MODULES.values():
-        mod.launches = 0
-    flash_attention.launches_sm90 = 0
+    for mod, attr in _COUNTS.values():
+        setattr(mod, attr, 0)

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use into ``build/repro_torch/<name>-<hash>.so`` at the root of the checkout,
-where the hash covers the source and the flags, so an edited source is
-rebuilt. A build with PyTorch's own extension builder would include
-PyTorch's headers and take minutes; a plain C interface builds in seconds.
+where the hash covers the source, the shared headers ``csrc/*.cuh`` and the
+flags, so an edited source or header is rebuilt. A build with PyTorch's own
+extension builder would include PyTorch's headers and take minutes; a plain
+C interface builds in seconds.
 ``build()`` starts one ``nvcc`` per source, all together, and waits for them.
 """
 from __future__ import annotations
@@ -35,9 +36,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library path of ``csrc/<name>.cu``: its hash covers the source,
+    every shared header ``csrc/*.cuh`` (a source may include any of them) and
+    the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: list[str]) -> dict[str, Path]:

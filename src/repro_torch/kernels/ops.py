@@ -1,19 +1,21 @@
 """Public wrappers for the kernels, as in ``repro/kernels/ops.py``.
 
 K1 and K2 run inside autograd functions, so that training differentiates
-through them: on a CUDA tensor their forwards launch the hand-written
-kernels, on a CPU tensor the kernels' plain versions; the backwards are
-plain PyTorch on either device.
+through them: on a CUDA tensor their forwards and backwards launch the
+hand-written kernels, on a CPU tensor the kernels' plain versions.
 
-- ``flash_attention``: K1's forward, with the recompute backward of the
-  reference's ``flash_attention_xla`` (``models/common.py::
-  flash_attention_bwd``, plain PyTorch fed with the kernel's LSE), as the
-  reference's ``custom_vjp`` pairs its Pallas forward with an XLA
-  backward. A non-zero ``q_offset`` goes to the blockwise
-  ``flash_attention_xla`` port, since the kernel assumes offset 0 (the
-  same split as the reference).
-- ``rmsnorm``: K2's forward, with ``rmsnorm.rmsnorm_backward`` (plain
-  PyTorch) as its gradient.
+- ``flash_attention``: K1's forward, with K1's backward kernels
+  (``flash_attention.flash_attention_backward``, fed with the forward's out
+  and LSE) where the reference's ``custom_vjp`` pairs its Pallas forward
+  with an XLA backward; on the CPU that backward is the port of the XLA
+  recompute (``models/common.py::flash_attention_bwd``). A non-zero
+  ``q_offset`` goes to the blockwise ``flash_attention_xla`` port, since
+  the kernel assumes offset 0 (the same split as the reference).
+- ``rmsnorm``: K2's forward, with ``rmsnorm.rmsnorm_grad`` (K2's backward
+  kernels; ``rmsnorm_backward`` on the CPU) as its gradient.
+
+The backwards run inside the profiler ranges
+``repro_torch.attention_backward`` and ``repro_torch.rmsnorm_backward``.
 
 A recompute under activation checkpointing runs the forward again, so it
 launches (and counts) the kernel again.
@@ -37,11 +39,9 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        from repro_torch.models.common import flash_attention_bwd
-
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, causal=ctx.causal,
-                                         window=ctx.window)
+        dq, dk, dv = _fa.flash_attention_backward(q, k, v, out, lse, g,
+                                                  causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None
 
 
@@ -56,7 +56,7 @@ class _RMSNorm(torch.autograd.Function):
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         with torch.profiler.record_function("repro_torch.rmsnorm_backward"):
-            dx, dw = _rn.rmsnorm_backward(x, w, dy, ctx.eps)
+            dx, dw = _rn.rmsnorm_grad(x, w, dy, ctx.eps)
         return dx, dw, None
 
 

@@ -10,11 +10,11 @@ the model runs on one device, and data parallelism lives in
 Dispatch to the hand-written kernels:
 
 - On a CUDA tensor, ``attention`` sends S > 1 to ``ops.flash_attention``
-  (kernel K1 when ``q_offset == 0``, differentiable through the recompute
-  backward ``flash_attention_bwd``) for both ``impl="xla_flash"`` (the
-  default, which ``attention_impl="reference"`` selects) and
-  ``impl="pallas"``, and ``rms_norm`` goes to ``ops.rmsnorm`` (kernel K2,
-  which rounds once where the reference rounds twice).
+  (kernel K1 when ``q_offset == 0``, differentiable through K1's backward
+  kernels) for both ``impl="xla_flash"`` (the default, which
+  ``attention_impl="reference"`` selects) and ``impl="pallas"``, and
+  ``rms_norm`` goes to ``ops.rmsnorm`` (kernel K2, which rounds once where
+  the reference rounds twice).
 - On a CPU tensor, ``"xla_flash"`` and ``rms_norm`` run the line-for-line
   ports of the reference functions below (``flash_attention_xla`` with the
   reference's recompute ``custom_vjp`` as an autograd function), and
@@ -38,21 +38,18 @@ NEG_INF = -1e30
 
 def remat_policy(cfg):
     """Activation-checkpoint policy of the per-layer remat wrapper, read from
-    ``cfg.remat_policy`` alone.
+    ``cfg.remat_policy`` alone, as in the reference.
 
-    ``"full"`` (the default) saves nothing inside a block: each layer keeps
-    only its input and recomputes the rest in the backward, as
-    ``jax.checkpoint`` with no policy does; returns None (the default
-    context of ``torch.utils.checkpoint``). ``"dots"`` (save the matmul
-    outputs) is not ported yet and raises rather than running ``"full"`` in
-    its place."""
-    policy = cfg.remat_policy
-    if policy == "dots":
+    Every name but ``"dots"`` (``"full"``, the default, and also ``"none"``
+    or any other) saves nothing inside a block: each layer keeps only its
+    input and recomputes the rest in the backward, as ``jax.checkpoint``
+    with no policy does; returns None (the default context of
+    ``torch.utils.checkpoint``). ``"dots"`` (save the matmul outputs) is not
+    ported yet and raises rather than running ``"full"`` in its place."""
+    if cfg.remat_policy == "dots":
         raise NotImplementedError(
             "remat_policy 'dots' is not ported yet (ROADMAP, training slice); "
             "use remat_policy='full'")
-    if policy != "full":
-        raise ValueError(f"unknown remat_policy {policy!r}")
     return None
 
 
@@ -203,7 +200,8 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, q_offset: int = 0,
     are recomputed from (q, k, lse); dk/dv accumulate in fp32 and the GQA
     groups fold back onto the KV heads. ``lse`` (B,H,S) fp32 may come from
     the blockwise forward or from kernel K1. Returns (dq, dk, dv) in the
-    dtypes of q, k, v. Runs inside the profiler range
+    dtypes of q, k, v. The plain version of K1's backward kernels (their
+    route on a CPU tensor). Runs inside the profiler range
     ``repro_torch.attention_backward``."""
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]

@@ -239,7 +239,7 @@ def _run_blocks(params, x, cfg: ModelConfig, *, pos0: int, caches=None):
     (K1 and K2 included) runs again in the backward."""
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     if remat:
-        remat_policy(cfg)              # "full" only; "dots" raises
+        remat_policy(cfg)              # "dots" raises; other names: full
     for i, p_l in enumerate(_unbind(params["blocks"])):
         if remat:
             x = checkpoint(apply_block, p_l, x, cfg, pos0=pos0,

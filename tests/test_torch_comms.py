@@ -17,8 +17,15 @@ runs the reference's on 8 virtual devices:
   block of the reference's global arrays (master within 1e-2 of its update's
   L2 and 0.1 lr per element, m and v within 1e-4 relative L2); params
   likewise;
+- the same comparison under ``dp_sync="hier_baseline"`` (the static
+  dim1->dimD order for every chunk), at the same bounds;
 - the int8 Themis step on reduced llama3-8b over a (data 2, model 4) mesh:
-  the loss falls in 6 steps (``multidevice_checks.py``'s check).
+  the loss falls in 6 steps (``multidevice_checks.py``'s check); and with
+  fp32 activations, from the reference's initial params, against the
+  reference's int8 step on the same mesh and data: losses, gnorms and each
+  rank's master/m/v and error-feedback shards within ``INT8_BOUNDS`` (set
+  from the readings; the comment there says why they are wider than the
+  fp32 step's).
 
 The int8 codes of ``_quantize`` are compared with the reference's on the
 same input in this process.
@@ -36,12 +43,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 8
-LR = 1e-3
 
-# The reference's Themis step on 8 virtual CPU devices; writes its initial
-# params, orders, metrics and final state to the .npz named in argv[1].
+# The reference's Themis steps on 8 virtual CPU devices; writes each run's
+# initial params, orders, metrics and final state to the .npz named in
+# argv[1], the keys of a run prefixed by its name (STEP_RUNS).
 REFERENCE_SCRIPT = r"""
-import os, sys
+import ast, os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
 import jax
 import jax.numpy as jnp
@@ -52,35 +59,61 @@ from repro.models import build_model
 from repro.train.step import make_themis_train_step
 
 out = sys.argv[1]
-lr = float(sys.argv[2])
-mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
-cfg = get_arch("qwen2.5-3b", reduced=True).replace(remat=False, dtype="float32")
-api = build_model(cfg)
-tcfg = TrainConfig(learning_rate=lr, warmup_steps=1, total_steps=10)
-step, init, orders = make_themis_train_step(
-    api, mesh, ParallelConfig(data=2, model=2, pods=2, dp_sync="themis",
-                              chunks_per_collective=4), tcfg)
-params, opt = init(0)
-res = {f"p{i}": np.asarray(x) for i, x in enumerate(jax.tree.leaves(params))}
-res["master0"] = np.asarray(opt["master"])
-rng = np.random.default_rng(0)
-batch = {"tokens": rng.integers(0, cfg.vocab_size, (8, 32)).astype(np.int32),
-         "labels": rng.integers(0, cfg.vocab_size, (8, 32)).astype(np.int32)}
-res.update(batch)
-losses, gnorms = [], []
-for _ in range(2):
-    params, opt, m = step(params, opt, {k: jnp.asarray(v) for k, v in batch.items()})
-    losses.append(float(m["loss"]))
-    gnorms.append(float(m["gnorm"]))
-res.update({f"final_p{i}": np.asarray(x)
-            for i, x in enumerate(jax.tree.leaves(params))})
-for k in ("master", "m", "v"):
-    res[k] = np.asarray(opt[k])
-res["count"] = np.asarray(opt["count"])
-res["losses"], res["gnorms"] = np.asarray(losses), np.asarray(gnorms)
-res["orders"] = np.asarray(["->".join(o) for o in orders])
+res = {}
+
+
+def run(prefix, mesh_shape, names, arch, parallel, tcfg, steps):
+    mesh = make_mesh(mesh_shape, names)
+    cfg = get_arch(arch, reduced=True).replace(remat=False, dtype="float32")
+    api = build_model(cfg)
+    step, init, orders = make_themis_train_step(api, mesh, ParallelConfig(**parallel),
+                                                TrainConfig(**tcfg))
+    params, opt = init(0)
+    r = {f"p{i}": np.asarray(x) for i, x in enumerate(jax.tree.leaves(params))}
+    r["master0"] = np.asarray(opt["master"])
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (8, 32)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (8, 32)).astype(np.int32)}
+    r.update(batch)
+    losses, gnorms = [], []
+    for _ in range(steps):
+        params, opt, m = step(params, opt,
+                              {k: jnp.asarray(v) for k, v in batch.items()})
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+    r.update({f"final_p{i}": np.asarray(x)
+              for i, x in enumerate(jax.tree.leaves(params))})
+    for k in ("master", "m", "v", "err"):
+        r[k] = np.asarray(opt[k])
+    r["count"] = np.asarray(opt["count"])
+    r["losses"], r["gnorms"] = np.asarray(losses), np.asarray(gnorms)
+    r["orders"] = np.asarray(["->".join(o) for o in orders])
+    res.update({prefix + k: v for k, v in r.items()})
+
+
+for name, spec in ast.literal_eval(sys.argv[2]).items():
+    run(name, *spec)
 np.savez(out, **res)
 """
+
+# The runs compared with the reference, keyed by the prefix of their keys:
+# (mesh shape, axis names, arch, ParallelConfig, TrainConfig, steps), all
+# reduced, fp32 activations, remat off.
+STEP_RUNS = {
+    "themis_": ((2, 2, 2), ("pod", "data", "model"), "qwen2.5-3b",
+                dict(data=2, model=2, pods=2, dp_sync="themis",
+                     chunks_per_collective=4),
+                dict(learning_rate=1e-3, warmup_steps=1, total_steps=10), 2),
+    "hier_baseline_": ((2, 2, 2), ("pod", "data", "model"), "qwen2.5-3b",
+                       dict(data=2, model=2, pods=2, dp_sync="hier_baseline",
+                            chunks_per_collective=4),
+                       dict(learning_rate=1e-3, warmup_steps=1, total_steps=10), 2),
+    "int8_": ((2, 4), ("data", "model"), "llama3-8b",
+              dict(data=2, model=4, dp_sync="themis", chunks_per_collective=2,
+                   compression="int8"),
+              dict(learning_rate=1e-2, warmup_steps=1, total_steps=10,
+                   weight_decay=0.0), 6),
+}
 
 
 def _rel_l2(a, b):
@@ -124,7 +157,39 @@ def _check_int8_reduce_scatter(rank):
     return {"int8_rs_mean_rel_err": mean}
 
 
-def _check_themis_step(rank, ref_path):
+# Bounds of the port's step against the reference's, by run. fp32: losses
+# and gnorms 1e-5 relative (8-way fp32 sums in another order), master and
+# params within 1e-2 of their update's L2 and 0.1 lr per element (AdamW
+# divides each gradient element by its own RMS, so elements whose gradient
+# is near eps carry that rounding into their update at full scale), m and v
+# 1e-4 relative L2.
+FP32_BOUNDS = {"losses_rel": 1e-5, "gnorms_rel": 1e-5,
+               "master_diff_over_update": 1e-2, "master_max_abs_over_lr": 0.1,
+               "m_rel_l2": 1e-4, "v_rel_l2": 1e-4,
+               "params_diff_over_update": 1e-2, "params_max_abs_over_lr": 0.1}
+# int8 (fp32 activations, 6 steps at lr 1e-2), set from this check's own
+# readings on the CPU with room of about 3x (largest over the 8 ranks:
+# losses 1.9e-5, gnorms 2.3e-4, master 9.1e-3 of its update and 1.03 lr,
+# m 0.038, v 0.035, the error-feedback residual 0.46, params 8.7e-3 and
+# 1.03 lr). The int8 codes round |g| / (max|g| / 127): where the two
+# frameworks' fp32 gradients straddle a rounding boundary a code differs by
+# one, that element's update moves by a whole quantisation step, AdamW
+# normalises it to about lr, and the residual carried to the next step
+# flips sign; as the params drift over the steps more codes straddle. A
+# wrong or missing error feedback or scale moves the losses at the third
+# digit and the residual by 1 or more.
+INT8_BOUNDS = {"losses_rel": 1e-4, "gnorms_rel": 1e-3,
+               "master_diff_over_update": 3e-2, "master_max_abs_over_lr": 3.0,
+               "m_rel_l2": 0.1, "v_rel_l2": 0.1, "err_rel_l2": 0.75,
+               "params_diff_over_update": 3e-2, "params_max_abs_over_lr": 3.0}
+
+
+def _check_step(rank, ref_path, name, bounds):
+    """The port's Themis step of ``STEP_RUNS[name]`` from the reference's
+    initial params and batch: the chunk orders equal, the initial master
+    shard equal, and after the run the losses, gnorms and this rank's
+    master/m/v (and int8 error-feedback) shards against the reference's
+    blocks, within ``bounds``."""
     from repro_torch import bridge
     from repro_torch.configs import ParallelConfig, TrainConfig, get_arch
     from repro_torch.data.pipeline import local_rows
@@ -133,57 +198,56 @@ def _check_themis_step(rank, ref_path):
     from repro_torch.models.registry import leaves
     from repro_torch.train.step import make_themis_train_step
 
-    ref = dict(np.load(ref_path))
-    mesh = Mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
-    cfg = get_arch("qwen2.5-3b", reduced=True).replace(remat=False,
-                                                      dtype="float32")
+    shape, names, arch, parallel, tcfg, steps = STEP_RUNS[name]
+    ref = {k[len(name):]: v for k, v in np.load(ref_path).items()
+           if k.startswith(name)}
+    lr = tcfg["learning_rate"]
+    mesh = Mesh(shape, names, "cpu")
+    cfg = get_arch(arch, reduced=True).replace(remat=False, dtype="float32")
     api = build_model(cfg)
-    tcfg = TrainConfig(learning_rate=LR, warmup_steps=1, total_steps=10)
     step, init_state, orders = make_themis_train_step(
-        api, mesh, ParallelConfig(data=2, model=2, pods=2, dp_sync="themis",
-                                  chunks_per_collective=4), tcfg)
+        api, mesh, ParallelConfig(**parallel), TrainConfig(**tcfg))
     assert ["->".join(o) for o in orders] == list(ref["orders"])
     params = api.init(0, "cpu")
     with torch.no_grad():
         for i, p in enumerate(leaves(params)):
             p.copy_(torch.from_numpy(ref[f"p{i}"]))
     params, opt = init_state(params=params)
-    axes = ("model", "data", "pod")                 # the step's dp axes
-    master0 = bridge.opt_state_from_jax(
-        {"master": ref["master0"]}, "cpu",
-        block=(mesh.block_index(axes), mesh.size))["master"].numpy()
+    axes = tuple(a for a in ("model", "data", "pod") if mesh.shape.get(a, 1) > 1)
+    block = (mesh.block_index(axes), mesh.size)     # the step's dp axes
+    master0 = bridge.opt_state_from_jax({"master": ref["master0"]}, "cpu",
+                                        block=block)["master"].numpy()
     assert np.array_equal(opt["master"].numpy(), master0)
     batch = {k: torch.from_numpy(v) for k, v in
              local_rows({"tokens": ref["tokens"], "labels": ref["labels"]},
                         mesh).items()}
     losses, gnorms = [], []
-    for _ in range(2):
+    for _ in range(steps):
         params, opt, m = step(params, opt, batch)
         losses.append(float(m["loss"]))
         gnorms.append(float(m["gnorm"]))
-    np.testing.assert_allclose(losses, ref["losses"], rtol=1e-5)
-    np.testing.assert_allclose(gnorms, ref["gnorms"], rtol=1e-5)
-    want = bridge.opt_state_from_jax(
-        {k: ref[k] for k in ("master", "m", "v", "count")}, "cpu",
-        block=(mesh.block_index(axes), mesh.size))
-    assert opt["count"] == want["count"] == 2
+    keys = ("master", "m", "v", "count") + (("err",) if "err_rel_l2" in bounds else ())
+    want = bridge.opt_state_from_jax({k: ref[k] for k in keys}, "cpu", block=block)
+    assert opt["count"] == want["count"] == steps
     master, wmaster = opt["master"].numpy(), want["master"].numpy()
-    upd = np.linalg.norm(wmaster - master0)
-    errs = {"master_diff_over_update": float(np.linalg.norm(master - wmaster)
-                                             / upd),
-            "master_max_abs_over_lr": float(np.abs(master - wmaster).max() / LR)}
-    for k in ("m", "v"):
-        errs[f"{k}_rel_l2"] = _rel_l2(opt[k].numpy(), want[k].numpy())
-    p_diff = 0.0
+    errs = {k: float(np.max(np.abs(np.asarray(got) - ref[k]) / np.abs(ref[k])))
+            for k, got in (("losses", losses), ("gnorms", gnorms))}
+    errs = {f"{k}_rel": v for k, v in errs.items()}
+    errs["master_diff_over_update"] = float(np.linalg.norm(master - wmaster)
+                                            / np.linalg.norm(wmaster - master0))
+    errs["master_max_abs_over_lr"] = float(np.abs(master - wmaster).max() / lr)
+    for k in ("m", "v", "err"):
+        if k in want:
+            errs[f"{k}_rel_l2"] = _rel_l2(opt[k].numpy(), want[k].numpy())
+    p_diff, p_max = 0.0, 0.0
     for i, p in enumerate(leaves(params)):
         a, b, c = p.detach().numpy(), ref[f"final_p{i}"], ref[f"p{i}"]
         p_diff = max(p_diff, float(np.linalg.norm(a - b) / np.linalg.norm(b - c)))
-        assert np.abs(a - b).max() <= 0.1 * LR
+        p_max = max(p_max, float(np.abs(a - b).max() / lr))
     errs["params_diff_over_update"] = p_diff
-    assert errs["master_diff_over_update"] <= 1e-2, errs
-    assert errs["master_max_abs_over_lr"] <= 0.1, errs
-    assert errs["m_rel_l2"] <= 1e-4 and errs["v_rel_l2"] <= 1e-4, errs
-    assert p_diff <= 1e-2, errs
+    errs["params_max_abs_over_lr"] = p_max
+    beyond = {k: (errs[k], limit) for k, limit in bounds.items() if errs[k] > limit}
+    assert not beyond, f"{name}: beyond the bounds {beyond}"
     return {"losses": losses, "gnorms": gnorms, **errs}
 
 
@@ -225,8 +289,12 @@ def _worker(rank, store, ref_path, out_dir):
     try:
         res = {"all_reduce": _check_all_reduce(rank),
                "int8_rs": _check_int8_reduce_scatter(rank),
-               "themis_step": _check_themis_step(rank, ref_path),
-               "int8_step": _check_int8_step(rank)}
+               "themis_step": _check_step(rank, ref_path, "themis_", FP32_BOUNDS),
+               "hier_baseline_step": _check_step(rank, ref_path, "hier_baseline_",
+                                                 FP32_BOUNDS),
+               "int8_step": _check_int8_step(rank),
+               "int8_vs_reference": _check_step(rank, ref_path, "int8_",
+                                                INT8_BOUNDS)}
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
@@ -237,8 +305,8 @@ def _run_reference(path):
            "PYTHONPATH": str(ROOT / "src") + os.pathsep
            + os.environ.get("PYTHONPATH", "")}
     proc = subprocess.run([sys.executable, "-c", REFERENCE_SCRIPT, str(path),
-                           str(LR)], env=env, capture_output=True, text=True,
-                          timeout=600)
+                           repr(STEP_RUNS)], env=env, capture_output=True,
+                          text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
 
 
@@ -276,6 +344,7 @@ def test_eight_gloo_ranks_match_reference(tmp_path):
                for r in range(WORLD)]
     assert results[0]["all_reduce"]["distinct_orders"] >= 1
     # every rank agrees on the pmean'd loss and the all-reduced gnorm
-    assert len({tuple(r["themis_step"]["losses"]) for r in results}) == 1
-    assert len({tuple(r["themis_step"]["gnorms"]) for r in results}) == 1
+    for run in ("themis_step", "hier_baseline_step", "int8_vs_reference"):
+        assert len({tuple(r[run]["losses"]) for r in results}) == 1
+        assert len({tuple(r[run]["gnorms"]) for r in results}) == 1
     assert len({tuple(r["int8_step"]["int8_losses"]) for r in results}) == 1

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` and not
 ``chip_smoke.py`` imports ``jax`` or ``repro``, and entry points called
-without a device ask for CUDA and raise where it is absent."""
+without a device ask for CUDA and raise where it is absent; the card check
+builds every kernel source."""
 import ast
 from pathlib import Path
 
@@ -37,9 +38,23 @@ def test_checked_files_cover_every_kernel_and_model_module():
     names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES
              if "repro_torch" in p.parts}
     assert {"models/recurrent.py", "models/transformer.py", "kernels/rglru.py",
-            "kernels/flash_attention.py", "kernels/rmsnorm.py", "train/step.py",
-            "comms/hierarchical.py", "comms/schedule_bridge.py",
-            "core/scheduler.py"} <= names
+            "kernels/flash_attention.py", "kernels/rmsnorm.py", "kernels/ops.py",
+            "kernels/_build.py", "train/step.py", "comms/hierarchical.py",
+            "comms/schedule_bridge.py", "core/scheduler.py"} <= names
+
+
+def test_chip_smoke_builds_every_kernel_source():
+    """``chip_smoke.py``'s build phase names every ``csrc/*.cu`` (the K1
+    forward and backward kernels of both routes and K3), so each is built
+    and its ptxas and SASS counts reported on the card."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == "phase_kernels")
+    built = next(ast.literal_eval(n.value) for n in ast.walk(fn)
+                 if isinstance(n, ast.Assign)
+                 and getattr(n.targets[0], "id", "") == "sources")
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    assert sorted(built) == sorted(p.stem for p in csrc.glob("*.cu"))
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

@@ -39,7 +39,7 @@ from repro.train.step import make_gspmd_train_step as jax_gspmd_step
 from repro_torch import bridge
 from repro_torch.configs import ParallelConfig, TrainConfig, get_arch
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM, local_rows
-from repro_torch.kernels import ops
+from repro_torch.kernels import launch_counts, ops, reset_launch_counts
 from repro_torch.kernels import rmsnorm as trn
 from repro_torch.launch import train as ttrain
 from repro_torch.models import build_model
@@ -110,8 +110,9 @@ FLASH_CASES = [(4, 2, 0), (4, 2, 16), (4, 1, 0), (4, 1, 16)]   # h, kv, window
 def test_flash_backward_matches_reference(path, h, kv, window, dtype):
     """The tests/test_kernels.py shape (2,100,·,32), blocks of 32, and a
     random cotangent. ``k1_autograd`` is ``ops.flash_attention``, the
-    autograd function around K1, whose forward on a CPU tensor is K1's plain
-    version."""
+    autograd function around K1, whose forward and backward on a CPU tensor
+    are K1's plain versions: no kernel is launched."""
+    reset_launch_counts()
     rng = np.random.default_rng(3)
     (jq, q), (jk, k), (jv, v) = (_arr(rng, (2, 100, n, 32), dtype)
                                  for n in (h, kv, kv))
@@ -134,6 +135,7 @@ def test_flash_backward_matches_reference(path, h, kv, window, dtype):
     for x, y, ref in zip(got, want, (q, k, v)):
         assert x.dtype == ref.dtype
         _close(x, y, dtype)
+    assert set(launch_counts().values()) == {0}, launch_counts()
 
 
 def test_flash_backward_pads_ragged_blocks_and_offsets():
@@ -287,6 +289,35 @@ def test_remat_dots_and_hybrid_training_raise():
     hyb = build_model(get_arch("recurrentgemma-2b", reduced=True))
     with pytest.raises(NotImplementedError, match="M11"):
         hyb.loss_fn({}, batch)
+
+
+@pytest.mark.parametrize("policy", ["full", "none", "no-such-policy"])
+def test_remat_policy_names_follow_reference(policy):
+    """Every ``remat_policy`` name but "dots" means full remat, in the
+    reference (``repro/models/common.py::remat_policy``) and in the port:
+    the port's loss and grads under ``policy`` equal its "full" policy's to
+    the bit, and the reference accepts the name and agrees within 1e-5
+    relative L2 (fp32 activations)."""
+    jcfg, tcfg, jparams, tparams = _model_pair("qwen2.5-3b", "float32", True)
+    jcfg, tcfg = (c.replace(remat_policy=policy) for c in (jcfg, tcfg))
+    assert jc.remat_policy(jcfg) is None and tc.remat_policy(tcfg) is None
+    batch = _batch(jcfg.vocab_size, 2, 16)
+    jloss, jgrads = jax.value_and_grad(jax_build_model(jcfg).loss_fn)(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    tbatch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    ps = leaves(tparams)
+    for p in ps:
+        p.requires_grad_(True)
+    out = []
+    for cfg in (tcfg, tcfg.replace(remat_policy="full")):
+        loss = build_model(cfg).loss_fn(tparams, tbatch)
+        out.append((loss.detach(), torch.autograd.grad(loss, ps)))
+    (loss, grads), (full_loss, full_grads) = out
+    assert torch.equal(loss, full_loss)
+    assert all(torch.equal(a, b) for a, b in zip(grads, full_grads))
+    assert abs(loss.item() - float(jloss)) <= 1e-5 * abs(float(jloss))
+    for g, jg in zip(grads, jax.tree.leaves(jgrads)):
+        assert _rel_l2(g, jg) <= 1e-5
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["recurrentgemma-2b"])
