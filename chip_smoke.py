@@ -11,24 +11,31 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    float32 (TF32 off);
 2. build the kernels from the checkout (K1 flash attention's four sources:
    the forward's sm90 kernel for bf16 at head dim 64-256 and SIMT kernel for
-   the rest, the backward's sm90 kernel for bf16 at head dim 64 and 128 and
-   SIMT kernel for the rest; and K3 the RG-LRU scan; with ``nvcc`` for
+   the rest, the backward's sm90 kernel for bf16 at head dim 64, 128 and 256
+   and SIMT kernel for the rest; and K3 the RG-LRU scan, forward and
+   backward; with ``nvcc`` for
    sm_90a, one process each, started together; K2 RMSNorm's forward and
    backward with Triton), report each library's ptxas lines and its HGMMA /
    UTMALDG / SYNCS instruction counts from ``cuobjdump -sass``, and hold
    each kernel against its plain version on the card: fp32 within 2e-5,
    bf16 within 2e-2, the LSE within 2e-5, the scan within 1e-5
    (``tests/test_kernels.py``), at the tests' shapes, at non-causal shapes
-   with T != S, on strided views (sm90 route) and at the serving shapes of
-   both paths, each check naming its route; then K1's and K2's gradients
+   with T != S, on strided views (sm90 route) and at the serving and
+   training shapes of both paths, each check naming its route; K3's
+   backward against ``rglru_scan_backward_plain`` within the scan's 1e-5,
+   with and without h0, at the tests' shapes and at the hybrid's training
+   shape (2, 4096, 2560); then K1's and K2's gradients
    through their autograd functions (the backward kernels) against autograd
    through their plain versions and against the plain backwards
    (``flash_attention_bwd``, ``rmsnorm_backward``) on the same inputs: fp32
    within 1e-5 abs / 1e-4 rel, bf16 within 2e-2 of max(1, the gradient's
    largest magnitude), at the tests' shapes with and without a window, at
-   the training shape, at a windowed shape of training width and on views
-   of a packed projection with a strided cotangent, each check naming its
-   backward route (K2's fp32 gradients also against autograd through
+   the training shape, at a windowed shape of training width, at head dim
+   256 (windowed, ragged, and the hybrid's training shape q (2,4096,10,256)
+   with window 2048; bf16 on the sm90 backward, fp32 on the SIMT one) and
+   on views of a packed projection with a strided cotangent, each check
+   naming its backward route; the sm90 d-256 backward twice on the same
+   inputs, equal to the bit (K2's fp32 gradients also against autograd through
    ``rmsnorm_plain`` and against ``rmsnorm_backward`` on fp64 copies of the
    inputs, since the kernel sums dw in fp64; the fp32 versions' distances
    to those are printed beside);
@@ -74,7 +81,17 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    per-leaf grads within 1e-4 relative L2 with fp32 activations, and within
    3e-2 with bf16 or the CPU's own bf16-to-fp32 gap for a leaf where that
    is larger;
-6. each kernel's time at the serving and training shapes with CUDA events, beside its
+6. train recurrentgemma-2b at its published width and depth (2.89 B params
+   in fp32, bf16 activations, remat "full" per (rec, rec, attn) period, the
+   2 tail blocks not checkpointed) the same way at 2 x 4096 tokens (twice
+   the window) for 6 steps: finite, falling losses, step ms, tokens/s, peak
+   memory, the FLOP floor's share, launches per step held to K1 16 (8
+   forward + 8 recomputed, all sm90), K1's backward 8 (all sm90, head dim
+   256), K2 101, K2's backward 53, K3 34 (18 + 16 recomputed) and K3's
+   backward 18; one more step under ``torch.profiler``; the reduced
+   recurrentgemma-2b (head dim 16, SIMT routes; 64 tokens past its window
+   of 32) on the card against the CPU at qwen2.5-3b's bounds;
+7. each kernel's time at the serving and training shapes with CUDA events, beside its
    bound, its plain version's time and one PyTorch library call's time
    where one computes the same function (``ms`` with the launch queue
    filled first, so the card's time alone; ``host_ms`` as issued one call
@@ -82,9 +99,10 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    same shapes (``previous_ms``) and give the achieved TFLOP/s and
    ``bound_ms / ms``; at the training shapes also K1's and K2's backward
    kernels beside their plain versions (``previous_ms``, the code the
-   training path ran before them), the library's backward and their bounds,
-   and the training step's floor (its FLOPs at the bf16 peak) beside the
-   measured step time.
+   training path ran before them: the plain recompute at qwen2.5-3b's
+   shape, the SIMT kernel at head dim 256), the library's backward and
+   their bounds; K3 and its backward at (2, 4096, 2560); and each training
+   step's floor (its FLOPs at the bf16 peak) beside the measured step time.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` last. Exits non-zero, without that last
@@ -113,6 +131,12 @@ ARCH, BATCH, PROMPT, GEN = "llama3-8b", 4, 512, 16
 HYB_ARCH, HYB_PROMPT = "recurrentgemma-2b", 4096
 HYB = dict(h=10, kv=1, d=256, window=2048, d_model=2560)
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen2.5-3b", 4, 1024, 6
+HYB_TRAIN_BATCH, HYB_TRAIN_SEQ = 2, 4096      # twice the window
+# K1's (b, s, h, kv, d, t, window) and the (b, s, width) of K2 and K3 in
+# recurrentgemma-2b's training step
+HYB_TRAIN_ATTN = (HYB_TRAIN_BATCH, HYB_TRAIN_SEQ, HYB["h"], HYB["kv"], HYB["d"],
+                  HYB_TRAIN_SEQ, HYB["window"])
+HYB_TRAIN_X = (HYB_TRAIN_BATCH, HYB_TRAIN_SEQ, HYB["d_model"])
 QWEN = dict(h=16, kv=2, d=128, d_model=2048, layers=36)
 THEMIS_LAYERS, THEMIS_STEPS = 18, 2
 GRAD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": 2e-2}
@@ -160,7 +184,9 @@ def main() -> int:
               phase_card_vs_cpu, phase_hybrid_serve, phase_hybrid_profile,
               phase_hybrid_teacher_forcing, phase_hybrid_card_vs_cpu,
               phase_train, phase_train_profile, phase_themis_train,
-              phase_train_card_vs_cpu, phase_times)
+              phase_train_card_vs_cpu, phase_hybrid_train,
+              phase_hybrid_train_profile, phase_hybrid_train_card_vs_cpu,
+              phase_times)
     for phase in phases:
         t0 = time.perf_counter()
         try:
@@ -242,7 +268,10 @@ def phase_kernels(state):
     checks = []
     serving_errs = {k: [] for k in ("flash_attention", "rmsnorm", "rglru_scan",
                                     "flash_attention_hybrid", "rmsnorm_hybrid",
-                                    "flash_attention_train", "rmsnorm_train")}
+                                    "flash_attention_train", "rmsnorm_train",
+                                    "flash_attention_hybrid_train",
+                                    "rmsnorm_hybrid_train", "rglru_scan_hybrid_train",
+                                    "rglru_scan_backward")}
     hyb = (BATCH, HYB_PROMPT, HYB["h"], HYB["kv"], HYB["d"], HYB_PROMPT,
            HYB["window"])
     train = (TRAIN_BATCH, TRAIN_SEQ, QWEN["h"], QWEN["kv"], QWEN["d"], TRAIN_SEQ, 0)
@@ -252,7 +281,7 @@ def phase_kernels(state):
                             (2, 200, 8, 2, 64, 300, None),
                             (1, 300, 4, 1, 128, 130, None),
                             (1, 130, 2, 1, 256, 200, None),
-                            (2, 300, 10, 1, 256, 300, 128), hyb, train]
+                            (2, 300, 10, 1, 256, 300, 128), hyb, train, HYB_TRAIN_ATTN]
     for b, s, h, kv, d, t, win in seq:
         causal = win is not None
         for dn in ("float32", "bfloat16"):
@@ -270,6 +299,8 @@ def phase_kernels(state):
                 errs = serving_errs["flash_attention_hybrid"]
             elif dn == "bfloat16" and (b, s, h, kv, d, t, win) == train:
                 errs = serving_errs["flash_attention_train"]
+            elif dn == "bfloat16" and (b, s, h, kv, d, t, win) == HYB_TRAIN_ATTN:
+                errs = serving_errs["flash_attention_hybrid_train"]
             name = f"flash_attention{(b, s, h, kv, d, t, win)} {dn}"
             e = _check(name, out, p_out, TOL[dn], errs)
             el = _check(name + " lse", lse, p_lse, TOL["float32"], [])
@@ -305,7 +336,8 @@ def phase_kernels(state):
                                        ((BATCH, PROMPT, 4096), "float32"),
                                        ((BATCH, HYB_PROMPT, 2560), "bfloat16"),
                                        ((BATCH, 1, 2560), "bfloat16"),
-                                       ((TRAIN_BATCH, TRAIN_SEQ, 2048), "bfloat16")]:
+                                       ((TRAIN_BATCH, TRAIN_SEQ, 2048), "bfloat16"),
+                                       (HYB_TRAIN_X, "bfloat16")]:
         dt = _dtype(dn)
         serving = shape[-1] in (4096, 2560, 2048)
         x = _randn(gen, shape, dt)
@@ -317,25 +349,45 @@ def phase_kernels(state):
                                                  time.perf_counter() - t1}})
             first = False
         errs = []
-        if serving and dn == "bfloat16":
+        if shape == HYB_TRAIN_X:
+            errs = serving_errs["rmsnorm_hybrid_train"]
+        elif serving and dn == "bfloat16":
             errs = serving_errs[{4096: "rmsnorm", 2560: "rmsnorm_hybrid",
                                  2048: "rmsnorm_train"}[shape[-1]]]
         e = _check(f"rmsnorm{shape} {dn}", y, rn.rmsnorm_plain(x, w, 1e-6),
                    TOL[dn], errs)
         checks.append({"kernel": "rmsnorm", "shape": list(shape), "dtype": dn,
                        "max_abs_err": e, "tol": TOL[dn]})
-    for b, s, c in RG_TEST_SHAPES + [(BATCH, HYB_PROMPT, HYB["d_model"])]:
+    for b, s, c in RG_TEST_SHAPES + [(BATCH, HYB_PROMPT, HYB["d_model"]), HYB_TRAIN_X]:
         a, bb, h0 = _scan_inputs(gen, b, s, c)
+        g = _randn(gen, (b, s, c), torch.float32)
         for init in (h0, None):
             out = rg.rglru_scan(a, bb, init)
             torch.cuda.synchronize()
-            errs = serving_errs["rglru_scan"] if s == HYB_PROMPT else []
-            e = _check(f"rglru_scan{(b, s, c)} h0={init is not None}", out,
-                       rg.rglru_scan_plain(a, bb, init), SCAN_TOL, errs)
+            errs = []
+            if (b, s, c) == HYB_TRAIN_X:
+                errs = serving_errs["rglru_scan_hybrid_train"]
+            elif s == HYB_PROMPT:
+                errs = serving_errs["rglru_scan"]
+            name = f"rglru_scan{(b, s, c)} h0={init is not None}"
+            e = _check(name, out, rg.rglru_scan_plain(a, bb, init), SCAN_TOL, errs)
             checks.append({"kernel": "rglru_scan", "shape": [b, s, c],
                            "h0": init is not None, "dtype": "float32",
                            "max_abs_err": e, "tol": SCAN_TOL})
-        del a, bb, h0, out
+            # K3's backward on the forward's h, against its plain version
+            got = rg.rglru_scan_backward(a, out, g, init)
+            torch.cuda.synchronize()
+            want = rg.rglru_scan_backward_plain(a, out, g, init)
+            errs = serving_errs["rglru_scan_backward"] if (b, s, c) == HYB_TRAIN_X else []
+            e = [_check(f"{name} backward {n}", x, y, SCAN_TOL, errs)
+                 for n, x, y in zip(("da", "db", "dh0"), got, want) if y is not None]
+            checks.append({"kernel": "rglru_scan_backward", "shape": [b, s, c],
+                           "h0": init is not None, "dtype": "float32",
+                           "max_abs_err": max(e), "tol": SCAN_TOL,
+                           "equal_to_plain": all(torch.equal(x, y) for x, y in
+                                                 zip(got, want) if y is not None)})
+            del got, want
+        del a, bb, h0, g, out
     emit(kernel_checks=checks)
     state["serving_err"] = {k: max(v) for k, v in serving_errs.items()}
     torch.cuda.empty_cache()
@@ -378,13 +430,17 @@ def _grad_checks(gen):
     from repro_torch.models.common import flash_attention_bwd
 
     checks = []
-    worst = {"flash_attention_backward": 0.0, "rmsnorm_backward": 0.0}
+    worst = {"flash_attention_backward": 0.0, "rmsnorm_backward": 0.0,
+             "flash_attention_backward_hybrid": 0.0, "rmsnorm_backward_hybrid": 0.0}
     train = (TRAIN_BATCH, TRAIN_SEQ, QWEN["h"], QWEN["kv"], QWEN["d"], TRAIN_SEQ,
              0)
     train_window = (2, TRAIN_SEQ, QWEN["h"], QWEN["kv"], QWEN["d"], TRAIN_SEQ, 300)
+    # head dim 256: windowed, ragged (S not a multiple of 64), the hybrid's
+    # training shape with its window of 2048
+    d256 = [(2, 256, 4, 1, 256, 256, 64), (2, 300, 10, 1, 256, 300, 128), HYB_TRAIN_ATTN]
     shapes = (FA_TEST_SHAPES + [(b, s, h, kv, d, t, 16)
                                 for b, s, h, kv, d, t, _ in FA_TEST_SHAPES]
-              + [train, train_window])
+              + [train, train_window] + d256)
     for b, s, h, kv, d, t, win in shapes:
         for dn in ("float32", "bfloat16"):
             dt = _dtype(dn)
@@ -406,15 +462,33 @@ def _grad_checks(gen):
                 name = f"flash_attention{(b, s, h, kv, d, t, win)} {dn} {n}"
                 _grad_close(name, a, w, dn, errs)
                 _grad_close(name + " vs flash_attention_bwd", a, pl, dn, plain_errs)
-            if dn == "bfloat16" and (b, s, h, kv, d, t, win) == train:
-                worst["flash_attention_backward"] = max(
-                    e["max_abs_err"] for e in errs + plain_errs)
+            key = {train: "flash_attention_backward",
+                   HYB_TRAIN_ATTN: "flash_attention_backward_hybrid"}.get((b, s, h, kv, d, t, win))
+            if dn == "bfloat16" and key:
+                worst[key] = max(e["max_abs_err"] for e in errs + plain_errs)
             checks.append({"kernel": "flash_attention", "route": fa.route(dt, d),
                            "backward_route": fa.bwd_route(dt, d),
                            "shape": [b, s, h, kv, d, t], "window": win,
                            "dtype": dn, "grads": errs,
                            "vs_plain_backward": plain_errs, "tol": GRAD_TOL[dn]})
             del q, k, v, dout, got, p_out, want, out, lse, plain
+            torch.cuda.empty_cache()
+    # the sm90 backward at d 256 gives the same bits from run to run
+    b, s, h, kv, d, t, win = HYB_TRAIN_ATTN
+    bf = torch.bfloat16
+    q, k, v = (_randn(gen, (b, s, n, d), bf) for n in (h, kv, kv))
+    dout = _randn(gen, (b, s, h, d), bf)
+    out, lse = fa.flash_attention(q, k, v, causal=True, window=win)
+    runs = [fa.flash_attention_backward(q, k, v, out, lse, dout, causal=True, window=win)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    same = [torch.equal(x, y) for x, y in zip(*runs)]
+    checks.append({"kernel": "flash_attention", "backward_route": fa.bwd_route(bf, d),
+                   "shape": [b, s, h, kv, d, t], "window": win, "dtype": "bfloat16",
+                   "two_calls_equal_to_the_bit": dict(zip(("dq", "dk", "dv"), same))})
+    assert fa.bwd_route(bf, d) == "sm90" and all(same), (
+        f"sm90 d-256 backward differs between two calls: {same}")
+    del q, k, v, dout, out, lse, runs
     # the sm90 backward reads q, k and v through their strides: views of one
     # packed projection, with a cotangent that is not contiguous
     b, s, h, kv, d = 2, 256, 8, 2, 128
@@ -437,7 +511,8 @@ def _grad_checks(gen):
                    "grads": errs, "tol": GRAD_TOL["bfloat16"]})
     del qkv, dout, got, want
     for shape, dn in RN_TEST_SHAPES + [((TRAIN_BATCH, TRAIN_SEQ, 2048), "bfloat16"),
-                                       ((TRAIN_BATCH, TRAIN_SEQ, 2048), "float32")]:
+                                       ((TRAIN_BATCH, TRAIN_SEQ, 2048), "float32"),
+                                       (HYB_TRAIN_X, "bfloat16")]:
         dt = _dtype(dn)
         x = _randn(gen, shape, dt).requires_grad_(True)
         w = _randn(gen, shape[-1:], dt).requires_grad_(True)
@@ -462,9 +537,10 @@ def _grad_checks(gen):
         for label, ref in refs.items():
             for n, a, r in zip(("dx", "dw"), got, ref):
                 _grad_close(f"rmsnorm{shape} {dn} {n}{label}", a, r, dn, errs[label])
-        if dn == "bfloat16" and shape == (TRAIN_BATCH, TRAIN_SEQ, 2048):
-            worst["rmsnorm_backward"] = max(e["max_abs_err"] for v in errs.values()
-                                            for e in v)
+        key = {(TRAIN_BATCH, TRAIN_SEQ, 2048): "rmsnorm_backward",
+               HYB_TRAIN_X: "rmsnorm_backward_hybrid"}.get(shape)
+        if dn == "bfloat16" and key:
+            worst[key] = max(e["max_abs_err"] for v in errs.values() for e in v)
         checks.append({"kernel": "rmsnorm", "route": "triton",
                        "backward_route": "triton", "shape": list(shape), "dtype": dn,
                        "grads": errs[""], "vs_plain_backward": errs[" vs rmsnorm_backward"],
@@ -556,7 +632,7 @@ def _serve(state, arch, prompt, expect):
 
 
 NO_BACKWARD = {"flash_attention_bwd": 0, "flash_attention_bwd_sm90": 0,
-               "rmsnorm_bwd": 0}
+               "rmsnorm_bwd": 0, "rglru_scan_bwd": 0}
 
 
 def phase_serve(state):
@@ -747,31 +823,48 @@ def phase_hybrid_card_vs_cpu(state):
 
 
 # -- phase 5: training ----------------------------------------------------------
-def _train_argv(*extra):
-    return ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
-            str(TRAIN_SEQ), "--fixed-batch", "--log-every", "1", "--device",
-            "cuda", *extra]
+def _train_argv(*extra, arch=TRAIN_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    return ["--arch", arch, "--batch", str(batch), "--seq", str(seq),
+            "--fixed-batch", "--log-every", "1", "--device", "cuda", *extra]
 
 
 def _step_floor_flop(cfg, batch, seq):
     """FLOPs of one remat "full" training step: matmuls forward (2 per
     weight per token, the tied head included), backward (twice that), the
-    blocks' recomputed forward, and causal attention's forward, recompute
-    and backward (2.5x the forward)."""
+    recomputed forward of the checkpointed blocks, and attention's forward,
+    recompute and backward (2.5x the forward) over the (q, k) pairs inside
+    the causal window. Dense: every layer is checkpointed. Hybrid: the
+    RG-LRU block's five matmuls (linear_y, linear_x, the two gates,
+    linear_out) or the attention projections, the gated MLP, and only the
+    periods' blocks recomputed (the tail is not checkpointed)."""
     hd = cfg.resolved_head_dim
     d, f = cfg.d_model, cfg.d_ff
-    per_layer = (d * cfg.num_heads * hd * 2 + 2 * d * cfg.num_kv_heads * hd
-                 + (3 if cfg.gated_mlp else 2) * d * f)
+    attn = d * cfg.num_heads * hd * 2 + 2 * d * cfg.num_kv_heads * hd
+    mlp = (3 if cfg.gated_mlp or cfg.family == "hybrid" else 2) * d * f
+    window = cfg.local_window if cfg.family == "hybrid" else seq
+    pairs = sum(min(i + 1, window) for i in range(seq))
+    attn_fwd = 4 * hd * pairs * batch * cfg.num_heads
+    if cfg.family == "hybrid":
+        r = cfg.d_rnn
+        pat = cfg.block_pattern
+        kinds = [pat[i % len(pat)] for i in range(cfg.num_layers)]
+        n_remat = cfg.num_layers // len(pat) * len(pat)
+        weights = [(3 * d * r + 2 * r * r if k == "rec" else attn) + mlp for k in kinds]
+        n_attn = kinds.count("attn")
+        n_attn_remat = kinds[:n_remat].count("attn")
+    else:
+        weights = [attn + mlp] * cfg.num_layers
+        n_remat = n_attn = n_attn_remat = cfg.num_layers
     tokens = batch * seq
-    dense = 2 * tokens * (cfg.num_layers * per_layer + d * cfg.vocab_size)
-    recompute = 2 * tokens * cfg.num_layers * per_layer
-    attn_fwd = 4 * hd * (seq * (seq + 1) // 2) * batch * cfg.num_heads
-    return 3 * dense + recompute + cfg.num_layers * attn_fwd * (1 + 1 + 2.5)
+    dense = 2 * tokens * (sum(weights) + d * cfg.vocab_size)
+    recompute = 2 * tokens * sum(weights[:n_remat])
+    return (3 * dense + recompute + attn_fwd * (n_attn * (1 + 2.5) + n_attn_remat))
 
 
-def phase_train(state):
-    """Full qwen2.5-3b through ``launch/train.py --dp-sync gspmd``: six
-    steps on one fixed batch, launches counted per step."""
+def _run_training(state, key, arch, batch, seq, want):
+    """Full ``arch`` through ``launch/train.py --dp-sync gspmd``: TRAIN_STEPS
+    steps on one fixed batch, launches per step held to ``want``; keeps the
+    trainer in ``state["trainer"]`` for the profile."""
     import statistics
 
     import torch
@@ -781,7 +874,8 @@ def phase_train(state):
 
     snaps = []
     reset_launch_counts()
-    res = train.main(_train_argv("--steps", str(TRAIN_STEPS), "--dp-sync", "gspmd"),
+    res = train.main(_train_argv("--steps", str(TRAIN_STEPS), "--dp-sync", "gspmd",
+                                 arch=arch, batch=batch, seq=seq),
                      on_step=lambda step, m: snaps.append(launch_counts()))
     total = launch_counts()
     per_step, prev = [], {k: 0 for k in total}
@@ -791,13 +885,13 @@ def phase_train(state):
     cfg = res["cfg"]
     steady = res["step_ms"][1:]
     step_ms = statistics.median(steady)
-    flop = _step_floor_flop(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    flop = _step_floor_flop(cfg, batch, seq)
     floor_ms = flop / PEAK_OPS_PER_S["bfloat16"] * 1e3
     losses = res["losses"]
     out = {"arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab_size, "params": sum(p.numel() for p in
                                                   _leaves(res["params"])),
-           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "dp_sync": "gspmd",
+           "batch": batch, "seq": seq, "dp_sync": "gspmd",
            "losses": losses, "gnorms": res["gnorms"], "lrs": res["lrs"],
            "step_ms": res["step_ms"], "step_ms_median_2_6": step_ms,
            "tokens_per_s": res["tokens_per_step"] / (step_ms / 1e3),
@@ -805,19 +899,46 @@ def phase_train(state):
            "launches_per_step": per_step, "launches_total": total,
            "floor_tflop": flop / 1e12, "floor_ms": floor_ms,
            "floor_share": floor_ms / step_ms, "card": state["card"]}
-    emit(train=out)
-    state["train"] = {"launches": total, "step_ms": step_ms, "floor_ms": floor_ms}
+    emit(**{key: out})
+    state[key] = {"launches": total, "step_ms": step_ms, "floor_ms": floor_ms}
     state["trainer"] = res
     assert all(math.isfinite(x) for x in losses), f"non-finite loss {losses}"
     assert losses[-1] < losses[0], f"loss did not fall: {losses}"
-    n = cfg.num_layers
-    want = {"flash_attention": 2 * n, "flash_attention_sm90": 2 * n,
-            "flash_attention_bwd": n, "flash_attention_bwd_sm90": n,
-            "rmsnorm": 4 * n + 1, "rmsnorm_bwd": 2 * n + 1, "rglru_scan": 0}
     for i, c in enumerate(per_step):
         assert c == want, f"step {i + 1}: launches {c}, expected {want}"
     assert len(per_step) == TRAIN_STEPS
     torch.cuda.synchronize()
+
+
+def phase_train(state):
+    """Full qwen2.5-3b through ``launch/train.py --dp-sync gspmd``: six
+    steps on one fixed batch, launches counted per step."""
+    n = QWEN["layers"]
+    _run_training(state, "train", TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, {
+        "flash_attention": 2 * n, "flash_attention_sm90": 2 * n,
+        "flash_attention_bwd": n, "flash_attention_bwd_sm90": n,
+        "rmsnorm": 4 * n + 1, "rmsnorm_bwd": 2 * n + 1, "rglru_scan": 0,
+        "rglru_scan_bwd": 0})
+
+
+def phase_hybrid_train(state):
+    """Full recurrentgemma-2b through ``launch/train.py --dp-sync gspmd``:
+    2 x 4096 tokens (twice the window, so the window masks keys), six steps
+    on one fixed batch, remat "full" per period. Launches per step: each
+    of the 8 periods (rec, rec, attn) runs once forward and once again in
+    the backward, the 2 tail blocks (rec, rec) once; K2 twice per block
+    and once before the head."""
+    import torch
+
+    state.pop("trainer", None)         # qwen2.5-3b's state, if a phase failed
+    torch.cuda.empty_cache()
+    periods, tail, attn, rec = 8, 2, 8, 18
+    blocks = 3 * periods + tail
+    _run_training(state, "hybrid_train", HYB_ARCH, HYB_TRAIN_BATCH, HYB_TRAIN_SEQ, {
+        "flash_attention": 2 * attn, "flash_attention_sm90": 2 * attn,
+        "flash_attention_bwd": attn, "flash_attention_bwd_sm90": attn,
+        "rmsnorm": 2 * blocks + 1 + 2 * 3 * periods, "rmsnorm_bwd": 2 * blocks + 1,
+        "rglru_scan": rec + 2 * periods, "rglru_scan_bwd": rec})
 
 
 def _leaves(tree):
@@ -831,11 +952,13 @@ _GROUPS = (("K1 forward (attn_fwd)", ("attn_fwd",)),
            ("K2 (_rmsnorm_kernel)", ("_rmsnorm_kernel",)),
            ("K2 backward (_rmsnorm_bwd_kernel, _rmsnorm_dw_kernel)",
             ("_rmsnorm_bwd_kernel", "_rmsnorm_dw_kernel")),
+           ("K3 (rglru_scan_fwd)", ("rglru_scan_fwd",)),
+           ("K3 backward (rglru_scan_bwd)", ("rglru_scan_bwd",)),
            ("GEMMs (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
            ("copies and dtype casts", ("copy",)))
 
 
-def phase_train_profile(state):
+def _train_profile(state, arch):
     """One more training step under torch.profiler: card busy time and idle
     share, device time by kernel group (by name) and by the port's
     profiler ranges (each range's total holds the GEMMs it launched)."""
@@ -868,11 +991,19 @@ def phase_train_profile(state):
     for e in events:
         if e.key.startswith("repro_torch.") and e.device_type == DeviceType.CUDA:
             ranges.setdefault(e.key, {})["span_ms"] = e.self_device_time_total / 1e3
-    emit(profile_train={"arch": TRAIN_ARCH, **_kernel_table(prof, wall, 1),
+    emit(profile_train={"arch": arch, **_kernel_table(prof, wall, 1),
                         "groups_ms": groups, "ranges": ranges,
                         "card": state["card"]})
     del res
     torch.cuda.empty_cache()
+
+
+def phase_train_profile(state):
+    _train_profile(state, TRAIN_ARCH)
+
+
+def phase_hybrid_train_profile(state):
+    _train_profile(state, HYB_ARCH)
 
 
 def phase_themis_train(state):
@@ -931,12 +1062,13 @@ def phase_themis_train(state):
         diff_over_update, max_abs_over_lr)
 
 
-def phase_train_card_vs_cpu(state):
-    """Reduced qwen2.5-3b (head dim 16: K1's forward and backward take the
+def _train_card_vs_cpu(arch, seq):
+    """The reduced ``arch`` (head dim 16: K1's forward and backward take the
     SIMT kernels) with the same weights and batch on the card and on the
     CPU: the loss and every leaf's gradient, relative L2 within 1e-4 with
     fp32 activations; with bf16 within 3e-2, or the CPU's own distance
-    between its bf16 and fp32 gradients where that is larger."""
+    between its bf16 and fp32 gradients where that is larger. Returns the
+    launch counts."""
     import numpy as np
     import torch
 
@@ -944,15 +1076,17 @@ def phase_train_card_vs_cpu(state):
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
 
-    base = get_arch(TRAIN_ARCH, reduced=True)
+    base = get_arch(arch, reduced=True)
     rng = np.random.default_rng(3)
-    batch = {k: torch.as_tensor(rng.integers(0, base.vocab_size, (2, 64)))
+    batch = {k: torch.as_tensor(rng.integers(0, base.vocab_size, (2, seq)))
              for k in ("tokens", "labels")}
     p_cpu = build_model(base).init(0, device="cpu")
 
     def copy(tree, dev):
         if isinstance(tree, dict):
             return {k: copy(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [copy(v, dev) for v in tree]
         return tree.detach().to(dev, copy=True).requires_grad_(True)
 
     def grads(cfg, dev):
@@ -986,15 +1120,27 @@ def phase_train_card_vs_cpu(state):
         fails += [f"{dtype} leaf {i}: {r} > {t}" for i, (r, t) in
                   enumerate(zip(rels, tols)) if r > t]
     counts = launch_counts()
-    emit(train_card_vs_cpu={"arch": f"{TRAIN_ARCH} reduced", "batch": [2, 64],
+    emit(train_card_vs_cpu={"arch": f"{arch} reduced", "batch": [2, seq],
                             **out, "launches": counts})
     assert not fails, fails
     assert counts["flash_attention"] > 0 and counts["flash_attention_sm90"] == 0, (
-        f"reduced {TRAIN_ARCH}: K1 launches {counts}, expected SIMT only")
+        f"reduced {arch}: K1 launches {counts}, expected SIMT only")
     assert (counts["flash_attention_bwd"] > 0
             and counts["flash_attention_bwd_sm90"] == 0), (
-        f"reduced {TRAIN_ARCH}: K1 backward launches {counts}, expected SIMT only")
+        f"reduced {arch}: K1 backward launches {counts}, expected SIMT only")
     assert counts["rmsnorm"] > 0 and counts["rmsnorm_bwd"] > 0
+    return counts
+
+
+def phase_train_card_vs_cpu(state):
+    _train_card_vs_cpu(TRAIN_ARCH, 64)
+
+
+def phase_hybrid_train_card_vs_cpu(state):
+    """Reduced recurrentgemma-2b: 64 tokens cross its window of 32, and K3
+    and its backward launch."""
+    counts = _train_card_vs_cpu(HYB_ARCH, 64)
+    assert counts["rglru_scan"] > 0 and counts["rglru_scan_bwd"] > 0, counts
 
 
 # -- phase 6 ---------------------------------------------------------------------
@@ -1034,8 +1180,10 @@ def _bound(nbytes, ops, dtype_name):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-PATH_NAME = {ARCH: ARCH, HYB_ARCH: HYB_ARCH, "train": f"train {TRAIN_ARCH}"}
-ERR_SUFFIX = {ARCH: "", HYB_ARCH: "_hybrid", "train": "_train"}
+PATH_NAME = {ARCH: ARCH, HYB_ARCH: HYB_ARCH, "train": f"train {TRAIN_ARCH}",
+             "hybrid_train": f"train {HYB_ARCH}"}
+ERR_SUFFIX = {ARCH: "", HYB_ARCH: "_hybrid", "train": "_train",
+              "hybrid_train": "_hybrid_train"}
 
 
 def _time_flash(state, gen, path, b, s, h, kvh, d, t, window, iters):
@@ -1140,40 +1288,80 @@ def _time_rmsnorm(state, gen, path, shape):
             "library": "F.rms_norm"}
 
 
-def _time_rglru(state, gen, b, s, c):
-    """K3's row at a, b (b,s,c) fp32 with h0 (b,c), as prefill calls it."""
+_NO_SCAN_LIBRARY = ("none: no single PyTorch call computes this recurrence "
+                    "(a cumprod/cumsum form divides by a running product "
+                    "that underflows)")
+
+
+def _time_rglru(state, gen, path, b, s, c, with_h0):
+    """K3's row at a, b (b,s,c) fp32, with h0 (b,c) as prefill calls it or
+    without, as training does."""
     from repro_torch.kernels import rglru as rg
 
-    sets = [_scan_inputs(gen, b, s, c)
+    sets = [_scan_inputs(gen, b, s, c)[:3 if with_h0 else 2]
             for _ in range(_n_sets(4 * (2 * b * s * c + b * c)))]
     ms = _time_ms(rg.rglru_scan, sets, 20)
     host_ms = _time_ms(rg.rglru_scan, sets, 20, queued=False)
     plain_ms = _time_ms(rg.rglru_scan_plain, sets, 2)
     # a and b read once, h0 read once, h written once; a multiply and an add
     # per element
-    bound_ms, bound_by = _bound(4 * (3 * b * s * c + b * c), 2 * b * s * c,
-                                "float32")
-    return {"name": "rglru_scan", "route": "cuda", "path": HYB_ARCH,
+    nbytes = 4 * (3 * b * s * c + (b * c if with_h0 else 0))
+    bound_ms, bound_by = _bound(nbytes, 2 * b * s * c, "float32")
+    return {"name": "rglru_scan", "route": "cuda", "path": PATH_NAME[path],
             "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
             "replaces": "src/repro/kernels/rglru.py:50",
-            "launches": state[HYB_ARCH]["launches"]["rglru_scan"],
-            "max_abs_err": state["serving_err"]["rglru_scan"],
+            "launches": state[path]["launches"]["rglru_scan"],
+            "max_abs_err": state["serving_err"][{HYB_ARCH: "rglru_scan",
+                                                 "hybrid_train": "rglru_scan_hybrid_train"}[path]],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "host_ms": host_ms,
-            "shape": {"a": [b, s, c], "h0": [b, c], "dtype": "float32"},
-            "library": "none: no single PyTorch call computes this recurrence "
-                       "(a cumprod/cumsum form divides by a running product "
-                       "that underflows)"}
+            "shape": {"a": [b, s, c], "h0": [b, c] if with_h0 else None,
+                      "dtype": "float32"},
+            "library": _NO_SCAN_LIBRARY}
 
 
-def _time_attention_backward(state, gen, b, s, h, kvh, d, iters):
-    """K1's backward kernel at q (b,s,h,d), k/v (b,s,kvh,d) bf16, causal, as
-    training calls it (``flash_attention_backward`` from the forward's out
-    and LSE); beside it the plain recompute ``flash_attention_bwd`` that the
-    training path ran before (``previous_ms``, also ``plain_ms``: it is the
-    kernel's plain version), SDPA's backward (SDPA forward + backward minus
-    its forward, KV heads expanded) and the backward of the materialising
-    plain version (``materialised_ms``)."""
+def _time_rglru_backward(state, gen, b, s, c):
+    """K3's backward kernel at a, h, g (b,s,c) fp32 without h0, as training
+    calls it, beside its plain version."""
+    from repro_torch.kernels import rglru as rg
+
+    sets = []
+    for _ in range(_n_sets(4 * 5 * b * s * c)):
+        a, bb = _scan_inputs(gen, b, s, c)[:2]
+        sets.append((a, rg.rglru_scan(a, bb), _randn(gen, (b, s, c), _dtype("float32"))))
+    ms = _time_ms(rg.rglru_scan_backward, sets, 20)
+    host_ms = _time_ms(rg.rglru_scan_backward, sets, 20, queued=False)
+    ms_again = _time_ms(rg.rglru_scan_backward, sets, 20)
+    plain_ms = _time_ms(rg.rglru_scan_backward_plain, sets, 2)
+    # g, a and h read once, da and db written once; a multiply and an add
+    # for lam and a multiply for da per element
+    bound_ms, bound_by = _bound(4 * 5 * b * s * c, 3 * b * s * c, "float32")
+    return {"name": "rglru_scan_backward", "route": "cuda",
+            "path": PATH_NAME["hybrid_train"],
+            "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+            "replaces": "src/repro/kernels/rglru.py:50 (its gradient: the reference "
+                        "differentiates associative_scan in XLA, "
+                        "src/repro/models/recurrent.py:67 rglru_scan)",
+            "launches": state["hybrid_train"]["launches"]["rglru_scan_bwd"],
+            "max_abs_err": state["serving_err"]["rglru_scan_backward"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "host_ms": host_ms,
+            "ms_second_pass": ms_again, "bound_fraction": bound_ms / ms,
+            "calls_per_step": 18,
+            "shape": {"a": [b, s, c], "h0": None, "dtype": "float32"},
+            "library": _NO_SCAN_LIBRARY}
+
+
+def _time_attention_backward(state, gen, path, b, s, h, kvh, d, window, iters):
+    """K1's backward kernel at q (b,s,h,d), k/v (b,s,kvh,d) bf16, causal with
+    ``window`` (0: none), as training calls it (``flash_attention_backward``
+    from the forward's out and LSE); beside it its plain version, the
+    recompute ``flash_attention_bwd`` (``plain_ms``), SDPA's backward under
+    the same mask (SDPA forward + backward minus its forward, KV heads
+    expanded) and ``previous_ms``, the code the training path ran before:
+    at qwen2.5-3b's shape the plain recompute, whose backward of the
+    materialising plain version is also timed (``materialised_ms``); at
+    head dim 256 the SIMT backward kernel (fp32 atomics)."""
     import torch
     import torch.nn.functional as F
 
@@ -1185,15 +1373,24 @@ def _time_attention_backward(state, gen, b, s, h, kvh, d, iters):
     sets = []
     for _ in range(_n_sets(per_set)):
         q, k, v = (_randn(gen, (b, s, n, d), bf) for n in (h, kvh, kvh))
-        out, lse = fa.flash_attention(q, k, v, causal=True)
+        out, lse = fa.flash_attention(q, k, v, causal=True, window=window)
         sets.append((q, k, v, out, lse, _randn(gen, (b, s, h, d), bf)))
 
     def kern(q, k, v, out, lse, g):
-        return fa.flash_attention_backward(q, k, v, out, lse, g, causal=True)
+        return fa.flash_attention_backward(q, k, v, out, lse, g, causal=True,
+                                           window=window)
+
+    def simt(q, k, v, out, lse, g):
+        return fa.run_backward_kernel("simt", q, k, v, out, lse, g, causal=True,
+                                      window=window)
+
+    def recompute(q, k, v, out, lse, g):
+        return flash_attention_bwd(q, k, v, out, lse, g, causal=True, window=window)
 
     ms = _time_ms(kern, sets, iters)
     host_ms = _time_ms(kern, sets, iters, queued=False)
-    previous_ms = _time_ms(flash_attention_bwd, sets, max(3, iters // 4))
+    plain_ms = _time_ms(recompute, sets, max(3, iters // 4))
+    simt_ms = _time_ms(simt, sets, 3) if d == 256 else None
     ms_again = _time_ms(kern, sets, iters)
 
     def grad_sets(expand):
@@ -1206,11 +1403,19 @@ def _time_attention_backward(state, gen, b, s, h, kvh, d, iters):
                        + (g,))
         return out
 
+    # SDPA's is_causal has no window, so a window takes an explicit boolean
+    # mask (True = attend)
+    qpos = torch.arange(s, device="cuda")[:, None]
+    kpos = torch.arange(s, device="cuda")[None, :]
+    mask = (qpos >= kpos) & (kpos > qpos - window) if window else None
+
     def sdpa(q, k, v):
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        if mask is None:
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
     def plain(q, k, v):
-        return fa.flash_attention_plain(q, k, v, causal=True)[0]
+        return fa.flash_attention_plain(q, k, v, causal=True, window=window)[0]
 
     def fwd_bwd(f):
         return lambda q, k, v, g: torch.autograd.grad(f(q, k, v), (q, k, v), g)
@@ -1218,37 +1423,47 @@ def _time_attention_backward(state, gen, b, s, h, kvh, d, iters):
     lib = grad_sets(True)
     lib_ms = (_time_ms(fwd_bwd(sdpa), lib, iters)
               - _time_ms(lambda q, k, v, g: sdpa(q, k, v), lib, iters))
-    pl = grad_sets(False)
-    materialised_ms = (_time_ms(fwd_bwd(plain), pl, 3)
-                       - _time_ms(lambda q, k, v, g: plain(q, k, v), pl, 3))
-    pairs = s * (s + 1) // 2
+    del lib
+    row = {}
+    if d == 256:
+        row.update(previous_ms=simt_ms, previous_source=(
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu (SIMT, fp32 "
+            "atomics; the route of bf16 at head dim 256 before)"))
+    else:
+        pl = grad_sets(False)
+        row.update(previous_ms=plain_ms, previous_source=(
+            "src/repro_torch/models/common.py (flash_attention_bwd, plain recompute)"),
+            materialised_ms=(_time_ms(fwd_bwd(plain), pl, 3)
+                             - _time_ms(lambda q, k, v, g: plain(q, k, v), pl, 3)),
+            materialised="autograd through flash_attention_plain (materialised "
+                         "scores), forward+backward minus forward")
+        del pl
+    pairs = sum(min(i + 1, window or s) for i in range(s))
     ops = 2.5 * 4 * d * pairs * b * h
     nbytes = per_set + 2 * (b * s * h * d + 2 * b * s * kvh * d)
     bound_ms, bound_by = _bound(nbytes, ops, "bfloat16")
+    err_key = {"train": "flash_attention_backward",
+               "hybrid_train": "flash_attention_backward_hybrid"}[path]
     return {"name": "flash_attention_backward", "route": "cuda",
-            "path": PATH_NAME["train"],
+            "path": PATH_NAME[path],
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
             "replaces": "src/repro/kernels/ops.py:42 (_fa_bwd: the XLA recompute "
                         "src/repro/models/common.py:265 _flash_vjp_bwd)",
-            "launches": state["train"]["launches"]["flash_attention_bwd_sm90"],
-            "max_abs_err": state["grad_err"]["flash_attention_backward"],
-            "ms": ms, "plain_ms": previous_ms, "bound_ms": bound_ms,
+            "launches": state[path]["launches"]["flash_attention_bwd_sm90"],
+            "max_abs_err": state["grad_err"][err_key],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms, "host_ms": host_ms,
-            "ms_second_pass": ms_again, "previous_ms": previous_ms,
-            "previous_source": "src/repro_torch/models/common.py "
-                               "(flash_attention_bwd, plain recompute)",
-            "materialised_ms": materialised_ms,
+            "ms_second_pass": ms_again, **row,
             "tflops": ops / (ms * 1e-3) / 1e12, "bound_fraction": bound_ms / ms,
-            "calls_per_step": QWEN["layers"],
+            "calls_per_step": {"train": QWEN["layers"], "hybrid_train": 8}[path],
             "shape": {"q": [b, s, h, d], "kv": [b, s, kvh, d], "dtype": "bfloat16",
-                      "causal": True},
+                      "causal": True, "window": window},
             "library": "F.scaled_dot_product_attention forward+backward minus "
-                       "forward, KV heads expanded",
-            "materialised": "autograd through flash_attention_plain (materialised "
-                            "scores), forward+backward minus forward"}
+                       "forward, KV heads expanded"
+                       + (", windowed causal boolean mask" if window else "")}
 
 
-def _time_rmsnorm_backward(state, gen, shape):
+def _time_rmsnorm_backward(state, gen, path, shape, calls_per_step):
     """K2's backward kernels (``rmsnorm_grad``) at x ``shape`` bf16, w bf16;
     beside its plain version ``rmsnorm_backward`` (``previous_ms``, the code
     the training path ran before; also ``plain_ms``) and ``F.rms_norm``'s
@@ -1283,20 +1498,22 @@ def _time_rmsnorm_backward(state, gen, shape):
     bound_ms, bound_by = _bound(2 * (3 * elems + 2 * shape[-1]), 10 * elems,
                                 "float32")
     return {"name": "rmsnorm_backward", "route": "triton",
-            "path": PATH_NAME["train"],
+            "path": PATH_NAME[path],
             "source": "src/repro_torch/kernels/rmsnorm.py",
             "replaces": "src/repro/kernels/rmsnorm.py:20 (its gradient: the "
                         "reference differentiates src/repro/models/common.py:103 "
                         "rms_norm)",
-            "launches": state["train"]["launches"]["rmsnorm_bwd"],
-            "max_abs_err": state["grad_err"]["rmsnorm_backward"],
+            "launches": state[path]["launches"]["rmsnorm_bwd"],
+            "max_abs_err": state["grad_err"][
+                {"train": "rmsnorm_backward",
+                 "hybrid_train": "rmsnorm_backward_hybrid"}[path]],
             "ms": ms, "plain_ms": previous_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms, "host_ms": host_ms,
             "ms_second_pass": ms_again, "previous_ms": previous_ms,
             "previous_source": "src/repro_torch/kernels/rmsnorm.py "
                                "(rmsnorm_backward, plain torch)",
             "bound_fraction": bound_ms / ms,
-            "calls_per_step": 2 * QWEN["layers"] + 1,
+            "calls_per_step": calls_per_step,
             "shape": {"x": list(shape), "dtype": "bfloat16"},
             "library": "F.rms_norm forward+backward minus forward"}
 
@@ -1305,33 +1522,48 @@ def phase_times(state):
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(1)
+    hb, hs, hd = HYB_TRAIN_X
     kernels = [
         # K1 at llama3-8b's prefill shape: q (4,512,32,128), k/v (4,528,8,128)
         _time_flash(state, gen, ARCH, BATCH, PROMPT, 32, 8, 128, PROMPT + GEN, 0,
                     iters=50),
         _time_rmsnorm(state, gen, ARCH, (BATCH, PROMPT, 4096)),
         # K3, K1 and K2 at recurrentgemma-2b's prefill shapes
-        _time_rglru(state, gen, BATCH, HYB_PROMPT, HYB["d_model"]),
+        _time_rglru(state, gen, HYB_ARCH, BATCH, HYB_PROMPT, hd, True),
         _time_flash(state, gen, HYB_ARCH, BATCH, HYB_PROMPT, HYB["h"], HYB["kv"],
                     HYB["d"], HYB_PROMPT, HYB["window"], iters=20),
-        _time_rmsnorm(state, gen, HYB_ARCH, (BATCH, HYB_PROMPT, HYB["d_model"])),
+        _time_rmsnorm(state, gen, HYB_ARCH, (BATCH, HYB_PROMPT, hd)),
         # K1 and K2 at qwen2.5-3b's training shapes: q (4,1024,16,128),
         # k/v (4,1024,2,128); x (4,1024,2048)
         _time_flash(state, gen, "train", TRAIN_BATCH, TRAIN_SEQ, QWEN["h"],
                     QWEN["kv"], QWEN["d"], TRAIN_SEQ, 0, iters=50),
         _time_rmsnorm(state, gen, "train", (TRAIN_BATCH, TRAIN_SEQ, QWEN["d_model"])),
         # K1's and K2's backward kernels at the same training shapes
-        _time_attention_backward(state, gen, TRAIN_BATCH, TRAIN_SEQ, QWEN["h"],
-                                 QWEN["kv"], QWEN["d"], 50),
-        _time_rmsnorm_backward(state, gen, (TRAIN_BATCH, TRAIN_SEQ, QWEN["d_model"])),
+        _time_attention_backward(state, gen, "train", TRAIN_BATCH, TRAIN_SEQ,
+                                 QWEN["h"], QWEN["kv"], QWEN["d"], 0, 50),
+        _time_rmsnorm_backward(state, gen, "train",
+                               (TRAIN_BATCH, TRAIN_SEQ, QWEN["d_model"]),
+                               2 * QWEN["layers"] + 1),
+        # K1, K2 and K3, forward and backward, at recurrentgemma-2b's training
+        # shapes: q (2,4096,10,256), k/v (2,4096,1,256), window 2048;
+        # x, a, b (2,4096,2560)
+        _time_flash(state, gen, "hybrid_train", hb, hs, HYB["h"], HYB["kv"],
+                    HYB["d"], hs, HYB["window"], iters=20),
+        _time_attention_backward(state, gen, "hybrid_train", hb, hs, HYB["h"],
+                                 HYB["kv"], HYB["d"], HYB["window"], 20),
+        _time_rmsnorm(state, gen, "hybrid_train", HYB_TRAIN_X),
+        _time_rmsnorm_backward(state, gen, "hybrid_train", HYB_TRAIN_X, 53),
+        _time_rglru(state, gen, "hybrid_train", hb, hs, hd, False),
+        _time_rglru_backward(state, gen, hb, hs, hd),
     ]
     emit(rmsnorm_decode_shape=_time_rmsnorm(state, gen, ARCH, (BATCH, 1, 4096)))
     emit(times={"card": state["card"], "peak_bytes_per_s": PEAK_BYTES_PER_S,
                 "peak_ops_per_s": PEAK_OPS_PER_S,
-                "train_step_ms": state["train"]["step_ms"],
-                "train_step_floor_ms": state["train"]["floor_ms"],
-                "train_floor_share": state["train"]["floor_ms"]
-                / state["train"]["step_ms"]})
+                **{f"{k}_{m}": v for k in ("train", "hybrid_train")
+                   for m, v in (("step_ms", state[k]["step_ms"]),
+                                ("step_floor_ms", state[k]["floor_ms"]),
+                                ("floor_share", state[k]["floor_ms"]
+                                 / state[k]["step_ms"]))}})
     state["kernels"] = kernels
 
 

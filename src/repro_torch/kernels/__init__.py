@@ -2,13 +2,14 @@
 
 K1 flash attention forward (CUDA C++: ``csrc/flash_attention_sm90.cu`` for
 bf16 at head dim 64-256, ``csrc/flash_attention.cu`` otherwise) and
-backward (``csrc/flash_attention_bwd_sm90.cu`` for bf16 at head dim 64 and
-128, ``csrc/flash_attention_bwd.cu`` otherwise), K2 RMSNorm forward and
+backward (``csrc/flash_attention_bwd_sm90.cu`` for bf16 at head dim 64,
+128 and 256, ``csrc/flash_attention_bwd.cu`` otherwise), K2 RMSNorm forward and
 backward (Triton, ``rmsnorm.py``) and K3 the RG-LRU scan (CUDA C++,
-``csrc/rglru_scan.cu``). Each wrapper adds one to its count where it
-launches its kernel, and nowhere else: ``flash_attention``, ``rmsnorm``
-and ``rglru_scan`` count the forwards, ``flash_attention_bwd`` and
-``rmsnorm_bwd`` the backwards; ``flash_attention_sm90`` and
+``csrc/rglru_scan.cu``, forward and backward). Each wrapper adds one to
+its count where it launches its kernel, and nowhere else:
+``flash_attention``, ``rmsnorm`` and ``rglru_scan`` count the forwards,
+``flash_attention_bwd``, ``rmsnorm_bwd`` and ``rglru_scan_bwd`` the
+backwards; ``flash_attention_sm90`` and
 ``flash_attention_bwd_sm90`` count the K1 launches that took an sm90
 kernel, of the totals beside them.
 """
@@ -20,7 +21,8 @@ _COUNTS = {"flash_attention": (flash_attention, "launches"),
            "flash_attention_sm90": (flash_attention, "launches_sm90"),
            "flash_attention_bwd": (flash_attention, "launches_bwd"),
            "flash_attention_bwd_sm90": (flash_attention, "launches_bwd_sm90"),
-           "rmsnorm_bwd": (rmsnorm, "launches_bwd")}
+           "rmsnorm_bwd": (rmsnorm, "launches_bwd"),
+           "rglru_scan_bwd": (rglru, "launches_bwd")}
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,4 +1,5 @@
-// RG-LRU linear-recurrence scan for Hopper (sm_90a), bound to Python with ctypes.
+// RG-LRU linear-recurrence scan for Hopper (sm_90a), forward and backward, bound
+// to Python with ctypes.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/rglru.py (`rglru_scan`,
 // body `_rglru_kernel`): h_t = a_t * h_{t-1} + b_t over a, b (B, S, C) fp32,
@@ -25,6 +26,25 @@
 // per SM, too few loads in flight to reach that rate: the kernel is bound by
 // memory latency. A chunked scan over time (a second pass that carries h
 // across chunks) is the way to more parallelism.
+//
+// Backward (rglru_scan_bwd). The TPU package has no backward kernel: the
+// reference differentiates its associative_scan in XLA
+// (src/repro/models/recurrent.py `rglru_scan`). Given a, the forward's h and
+// the cotangent g of h, the gradient is the same recurrence run backward in
+// time: lam_{S-1} = g_{S-1}, lam_t = g_t + a_{t+1} * lam_{t+1}, db_t = lam_t,
+// da_t = lam_t * h_{t-1} (h_{-1} = h0 or zeros), dh0 = a_0 * lam_0. Same
+// layout as the forward: one thread per (batch, channel), lam in a register,
+// the time loop run from S-1 down to 0 with the same U-step double-buffered
+// register prefetch. Each step reads g_t, a_{t+1} and h_{t-1} at their own
+// offsets and writes db_t and da_t: 20 bytes per element in one pass, with
+// no flipped or shifted copy of any input. The products and sums round
+// apart (__fmul_rn, __fadd_rn: no contraction), in the plain version's
+// order, so the kernel gives the plain version's numbers.
+// Bound: bytes, 20 per element at 3.35 TB/s (0.125 ms at the hybrid's
+// training shape (2, 4096, 2560)). With 5,120 threads there, as in the
+// forward, too few loads are in flight to reach that rate: it is bound by
+// memory latency, like the forward (1.94x its bound at the serving shape).
+// A chunked scan is later work.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -76,6 +96,60 @@ rglru_scan_fwd(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+__global__ void __launch_bounds__(NT)
+rglru_scan_bwd(const float* __restrict__ a, const float* __restrict__ h,
+               const float* __restrict__ g, const float* __restrict__ h0,
+               float* __restrict__ da, float* __restrict__ db, float* __restrict__ dh0,
+               int S, int C) {
+  const int c = blockIdx.x * NT + threadIdx.x;
+  if (c >= C) return;
+  const size_t base = static_cast<size_t>(blockIdx.y) * S * C + c;
+  const float* ap = a + base;
+  const float* hp = h + base;
+  const float* gp = g + base;
+  float* dap = da + base;
+  float* dbp = db + base;
+  const float h_init = h0 ? h0[static_cast<size_t>(blockIdx.y) * C + c] : 0.f;
+
+  // step t reads g_t, a_{t+1} (0 at t = S-1) and h_{t-1} (h_init at t = 0);
+  // chunk t0 holds steps t0, t0-1, ..., t0-U+1
+  float gn[U], an[U], hn[U];
+#pragma unroll
+  for (int i = 0; i < U; ++i) {
+    const int t = S - 1 - i;
+    gn[i] = t >= 0 ? gp[static_cast<size_t>(t) * C] : 0.f;
+    an[i] = t >= 0 && t + 1 < S ? ap[static_cast<size_t>(t + 1) * C] : 0.f;
+    hn[i] = t >= 1 ? hp[static_cast<size_t>(t - 1) * C] : h_init;
+  }
+  float lam = 0.f;
+  for (int t0 = S - 1; t0 >= 0; t0 -= U) {
+    float gc[U], ac[U], hc[U];
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      gc[i] = gn[i];
+      ac[i] = an[i];
+      hc[i] = hn[i];
+    }
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const int t = t0 - U - i;
+      gn[i] = t >= 0 ? gp[static_cast<size_t>(t) * C] : 0.f;
+      an[i] = t >= 0 ? ap[static_cast<size_t>(t + 1) * C] : 0.f;
+      hn[i] = t >= 1 ? hp[static_cast<size_t>(t - 1) * C] : h_init;
+    }
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const int t = t0 - i;
+      if (t >= 0) {  // the ragged last chunk; indices stay static
+        lam = __fadd_rn(gc[i], __fmul_rn(ac[i], lam));
+        dbp[static_cast<size_t>(t) * C] = lam;
+        dap[static_cast<size_t>(t) * C] = __fmul_rn(lam, hc[i]);
+      }
+    }
+  }
+  if (dh0) dh0[static_cast<size_t>(blockIdx.y) * C + c] = __fmul_rn(ap[0], lam);
+}
+
 }  // namespace
 
 // a, b, out (B, S, C) fp32, h0 (B, C) fp32 or null (zeros); all contiguous.
@@ -87,5 +161,20 @@ extern "C" int repro_rglru_scan_fwd(const void* a, const void* b, const void* h0
   rglru_scan_fwd<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const float*>(h0), static_cast<float*>(out), S, C);
+  return cudaGetLastError();
+}
+
+// a, h, g, da, db (B, S, C) fp32, h0 and dh0 (B, C) fp32 or null (dh0 is
+// written only when given); all contiguous. Returns the cudaError_t of the
+// launch.
+extern "C" int repro_rglru_scan_bwd(const void* a, const void* h, const void* g,
+                                    const void* h0, void* da, void* db, void* dh0, int B,
+                                    int S, int C, void* stream) {
+  if (B <= 0 || S <= 0 || C <= 0 || B > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((C + NT - 1) / NT, B);
+  rglru_scan_bwd<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(h),
+      static_cast<const float*>(g), static_cast<const float*>(h0), static_cast<float*>(da),
+      static_cast<float*>(db), static_cast<float*>(dh0), S, C);
   return cudaGetLastError();
 }

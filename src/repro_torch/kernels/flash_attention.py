@@ -20,10 +20,11 @@ The backward, ``flash_attention_backward`` (dq, dk, dv from q, k, v, the
 forward's out and LSE, and dO), has two hand-written kernels of its own, in
 place of the XLA recompute that the reference pairs with its Pallas kernel:
 
-- ``csrc/flash_attention_bwd_sm90.cu``: bf16 at head dim 64 or 128, TMA
-  loads and wgmma products (route "sm90" of ``bwd_route``);
-- ``csrc/flash_attention_bwd.cu``: every other call, a SIMT kernel with
-  fp32 FMAs (route "simt").
+- ``csrc/flash_attention_bwd_sm90.cu``: bf16 at head dim 64, 128 or 256,
+  TMA loads and wgmma products, with tiles of their own at head dim 256
+  (route "sm90" of ``bwd_route``);
+- ``csrc/flash_attention_bwd.cu``: every other call, fp32 or head dim 16
+  or 32, a SIMT kernel with fp32 FMAs (route "simt").
 
 On a CPU tensor it runs the plain recompute ``models/common.py::
 flash_attention_bwd``. Its launches count in ``launches_bwd``, and those of
@@ -41,7 +42,7 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 SM90_HEAD_DIMS = (64, 128, 256)
-BWD_SM90_HEAD_DIMS = (64, 128)
+BWD_SM90_HEAD_DIMS = (64, 128, 256)
 TMA_ALIGN = 16        # bytes: TMA's base-pointer and stride granule
 ROW_PAD = 64          # the backward's LSE and D rows, padded (csrc/attention_bwd.cuh)
 
@@ -86,8 +87,8 @@ def route(dtype: torch.dtype, d: int) -> str:
 
 
 def bwd_route(dtype: torch.dtype, d: int) -> str:
-    """The backward kernel a CUDA call takes: "sm90" for bf16 at head dim 64
-    or 128, "simt" for everything else (fp32, head dim 16, 32 or 256)."""
+    """The backward kernel a CUDA call takes: "sm90" for bf16 at head dim 64,
+    128 or 256, "simt" for everything else (fp32, head dim 16 or 32)."""
     return "sm90" if dtype == torch.bfloat16 and d in BWD_SM90_HEAD_DIMS else "simt"
 
 

@@ -1,8 +1,9 @@
 """Public wrappers for the kernels, as in ``repro/kernels/ops.py``.
 
-K1 and K2 run inside autograd functions, so that training differentiates
-through them: on a CUDA tensor their forwards and backwards launch the
-hand-written kernels, on a CPU tensor the kernels' plain versions.
+K1, K2 and K3 run inside autograd functions, so that training
+differentiates through them: on a CUDA tensor their forwards and backwards
+launch the hand-written kernels, on a CPU tensor the kernels' plain
+versions.
 
 - ``flash_attention``: K1's forward, with K1's backward kernels
   (``flash_attention.flash_attention_backward``, fed with the forward's out
@@ -13,9 +14,14 @@ hand-written kernels, on a CPU tensor the kernels' plain versions.
   the kernel assumes offset 0 (the same split as the reference).
 - ``rmsnorm``: K2's forward, with ``rmsnorm.rmsnorm_grad`` (K2's backward
   kernels; ``rmsnorm_backward`` on the CPU) as its gradient.
+- ``rglru_scan``: K3's forward, with ``rglru.rglru_scan_backward`` (K3's
+  backward kernel, fed with the forward's h; ``rglru_scan_backward_plain``
+  on the CPU) as its gradient, where the reference differentiates its
+  ``associative_scan`` in XLA.
 
 The backwards run inside the profiler ranges
-``repro_torch.attention_backward`` and ``repro_torch.rmsnorm_backward``.
+``repro_torch.attention_backward``, ``repro_torch.rmsnorm_backward`` and
+``repro_torch.rglru_backward``.
 
 A recompute under activation checkpointing runs the forward again, so it
 launches (and counts) the kernel again.
@@ -60,6 +66,21 @@ class _RMSNorm(torch.autograd.Function):
         return dx, dw, None
 
 
+class _RGLRUScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = _rg.rglru_scan(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h, h0 = ctx.saved_tensors
+        with torch.profiler.record_function("repro_torch.rglru_backward"):
+            da, db, dh0 = _rg.rglru_scan_backward(a, h, g.contiguous(), h0)
+        return da, db, dh0
+
+
 def flash_attention(q, k, v, causal=True, window=0, q_offset=0):
     if q_offset:
         from repro_torch.models.common import flash_attention_xla
@@ -70,7 +91,7 @@ def flash_attention(q, k, v, causal=True, window=0, q_offset=0):
 
 
 def rglru_scan(a, b, h0=None):
-    return _rg.rglru_scan(a, b, h0)
+    return _RGLRUScan.apply(a, b, h0)
 
 
 def rmsnorm(x, w, eps=1e-6):

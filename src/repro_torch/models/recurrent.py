@@ -1,33 +1,48 @@
 """RecurrentGemma / Griffin: RG-LRU recurrent blocks + local attention.
 
-Port of ``repro/models/recurrent.py`` for serving. Block pattern (rec, rec,
-attn) repeats; the layers of each pattern slot are stacked along a leading
-axis under ``"periods"``, and the layers left over (26 = 8x3 + 2) are a
-list under ``"tail"``, as in the reference.
+Port of ``repro/models/recurrent.py``, serving and training. Block pattern
+(rec, rec, attn) repeats; the layers of each pattern slot are stacked along
+a leading axis under ``"periods"``, and the layers left over (26 = 8x3 + 2)
+are a list under ``"tail"``, as in the reference.
 
 RG-LRU (arXiv:2402.19427):
     i_t = sigmoid(W_x x_t),  r_t = sigmoid(W_a x_t)
     a_t = exp(-c * softplus(Lambda) * r_t)
     h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
-Prefill runs the recurrence through ``ops.rglru_scan``: kernel K3 on a CUDA
-tensor, the sequential plain version on a CPU tensor (the reference runs
-``associative_scan``: the same fp32 sums in another order). Decode carries
-h with one multiply-add per step. Local attention keeps a ring buffer of
-``local_window`` positions (``transformer.apply_attn`` with ``window``).
+The scan runs through ``ops.rglru_scan``: kernel K3 and its backward
+kernel on a CUDA tensor, the sequential plain versions on a CPU tensor
+(the reference runs ``associative_scan``: the same fp32 sums in another
+order). Decode carries h with one multiply-add per step. Local attention
+keeps a ring buffer of ``local_window`` positions
+(``transformer.apply_attn`` with ``window``).
+
+Training (``loss_fn``): with ``cfg.remat`` and autograd recording, each
+period runs under ``torch.utils.checkpoint``, as the reference wraps
+``_apply_period`` in ``jax.checkpoint``; the tail blocks are not
+checkpointed. The periods' weights come from ``torch.unbind`` of the
+stacked tensors, so each stacked gradient comes from one backward op.
 
 Unlike the reference, the caches are updated in place: ``prefill``
 allocates them and ``decode_step`` writes them and returns the same dict.
-The training loss comes with the training slice.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as tr
-from repro_torch.models.common import apply_mlp, dense_init, embed_init, init_mlp, rms_norm
+from repro_torch.models.common import (
+    apply_mlp,
+    cross_entropy,
+    dense_init,
+    embed_init,
+    init_mlp,
+    remat_policy,
+    rms_norm,
+)
 
 RGLRU_C = 8.0
 
@@ -180,13 +195,36 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
     }
 
 
+def _apply_period(slot_params, x, cfg: ModelConfig, *, pos0: int):
+    for j, kind in enumerate(cfg.block_pattern):
+        x = apply_griffin_block(slot_params[f"s{j}_{kind}"], x, cfg, kind,
+                                pos0=pos0)
+    return x
+
+
 def _run_layers(params, x, cfg: ModelConfig, *, pos0: int, caches=None):
-    for i in range(_n_periods(cfg)):
-        for j, kind in enumerate(cfg.block_pattern):
-            name = f"s{j}_{kind}"
-            c = None if caches is None else tr._layer(caches["periods"][name], i)
-            x = apply_griffin_block(tr._layer(params["periods"][name], i), x,
-                                    cfg, kind, pos0=pos0, cache=c)
+    """Without caches (training, ``forward``) the periods take views from
+    ``torch.unbind``; with ``cfg.remat`` and autograd recording each period
+    runs under ``torch.utils.checkpoint``: it saves only its input, and its
+    forward (K1, K2 and K3 included) runs again in the backward."""
+    if caches is None:
+        remat = cfg.remat and torch.is_grad_enabled()
+        if remat:
+            remat_policy(cfg)          # "dots" raises; other names: full
+        periods = tr._unbind(params["periods"]) if params["periods"] else []
+        for p_i in periods:
+            if remat:
+                x = checkpoint(_apply_period, p_i, x, cfg, pos0=pos0,
+                               use_reentrant=False)
+            else:
+                x = _apply_period(p_i, x, cfg, pos0=pos0)
+    else:
+        for i in range(_n_periods(cfg)):
+            for j, kind in enumerate(cfg.block_pattern):
+                name = f"s{j}_{kind}"
+                x = apply_griffin_block(
+                    tr._layer(params["periods"][name], i), x, cfg, kind,
+                    pos0=pos0, cache=tr._layer(caches["periods"][name], i))
     tail_kinds = _layer_kinds(cfg)[cfg.num_layers - len(params["tail"]):]
     for j, (p_l, kind) in enumerate(zip(params["tail"], tail_kinds)):
         c = None if caches is None else caches["tail"][j]
@@ -199,6 +237,13 @@ def forward(params, tokens, cfg: ModelConfig):
     dt = tr.torch_dtype(cfg.dtype)
     x = _run_layers(params, tr._embed(params, tokens, cfg, dt), cfg, pos0=0)
     return tr._logits(params, x, cfg)
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Mean next-token cross entropy of ``batch`` ({"tokens", "labels"} of
+    (B,S), optional "mask")."""
+    logits = forward(params, batch["tokens"], cfg)
+    return cross_entropy(logits, batch["labels"], batch.get("mask"))
 
 
 def init_caches(cfg: ModelConfig, batch: int, device=None):

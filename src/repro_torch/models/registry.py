@@ -9,8 +9,8 @@ hybrid families.
 them (built on the ``meta`` device). ``init`` runs on ``cuda`` unless
 ``device`` says otherwise. The hybrid family's caches have a fixed size (a
 ring buffer of ``local_window`` positions and the recurrent states), so its
-``prefill`` ignores ``max_len``, as the reference's does; its ``loss_fn``
-raises until the RG-LRU scan (K3) has a gradient (ROADMAP M11).
+``prefill`` ignores ``max_len``, as the reference's does. Both families
+train through ``loss_fn``.
 """
 from __future__ import annotations
 
@@ -69,11 +69,7 @@ def build_model(cfg: ModelConfig) -> ModelApi:
         return mod.init_lm(gen, cfg, dtype=pdt, device=dev)
 
     def loss(params, batch):
-        if mod is recurrent:
-            raise NotImplementedError(
-                f"{cfg.name}: hybrid training waits for a gradient of the "
-                "RG-LRU scan kernel (ROADMAP M11)")
-        return transformer.loss_fn(params, batch, cfg)
+        return mod.loss_fn(params, batch, cfg)
 
     def pf(params, batch, max_len: int | None = None):
         tokens = batch["tokens"]

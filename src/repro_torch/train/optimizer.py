@@ -44,10 +44,13 @@ def bias_corrections(cfg: TrainConfig, count: int) -> tuple[float, float]:
 
 
 def adamw_init(params) -> dict:
-    """Zero fp32 m and v shaped like ``params``, and a step count of 0."""
+    """Zero fp32 m and v shaped like ``params`` (nested dicts and lists, as
+    the hybrid family's tail), and a step count of 0."""
     def zeros(tree):
         if isinstance(tree, dict):
             return {k: zeros(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [zeros(v) for v in tree]
         return torch.zeros(tree.shape, dtype=torch.float32, device=tree.device)
 
     return {"m": zeros(params), "v": zeros(params), "count": 0}

@@ -61,7 +61,7 @@ def _close(got, want, dtype):
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
     (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
-    (torch.bfloat16, 256, "simt"), (torch.float32, 16, "simt"),
+    (torch.bfloat16, 256, "sm90"), (torch.float32, 16, "simt"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
     (torch.float32, 256, "simt"),
 ])

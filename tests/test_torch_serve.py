@@ -115,7 +115,8 @@ def test_prefill_and_decode_match_reference(arch, dtype):
     assert launch_counts() == {"flash_attention": 0, "rmsnorm": 0,
                                "rglru_scan": 0, "flash_attention_sm90": 0,
                                "flash_attention_bwd": 0,
-                               "flash_attention_bwd_sm90": 0, "rmsnorm_bwd": 0}
+                               "flash_attention_bwd_sm90": 0, "rmsnorm_bwd": 0,
+                               "rglru_scan_bwd": 0}
 
 
 def test_kv_quantize_matches_reference_exactly():
