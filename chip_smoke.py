@@ -24,7 +24,10 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    training shapes of both paths, each check naming its route; K3's
    backward against ``rglru_scan_backward_plain`` within the scan's 1e-5,
    with and without h0, at the tests' shapes and at the hybrid's training
-   shape (2, 4096, 2560); then K1's and K2's gradients
+   shape (2, 4096, 2560); K3 and its backward also equal to the bit to
+   their blocked mirrors (``rglru_scan_blocked_plain``,
+   ``rglru_scan_backward_blocked_plain``: the kernels' own order) and to a
+   second call on the same inputs; then K1's and K2's gradients
    through their autograd functions (the backward kernels) against autograd
    through their plain versions and against the plain backwards
    (``flash_attention_bwd``, ``rmsnorm_backward``) on the same inputs: fp32
@@ -371,9 +374,16 @@ def phase_kernels(state):
                 errs = serving_errs["rglru_scan"]
             name = f"rglru_scan{(b, s, c)} h0={init is not None}"
             e = _check(name, out, rg.rglru_scan_plain(a, bb, init), SCAN_TOL, errs)
+            # the kernel runs the blocked order: equal to its mirror and to
+            # a second call, to the bit
+            mirror = torch.equal(out, rg.rglru_scan_blocked_plain(a, bb, init))
+            again = torch.equal(out, rg.rglru_scan(a, bb, init))
             checks.append({"kernel": "rglru_scan", "shape": [b, s, c],
                            "h0": init is not None, "dtype": "float32",
-                           "max_abs_err": e, "tol": SCAN_TOL})
+                           "max_abs_err": e, "tol": SCAN_TOL,
+                           "equal_to_blocked_mirror": mirror,
+                           "equal_across_calls": again})
+            assert mirror and again, (name, mirror, again)
             # K3's backward on the forward's h, against its plain version
             got = rg.rglru_scan_backward(a, out, g, init)
             torch.cuda.synchronize()
@@ -381,11 +391,19 @@ def phase_kernels(state):
             errs = serving_errs["rglru_scan_backward"] if (b, s, c) == HYB_TRAIN_X else []
             e = [_check(f"{name} backward {n}", x, y, SCAN_TOL, errs)
                  for n, x, y in zip(("da", "db", "dh0"), got, want) if y is not None]
+
+            def equal(xs, ys):
+                return all(torch.equal(x, y) for x, y in zip(xs, ys) if y is not None)
+
+            mirror = equal(got, rg.rglru_scan_backward_blocked_plain(a, out, g, init))
+            again = equal(got, rg.rglru_scan_backward(a, out, g, init))
             checks.append({"kernel": "rglru_scan_backward", "shape": [b, s, c],
                            "h0": init is not None, "dtype": "float32",
                            "max_abs_err": max(e), "tol": SCAN_TOL,
-                           "equal_to_plain": all(torch.equal(x, y) for x, y in
-                                                 zip(got, want) if y is not None)})
+                           "equal_to_plain": equal(got, want),
+                           "equal_to_blocked_mirror": mirror,
+                           "equal_across_calls": again})
+            assert mirror and again, (f"{name} backward", mirror, again)
             del got, want
         del a, bb, h0, g, out
     emit(kernel_checks=checks)

@@ -7,6 +7,16 @@ from ``h0`` or from zeros, returning every h. The kernels are
 ``csrc/rglru_scan.cu`` (see its note for the design and what bounds it),
 built with ``nvcc`` at first use and called through ``ctypes``.
 
+The kernels split time inside a block: each of W warps scans U steps of a
+tile of W * U steps, the warps' aggregates are folded into each warp's
+carry in a fixed order, and every step is scanned again from it. So they
+associate the products and sums otherwise than the sequential loop.
+``rglru_scan_plain`` and ``rglru_scan_backward_plain`` are the sequential
+loops: the CPU wrappers run them. ``rglru_scan_blocked_plain`` and
+``rglru_scan_backward_blocked_plain`` repeat the kernels' own order, each
+product and sum rounded apart, so on the card a kernel equals its blocked
+version to the bit; the tests and ``chip_smoke.py`` hold them to that.
+
 The backward has no TPU kernel: the reference differentiates its
 ``associative_scan`` in XLA. ``rglru_scan_backward`` is the same linear
 recurrence run backward in time over the cotangent g of h:
@@ -23,10 +33,17 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 launches = 0          # forward kernel launches since the last reset
 launches_bwd = 0      # backward kernel launches since the last reset
 _fns: dict = {}
+
+# The kernels' tile (csrc/rglru_scan.cu): LANES channels a block, WARPS
+# warps each taking STEPS consecutive steps of a tile.
+LANES = 32
+FWD_WARPS, FWD_STEPS = 8, 16
+BWD_WARPS, BWD_STEPS = 8, 8
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 # C symbol and argument types of each pass
@@ -75,6 +92,78 @@ def rglru_scan_backward_plain(a, h, g, h0=None):
     if h0 is None:
         return da, db, None
     return da, db, a[:, 0] * lam if s else torch.zeros_like(h0)
+
+
+def _tiles(x, warps, steps, fill):
+    """x (B, S, C) padded along S with ``fill`` to whole tiles of
+    ``warps * steps`` steps, as (B, tiles, warps, steps, C)."""
+    bsz, s, c = x.shape
+    x = F.pad(x, (0, 0, 0, -s % (warps * steps)), value=fill)
+    return x.view(bsz, -1, warps, steps, c)
+
+
+def rglru_scan_blocked_plain(a, b, h0=None, *, warps=FWD_WARPS, steps=FWD_STEPS):
+    """``rglru_scan`` in the forward kernel's order, in plain PyTorch (fp32):
+    per tile of ``warps * steps`` steps, each warp's aggregate (the product
+    of its a, and its scan from its first step), the tile's carry folded
+    through the aggregates of the warps before each warp, then each warp's
+    steps again from its carry. Steps past S are the identity (a = 1,
+    b = 0). Every product and sum rounds apart, as in the kernel."""
+    bsz, s, c = a.shape
+    at, bt = _tiles(a, warps, steps, 1.0), _tiles(b, warps, steps, 0.0)
+    out = torch.empty_like(bt)
+    carry = a.new_zeros((bsz, c)) if h0 is None else h0
+    for k in range(at.shape[1]):
+        ak, bk = at[:, k], bt[:, k]                         # (B, W, U, C)
+        agg_a, agg_b = ak[:, :, 0], bk[:, :, 0]
+        for i in range(1, steps):
+            agg_a = ak[:, :, i] * agg_a
+            agg_b = ak[:, :, i] * agg_b + bk[:, :, i]
+        h_in = [carry]
+        for j in range(warps - 1):
+            h_in.append(agg_a[:, j] * h_in[-1] + agg_b[:, j])
+        h = torch.stack(h_in, 1)                            # (B, W, C)
+        for i in range(steps):
+            h = ak[:, :, i] * h + bk[:, :, i]
+            out[:, k, :, i] = h
+        carry = h[:, -1]
+    return out.flatten(1, 3)[:, :s]
+
+
+def rglru_scan_backward_blocked_plain(a, h, g, h0=None, *, warps=BWD_WARPS,
+                                      steps=BWD_STEPS):
+    """``rglru_scan_backward`` in the backward kernel's order, in plain
+    PyTorch (fp32): the reverse recurrence ``lam_t = g_t + c_t * lam_{t+1}``
+    (c_t = a_{t+1}, 0 at t = S-1) run tile by tile from the last, each
+    warp's aggregate from its last step down, the carry folded through the
+    warps after each warp from the last down, then each warp's steps again,
+    giving db_t = lam_t and da_t = lam_t * h_{t-1}. Returns (da, db, dh0),
+    dh0 = a_0 * lam_0, None when h0 is None."""
+    bsz, s, c = a.shape
+    zero = a.new_zeros((bsz, 1, c))
+    ct = _tiles(torch.cat([a[:, 1:], zero], 1), warps, steps, 1.0)
+    gt = _tiles(g, warps, steps, 0.0)
+    ht = _tiles(torch.cat([zero if h0 is None else h0[:, None], h[:, :-1]], 1),
+                warps, steps, 0.0)
+    da, db = torch.empty_like(gt), torch.empty_like(gt)
+    lam = a.new_zeros((bsz, c))
+    for k in range(gt.shape[1] - 1, -1, -1):
+        ck, gk, hk = ct[:, k], gt[:, k], ht[:, k]           # (B, W, U, C)
+        agg_a, agg_b = ck[:, :, -1], gk[:, :, -1]
+        for i in range(steps - 2, -1, -1):
+            agg_a = ck[:, :, i] * agg_a
+            agg_b = gk[:, :, i] + ck[:, :, i] * agg_b
+        lam_in = [lam]
+        for j in range(warps - 1, 0, -1):
+            lam_in.append(agg_b[:, j] + agg_a[:, j] * lam_in[-1])
+        lam = torch.stack(lam_in[::-1], 1)                  # (B, W, C)
+        for i in range(steps - 1, -1, -1):
+            lam = gk[:, :, i] + ck[:, :, i] * lam
+            db[:, k, :, i] = lam
+            da[:, k, :, i] = lam * hk[:, :, i]
+        lam = lam[:, 0]
+    da, db = da.flatten(1, 3)[:, :s], db.flatten(1, 3)[:, :s]
+    return da, db, None if h0 is None else a[:, 0] * lam
 
 
 def _check(what: str, tensors: dict, h0):
