@@ -62,6 +62,13 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    activations, the reference's own bound, and <= 3e-2 with fp32
    activations); the reduced config (40-token prompt, window 32) on the
    card against the CPU;
+   then qwen2.5-14b at its published width and depth (48 layers, d_model
+   5120, 40 q heads on 8 kv heads: a GQA group of 5, QKV bias; 14.77 B
+   params, 59.1 GB in fp32) and granite-34b at its published width (48 q
+   heads on one kv head, the non-gated GELU-tanh MLP) cut to 40 of its 88
+   layers (63.1 GB in fp32; all 88 would take 135.8 GB): the same prefill
+   and decode with launch counts (K1 48 and 40 per prefill, all sm90),
+   teacher forcing and the reduced config card vs CPU;
 5. train qwen2.5-3b at its published width and depth (36 layers, d_model
    2048, vocab 151936, tied embeddings, 3.09 B params in fp32, bf16
    activations, remat "full"; random weights from a seed) through
@@ -72,10 +79,15 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    (36 forward + 36 recomputed, all sm90), K1's backward 36 (all sm90), K2
    145 and K2's backward 73; one more step under
    ``torch.profiler`` (card busy, idle share, time by kernel group and by
-   the port's profiler ranges); the Themis step on one card at full width
-   cut to 18 layers, 16 chunks (1.70 B params: it keeps an fp32 master, m,
-   v and a flat gradient buffer beside the params), 2 steps from the same
-   weights and batch as the GSPMD step: losses and gnorms within 1e-5
+   the port's profiler ranges); the same six steps and profile under remat
+   "dots" (``--remat-policy dots``: the projections' outputs saved, the
+   attention, norms and gate math recomputed): the same launches, the
+   first loss equal to "full"'s to the bit; each run's FLOP floor and
+   ``model_flops_6nd`` (``launch/roofline.py``) at the bf16 peak as shares
+   of its step time, on a line of their own; the Themis step on one card at
+   full width cut to 18 layers, 16 chunks (1.70 B params: it keeps an fp32
+   master, m, v and a flat gradient buffer beside the params), 2 steps from
+   the same weights and batch as the GSPMD step: losses and gnorms within 1e-5
    relative, params per leaf within 1e-4 of the update's L2 and 1e-2 lr per
    element (set from that phase's own readings on an H100, 2.0e-6 and
    4e-4, with room on both sides); the reduced qwen2.5-3b (head dim 16,
@@ -83,7 +95,12 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    the card against the CPU with the same weights and batch, loss and
    per-leaf grads within 1e-4 relative L2 with fp32 activations, and within
    3e-2 with bf16 or the CPU's own bf16-to-fp32 gap for a leaf where that
-   is larger;
+   is larger; checkpoints through ``launch/train.py --ckpt-dir`` at full
+   width cut to 2 layers (``phase_ckpt_resume``: an uninterrupted run, the
+   same run writing checkpoints 2 and 4, whose distance is the card's
+   run-to-run gap, then a resume from checkpoint 2 after checkpoint 4 is
+   deleted, whose steps 3-4 must lie within that gap; bytes and seconds of
+   the writes and the restore);
 6. train recurrentgemma-2b at its published width and depth (2.89 B params
    in fp32, bf16 activations, remat "full" per (rec, rec, attn) period, the
    2 tail blocks not checkpointed) the same way at 2 x 4096 tokens (twice
@@ -91,7 +108,8 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    memory, the FLOP floor's share, launches per step held to K1 16 (8
    forward + 8 recomputed, all sm90), K1's backward 8 (all sm90, head dim
    256), K2 101, K2's backward 53, K3 34 (18 + 16 recomputed) and K3's
-   backward 18; one more step under ``torch.profiler``; the reduced
+   backward 18; one more step under ``torch.profiler``; the six steps and
+   profile again under remat "dots" per period; the reduced
    recurrentgemma-2b (head dim 16, SIMT routes; 64 tokens past its window
    of 32) on the card against the CPU at qwen2.5-3b's bounds;
 7. each kernel's time at the serving and training shapes with CUDA events, beside its
@@ -104,8 +122,10 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    kernels beside their plain versions (``previous_ms``, the code the
    training path ran before them: the plain recompute at qwen2.5-3b's
    shape, the SIMT kernel at head dim 256), the library's backward and
-   their bounds; K3 and its backward at (2, 4096, 2560); and each training
-   step's floor (its FLOPs at the bf16 peak) beside the measured step time.
+   their bounds; K3 and its backward at (2, 4096, 2560); K1 and K2 at the
+   prefills of qwen2.5-14b and granite-34b; and each training step's floor
+   (its FLOPs at the bf16 peak) and ``model_flops_6nd`` share beside the
+   measured step time.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` last. Exits non-zero, without that last
@@ -142,6 +162,20 @@ HYB_TRAIN_ATTN = (HYB_TRAIN_BATCH, HYB_TRAIN_SEQ, HYB["h"], HYB["kv"], HYB["d"],
 HYB_TRAIN_X = (HYB_TRAIN_BATCH, HYB_TRAIN_SEQ, HYB["d_model"])
 QWEN = dict(h=16, kv=2, d=128, d_model=2048, layers=36)
 THEMIS_LAYERS, THEMIS_STEPS = 18, 2
+# the two dense configs served at full width: qwen2.5-14b (a GQA group of 5)
+# at its published depth, granite-34b (MQA: 48 q heads on one kv head) cut
+# to 40 of its 88 layers, whose fp32 weights then take 63.1 GB of the card
+DENSE14B, GRANITE, GRANITE_LAYERS = "qwen2.5-14b", "granite-34b", 40
+QWEN14B = dict(h=40, kv=8, d=128, d_model=5120, layers=48)
+GRANITE_D = dict(h=48, kv=1, d=128, d_model=6144)
+# K1's (b, s, h, kv, d, t, window) at the two prefills (t: the cache of
+# PROMPT + GEN positions)
+QWEN14B_ATTN = (BATCH, PROMPT, QWEN14B["h"], QWEN14B["kv"], QWEN14B["d"],
+                PROMPT + GEN, 0)
+GRANITE_ATTN = (BATCH, PROMPT, GRANITE_D["h"], GRANITE_D["kv"], GRANITE_D["d"],
+                PROMPT + GEN, 0)
+# the checkpoint phase: qwen2.5-3b at full width cut to 2 layers
+CKPT_LAYERS, CKPT_BATCH, CKPT_STEPS = 2, 2, 4
 GRAD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": 2e-2}
 FA_TEST_SHAPES = [(2, 128, 4, 2, 64, 128, 0), (1, 200, 8, 1, 64, 200, 0),
                   (2, 96, 4, 4, 32, 96, 32), (1, 64, 2, 2, 128, 256, 0),
@@ -186,9 +220,12 @@ def main() -> int:
     phases = (phase_kernels, phase_serve, phase_profile, phase_teacher_forcing,
               phase_card_vs_cpu, phase_hybrid_serve, phase_hybrid_profile,
               phase_hybrid_teacher_forcing, phase_hybrid_card_vs_cpu,
-              phase_train, phase_train_profile, phase_themis_train,
-              phase_train_card_vs_cpu, phase_hybrid_train,
-              phase_hybrid_train_profile, phase_hybrid_train_card_vs_cpu,
+              phase_dense14b_serve, phase_granite_serve,
+              phase_train, phase_train_profile, phase_train_dots,
+              phase_train_dots_profile, phase_themis_train,
+              phase_train_card_vs_cpu, phase_ckpt_resume, phase_hybrid_train,
+              phase_hybrid_train_profile, phase_hybrid_train_dots,
+              phase_hybrid_train_dots_profile, phase_hybrid_train_card_vs_cpu,
               phase_times)
     for phase in phases:
         t0 = time.perf_counter()
@@ -268,13 +305,21 @@ def phase_kernels(state):
         for name in sources})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # the shapes added with the qwen2.5-14b and granite-34b prefills draw
+    # from a generator of their own, so every earlier check (and
+    # _grad_checks) keeps the inputs it had
+    new_gen = torch.Generator(device="cuda").manual_seed(19)
+    new_shapes = (QWEN14B_ATTN, GRANITE_ATTN, (BATCH, PROMPT, QWEN14B["d_model"]),
+                  (BATCH, PROMPT, GRANITE_D["d_model"]))
     checks = []
     serving_errs = {k: [] for k in ("flash_attention", "rmsnorm", "rglru_scan",
                                     "flash_attention_hybrid", "rmsnorm_hybrid",
                                     "flash_attention_train", "rmsnorm_train",
                                     "flash_attention_hybrid_train",
                                     "rmsnorm_hybrid_train", "rglru_scan_hybrid_train",
-                                    "rglru_scan_backward")}
+                                    "rglru_scan_backward", "flash_attention_qwen14b",
+                                    "rmsnorm_qwen14b", "flash_attention_granite",
+                                    "rmsnorm_granite")}
     hyb = (BATCH, HYB_PROMPT, HYB["h"], HYB["kv"], HYB["d"], HYB_PROMPT,
            HYB["window"])
     train = (TRAIN_BATCH, TRAIN_SEQ, QWEN["h"], QWEN["kv"], QWEN["d"], TRAIN_SEQ, 0)
@@ -284,13 +329,19 @@ def phase_kernels(state):
                             (2, 200, 8, 2, 64, 300, None),
                             (1, 300, 4, 1, 128, 130, None),
                             (1, 130, 2, 1, 256, 200, None),
-                            (2, 300, 10, 1, 256, 300, 128), hyb, train, HYB_TRAIN_ATTN]
+                            (2, 300, 10, 1, 256, 300, 128), hyb, train, HYB_TRAIN_ATTN,
+                            QWEN14B_ATTN, GRANITE_ATTN]
+    serving_shapes = {hyb: "flash_attention_hybrid", train: "flash_attention_train",
+                      HYB_TRAIN_ATTN: "flash_attention_hybrid_train",
+                      QWEN14B_ATTN: "flash_attention_qwen14b",
+                      GRANITE_ATTN: "flash_attention_granite"}
     for b, s, h, kv, d, t, win in seq:
         causal = win is not None
+        g = new_gen if (b, s, h, kv, d, t, win) in new_shapes else gen
         for dn in ("float32", "bfloat16"):
             dt = _dtype(dn)
-            q = _randn(gen, (b, s, h, d), dt)
-            k, v = _randn(gen, (b, t, kv, d), dt), _randn(gen, (b, t, kv, d), dt)
+            q = _randn(g, (b, s, h, d), dt)
+            k, v = _randn(g, (b, t, kv, d), dt), _randn(g, (b, t, kv, d), dt)
             out, lse = fa.flash_attention(q, k, v, causal=causal, window=win or 0)
             torch.cuda.synchronize()
             p_out, p_lse = fa.flash_attention_plain(q, k, v, causal=causal,
@@ -298,12 +349,8 @@ def phase_kernels(state):
             errs = []
             if dn == "bfloat16" and (b, s, h) == (BATCH, PROMPT, 32):
                 errs = serving_errs["flash_attention"]
-            elif dn == "bfloat16" and (b, s, h, kv, d, t, win) == hyb:
-                errs = serving_errs["flash_attention_hybrid"]
-            elif dn == "bfloat16" and (b, s, h, kv, d, t, win) == train:
-                errs = serving_errs["flash_attention_train"]
-            elif dn == "bfloat16" and (b, s, h, kv, d, t, win) == HYB_TRAIN_ATTN:
-                errs = serving_errs["flash_attention_hybrid_train"]
+            elif dn == "bfloat16" and (b, s, h, kv, d, t, win) in serving_shapes:
+                errs = serving_errs[serving_shapes[(b, s, h, kv, d, t, win)]]
             name = f"flash_attention{(b, s, h, kv, d, t, win)} {dn}"
             e = _check(name, out, p_out, TOL[dn], errs)
             el = _check(name + " lse", lse, p_lse, TOL["float32"], [])
@@ -340,11 +387,14 @@ def phase_kernels(state):
                                        ((BATCH, HYB_PROMPT, 2560), "bfloat16"),
                                        ((BATCH, 1, 2560), "bfloat16"),
                                        ((TRAIN_BATCH, TRAIN_SEQ, 2048), "bfloat16"),
-                                       (HYB_TRAIN_X, "bfloat16")]:
+                                       (HYB_TRAIN_X, "bfloat16"),
+                                       ((BATCH, PROMPT, QWEN14B["d_model"]), "bfloat16"),
+                                       ((BATCH, PROMPT, GRANITE_D["d_model"]), "bfloat16")]:
         dt = _dtype(dn)
-        serving = shape[-1] in (4096, 2560, 2048)
-        x = _randn(gen, shape, dt)
-        w = _randn(gen, shape[-1:], dt if serving else torch.float32)
+        serving = shape[-1] in (4096, 2560, 2048, 5120, 6144)
+        g = new_gen if shape in new_shapes else gen
+        x = _randn(g, shape, dt)
+        w = _randn(g, shape[-1:], dt if serving else torch.float32)
         y = rn.rmsnorm(x, w, 1e-6)
         torch.cuda.synchronize()
         if first:
@@ -356,7 +406,8 @@ def phase_kernels(state):
             errs = serving_errs["rmsnorm_hybrid_train"]
         elif serving and dn == "bfloat16":
             errs = serving_errs[{4096: "rmsnorm", 2560: "rmsnorm_hybrid",
-                                 2048: "rmsnorm_train"}[shape[-1]]]
+                                 2048: "rmsnorm_train", 5120: "rmsnorm_qwen14b",
+                                 6144: "rmsnorm_granite"}[shape[-1]]]
         e = _check(f"rmsnorm{shape} {dn}", y, rn.rmsnorm_plain(x, w, 1e-6),
                    TOL[dn], errs)
         checks.append({"kernel": "rmsnorm", "shape": list(shape), "dtype": dn,
@@ -474,6 +525,20 @@ def _grad_checks(gen):
                 out, lse = fa.flash_attention(q, k, v, causal=True, window=win)
                 plain = flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
                                             window=win)
+            readings = None
+            if dn == "bfloat16":
+                # how far each bf16 gradient lies from autograd through the
+                # plain version on fp32 copies of the same inputs (not a gate)
+                q32, k32, v32 = (x.detach().float().requires_grad_(True)
+                                 for x in (q, k, v))
+                ref = torch.autograd.grad(fa.flash_attention_plain(
+                    q32, k32, v32, causal=True, window=win)[0], (q32, k32, v32),
+                    dout.float())
+                readings = {label: {n: _max_err(a, r) for n, a, r in
+                                    zip(("dq", "dk", "dv"), grads, ref)}
+                            for label, grads in (("kernel", got), ("autograd_plain", want),
+                                                 ("flash_attention_bwd", plain))}
+                del q32, k32, v32, ref
             torch.cuda.synchronize()
             errs, plain_errs = [], []
             for n, a, w, pl in zip(("dq", "dk", "dv"), got, want, plain):
@@ -488,7 +553,8 @@ def _grad_checks(gen):
                            "backward_route": fa.bwd_route(dt, d),
                            "shape": [b, s, h, kv, d, t], "window": win,
                            "dtype": dn, "grads": errs,
-                           "vs_plain_backward": plain_errs, "tol": GRAD_TOL[dn]})
+                           "vs_plain_backward": plain_errs, "tol": GRAD_TOL[dn],
+                           "bf16_max_abs_err_vs_fp32_autograd": readings})
             del q, k, v, dout, got, p_out, want, out, lse, plain
             torch.cuda.empty_cache()
     # the sm90 backward at d 256 gives the same bits from run to run
@@ -609,15 +675,18 @@ def _sass_counts(so):
 
 
 # -- phase 3 and 4: the two serving paths ---------------------------------------
-def _serve(state, arch, prompt, expect):
-    """Serve ``arch`` at full width: BATCH x ``prompt`` tokens, GEN decode
-    steps, launch counts per step held to ``expect`` (kind -> counts)."""
+def _serve(state, arch, prompt, expect, layers=0):
+    """Serve ``arch`` at full width (``layers`` > 0: cut to that depth):
+    BATCH x ``prompt`` tokens, GEN decode steps, launch counts per step held
+    to ``expect`` (kind -> counts)."""
     import torch
 
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
 
-    server = serve.setup(arch, device="cuda", seed=0)
+    torch.cuda.empty_cache()
+    server = serve.setup(arch, layers=layers, device="cuda", seed=0)
     cfg = server.cfg
     tokens = serve.synthetic_prompts(cfg, BATCH, prompt, device="cuda")
     serve.generate(server, tokens[:, :64], 2)          # warm-up, not counted
@@ -632,7 +701,10 @@ def _serve(state, arch, prompt, expect):
         prev = c
     finite = bool(torch.isfinite(res["prefill_logits"].float()).all()
                   and torch.isfinite(res["last_logits"].float()).all())
-    emit(serve={"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
+    emit(serve={"arch": arch, "layers": cfg.num_layers,
+                "published_layers": get_arch(arch).num_layers,
+                "params": sum(p.numel() for p in _leaves(server.params)),
+                "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
                 "vocab": cfg.vocab_size, "batch": BATCH, "prompt_len": prompt,
                 "gen": GEN, "prefill_ms": res["prefill_ms"],
                 "decode_ms_per_token": res["decode_ms_per_token"],
@@ -653,13 +725,18 @@ NO_BACKWARD = {"flash_attention_bwd": 0, "flash_attention_bwd_sm90": 0,
                "rmsnorm_bwd": 0, "rglru_scan_bwd": 0}
 
 
+def _dense_launches(n):
+    """A dense model of ``n`` layers: K1 once per layer in the prefill (all
+    on the sm90 kernel), none in a decode step; K2 twice per layer and once
+    before the head in both."""
+    return {"prefill": {"flash_attention": n, "flash_attention_sm90": n,
+                        "rmsnorm": 2 * n + 1, "rglru_scan": 0, **NO_BACKWARD},
+            "decode": {"flash_attention": 0, "flash_attention_sm90": 0,
+                       "rmsnorm": 2 * n + 1, "rglru_scan": 0, **NO_BACKWARD}}
+
+
 def phase_serve(state):
-    n = 32
-    state[ARCH] = _serve(state, ARCH, PROMPT, {
-        "prefill": {"flash_attention": n, "flash_attention_sm90": n,
-                    "rmsnorm": 2 * n + 1, "rglru_scan": 0, **NO_BACKWARD},
-        "decode": {"flash_attention": 0, "flash_attention_sm90": 0,
-                   "rmsnorm": 2 * n + 1, "rglru_scan": 0, **NO_BACKWARD}})
+    state[ARCH] = _serve(state, ARCH, PROMPT, _dense_launches(32))
 
 
 def phase_hybrid_serve(state):
@@ -840,6 +917,30 @@ def phase_hybrid_card_vs_cpu(state):
     _card_vs_cpu(HYB_ARCH, 40)          # longer than the reduced window of 32
 
 
+def phase_dense14b_serve(state):
+    """qwen2.5-14b at its published width and depth (48 layers, d_model 5120,
+    40 q heads on 8 kv heads of 128: a GQA group of 5; QKV bias, untied
+    head, vocab 152064; 14.77 B params, 59.1 GB in fp32): serve with launch
+    counts, teacher forcing at 3e-2, then the reduced config on the card
+    against the CPU."""
+    state[DENSE14B] = _serve(state, DENSE14B, PROMPT,
+                             _dense_launches(QWEN14B["layers"]))
+    _teacher_forcing(state, DENSE14B, BATCH, {"bfloat16": 3e-2})
+    _card_vs_cpu(DENSE14B, 24)
+
+
+def phase_granite_serve(state):
+    """granite-34b at its published width (d_model 6144, 48 q heads on one kv
+    head of 128: MQA; the non-gated GELU-tanh MLP, d_ff 24576; untied head,
+    vocab 49152) cut to GRANITE_LAYERS of its 88 layers: 15.77 B params,
+    63.1 GB in fp32, where the whole model's 135.8 GB exceed the card. The
+    same checks as qwen2.5-14b."""
+    state[GRANITE] = _serve(state, GRANITE, PROMPT, _dense_launches(GRANITE_LAYERS),
+                            layers=GRANITE_LAYERS)
+    _teacher_forcing(state, GRANITE, BATCH, {"bfloat16": 3e-2})
+    _card_vs_cpu(GRANITE, 24)
+
+
 # -- phase 5: training ----------------------------------------------------------
 def _train_argv(*extra, arch=TRAIN_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
     return ["--arch", arch, "--batch", str(batch), "--seq", str(seq),
@@ -847,14 +948,16 @@ def _train_argv(*extra, arch=TRAIN_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
 
 
 def _step_floor_flop(cfg, batch, seq):
-    """FLOPs of one remat "full" training step: matmuls forward (2 per
-    weight per token, the tied head included), backward (twice that), the
-    recomputed forward of the checkpointed blocks, and attention's forward,
-    recompute and backward (2.5x the forward) over the (q, k) pairs inside
-    the causal window. Dense: every layer is checkpointed. Hybrid: the
-    RG-LRU block's five matmuls (linear_y, linear_x, the two gates,
-    linear_out) or the attention projections, the gated MLP, and only the
-    periods' blocks recomputed (the tail is not checkpointed)."""
+    """FLOPs of one training step: matmuls forward (2 per weight per token,
+    the tied head included), backward (twice that), the recomputed forward
+    of the checkpointed blocks, and attention's forward, recompute and
+    backward (2.5x the forward) over the (q, k) pairs inside the causal
+    window. Dense: every layer is checkpointed. Hybrid: the RG-LRU block's
+    five matmuls (linear_y, linear_x, the two gates, linear_out) or the
+    attention projections, the gated MLP, and only the periods' blocks
+    recomputed (the tail is not checkpointed). Under remat "dots" the
+    recompute keeps its attention and loses its matmuls, whose outputs
+    were saved."""
     hd = cfg.resolved_head_dim
     d, f = cfg.d_model, cfg.d_ff
     attn = d * cfg.num_heads * hd * 2 + 2 * d * cfg.num_kv_heads * hd
@@ -875,25 +978,30 @@ def _step_floor_flop(cfg, batch, seq):
         n_remat = n_attn = n_attn_remat = cfg.num_layers
     tokens = batch * seq
     dense = 2 * tokens * (sum(weights) + d * cfg.vocab_size)
-    recompute = 2 * tokens * sum(weights[:n_remat])
+    recompute = 0 if cfg.remat_policy == "dots" else 2 * tokens * sum(weights[:n_remat])
     return (3 * dense + recompute + attn_fwd * (n_attn * (1 + 2.5) + n_attn_remat))
 
 
-def _run_training(state, key, arch, batch, seq, want):
-    """Full ``arch`` through ``launch/train.py --dp-sync gspmd``: TRAIN_STEPS
-    steps on one fixed batch, launches per step held to ``want``; keeps the
-    trainer in ``state["trainer"]`` for the profile."""
+def _run_training(state, key, arch, batch, seq, want, remat="full"):
+    """Full ``arch`` through ``launch/train.py --dp-sync gspmd`` under remat
+    policy ``remat``: TRAIN_STEPS steps on one fixed batch, launches per
+    step held to ``want``; keeps the trainer in ``state["trainer"]`` for the
+    profile."""
     import statistics
 
     import torch
 
+    from repro_torch.configs import ShapeConfig
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch import train
+    from repro_torch.launch import roofline, train
 
     snaps = []
+    state.pop("trainer", None)         # the previous run's, if a phase failed
+    torch.cuda.empty_cache()
     reset_launch_counts()
     res = train.main(_train_argv("--steps", str(TRAIN_STEPS), "--dp-sync", "gspmd",
-                                 arch=arch, batch=batch, seq=seq),
+                                 "--remat-policy", remat, arch=arch, batch=batch,
+                                 seq=seq),
                      on_step=lambda step, m: snaps.append(launch_counts()))
     total = launch_counts()
     per_step, prev = [], {k: 0 for k in total}
@@ -906,9 +1014,9 @@ def _run_training(state, key, arch, batch, seq, want):
     flop = _step_floor_flop(cfg, batch, seq)
     floor_ms = flop / PEAK_OPS_PER_S["bfloat16"] * 1e3
     losses = res["losses"]
+    n_params = sum(p.numel() for p in _leaves(res["params"]))
     out = {"arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
-           "vocab": cfg.vocab_size, "params": sum(p.numel() for p in
-                                                  _leaves(res["params"])),
+           "vocab": cfg.vocab_size, "params": n_params, "remat": cfg.remat_policy,
            "batch": batch, "seq": seq, "dp_sync": "gspmd",
            "losses": losses, "gnorms": res["gnorms"], "lrs": res["lrs"],
            "step_ms": res["step_ms"], "step_ms_median_2_6": step_ms,
@@ -918,7 +1026,18 @@ def _run_training(state, key, arch, batch, seq, want):
            "floor_tflop": flop / 1e12, "floor_ms": floor_ms,
            "floor_share": floor_ms / step_ms, "card": state["card"]}
     emit(**{key: out})
-    state[key] = {"launches": total, "step_ms": step_ms, "floor_ms": floor_ms}
+    # the roofline's useful work, 6 N D, at the bf16 peak over the step
+    model_flop = roofline.model_flops_6nd(
+        cfg, ShapeConfig(key, seq, batch, "train"), n_params)
+    model_ms = model_flop / roofline.PEAK_FLOPS * 1e3
+    emit(model_flops_share={"path": key, "arch": cfg.name, "remat": cfg.remat_policy,
+                            "model_flops_6nd_tflop": model_flop / 1e12,
+                            "step_ms": step_ms, "share": model_ms / step_ms,
+                            "floor_share": floor_ms / step_ms,
+                            "peak_flops": roofline.PEAK_FLOPS, "card": state["card"]})
+    state[key] = {"launches": total, "step_ms": step_ms, "floor_ms": floor_ms,
+                  "model_flops_share": model_ms / step_ms, "losses": losses,
+                  "per_step": per_step, "peak_mem_gib": out["peak_mem_gib"]}
     state["trainer"] = res
     assert all(math.isfinite(x) for x in losses), f"non-finite loss {losses}"
     assert losses[-1] < losses[0], f"loss did not fall: {losses}"
@@ -928,35 +1047,70 @@ def _run_training(state, key, arch, batch, seq, want):
     torch.cuda.synchronize()
 
 
+def _train_launches(n):
+    """qwen2.5-3b's launches per step, remat "full" or "dots" alike: K1 and
+    K2 run again in the backward (attention and the norms are recomputed;
+    "dots" keeps only the projections' outputs)."""
+    return {"flash_attention": 2 * n, "flash_attention_sm90": 2 * n,
+            "flash_attention_bwd": n, "flash_attention_bwd_sm90": n,
+            "rmsnorm": 4 * n + 1, "rmsnorm_bwd": 2 * n + 1, "rglru_scan": 0,
+            "rglru_scan_bwd": 0}
+
+
+def _hybrid_train_launches():
+    """recurrentgemma-2b's launches per step: each of the 8 periods (rec,
+    rec, attn) runs once forward and once again in the backward, the 2 tail
+    blocks (rec, rec) once; K2 twice per block and once before the head."""
+    periods, tail, attn, rec = 8, 2, 8, 18
+    blocks = 3 * periods + tail
+    return {"flash_attention": 2 * attn, "flash_attention_sm90": 2 * attn,
+            "flash_attention_bwd": attn, "flash_attention_bwd_sm90": attn,
+            "rmsnorm": 2 * blocks + 1 + 2 * 3 * periods, "rmsnorm_bwd": 2 * blocks + 1,
+            "rglru_scan": rec + 2 * periods, "rglru_scan_bwd": rec}
+
+
 def phase_train(state):
     """Full qwen2.5-3b through ``launch/train.py --dp-sync gspmd``: six
     steps on one fixed batch, launches counted per step."""
-    n = QWEN["layers"]
-    _run_training(state, "train", TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, {
-        "flash_attention": 2 * n, "flash_attention_sm90": 2 * n,
-        "flash_attention_bwd": n, "flash_attention_bwd_sm90": n,
-        "rmsnorm": 4 * n + 1, "rmsnorm_bwd": 2 * n + 1, "rglru_scan": 0,
-        "rglru_scan_bwd": 0})
+    _run_training(state, "train", TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ,
+                  _train_launches(QWEN["layers"]))
+
+
+def _dots_run(state, key, full_key, arch, batch, seq, want):
+    """``full_key``'s run again under remat "dots": the same launches per
+    step, and the first loss (before any update) equal to "full"'s to the
+    bit, since the forward computes the same values."""
+    _run_training(state, key, arch, batch, seq, want, remat="dots")
+    got, full = state[key]["losses"], state[full_key]["losses"]
+    emit(**{f"{key}_vs_full": {"first_loss_equal": got[0] == full[0],
+                               "losses_equal": got == full,
+                               "max_loss_diff": max(abs(a - b) for a, b in zip(got, full)),
+                               "step_ms": [state[full_key]["step_ms"],
+                                           state[key]["step_ms"]],
+                               "peak_mem_gib": [state[full_key]["peak_mem_gib"],
+                                                state[key]["peak_mem_gib"]]}})
+    assert got[0] == full[0], f"first loss {got[0]} under dots, {full[0]} under full"
+
+
+def phase_train_dots(state):
+    """Full qwen2.5-3b as ``phase_train``, remat "dots"."""
+    _dots_run(state, "train_dots", "train", TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ,
+              _train_launches(QWEN["layers"]))
+
+
+def phase_hybrid_train_dots(state):
+    """Full recurrentgemma-2b as ``phase_hybrid_train``, remat "dots" per
+    period."""
+    _dots_run(state, "hybrid_train_dots", "hybrid_train", HYB_ARCH, HYB_TRAIN_BATCH,
+              HYB_TRAIN_SEQ, _hybrid_train_launches())
 
 
 def phase_hybrid_train(state):
     """Full recurrentgemma-2b through ``launch/train.py --dp-sync gspmd``:
     2 x 4096 tokens (twice the window, so the window masks keys), six steps
-    on one fixed batch, remat "full" per period. Launches per step: each
-    of the 8 periods (rec, rec, attn) runs once forward and once again in
-    the backward, the 2 tail blocks (rec, rec) once; K2 twice per block
-    and once before the head."""
-    import torch
-
-    state.pop("trainer", None)         # qwen2.5-3b's state, if a phase failed
-    torch.cuda.empty_cache()
-    periods, tail, attn, rec = 8, 2, 8, 18
-    blocks = 3 * periods + tail
-    _run_training(state, "hybrid_train", HYB_ARCH, HYB_TRAIN_BATCH, HYB_TRAIN_SEQ, {
-        "flash_attention": 2 * attn, "flash_attention_sm90": 2 * attn,
-        "flash_attention_bwd": attn, "flash_attention_bwd_sm90": attn,
-        "rmsnorm": 2 * blocks + 1 + 2 * 3 * periods, "rmsnorm_bwd": 2 * blocks + 1,
-        "rglru_scan": rec + 2 * periods, "rglru_scan_bwd": rec})
+    on one fixed batch, remat "full" per period."""
+    _run_training(state, "hybrid_train", HYB_ARCH, HYB_TRAIN_BATCH, HYB_TRAIN_SEQ,
+                  _hybrid_train_launches())
 
 
 def _leaves(tree):
@@ -1009,7 +1163,8 @@ def _train_profile(state, arch):
     for e in events:
         if e.key.startswith("repro_torch.") and e.device_type == DeviceType.CUDA:
             ranges.setdefault(e.key, {})["span_ms"] = e.self_device_time_total / 1e3
-    emit(profile_train={"arch": arch, **_kernel_table(prof, wall, 1),
+    emit(profile_train={"arch": arch, "remat": res["cfg"].remat_policy,
+                        **_kernel_table(prof, wall, 1),
                         "groups_ms": groups, "ranges": ranges,
                         "card": state["card"]})
     del res
@@ -1021,6 +1176,14 @@ def phase_train_profile(state):
 
 
 def phase_hybrid_train_profile(state):
+    _train_profile(state, HYB_ARCH)
+
+
+def phase_train_dots_profile(state):
+    _train_profile(state, TRAIN_ARCH)
+
+
+def phase_hybrid_train_dots_profile(state):
     _train_profile(state, HYB_ARCH)
 
 
@@ -1078,6 +1241,77 @@ def phase_themis_train(state):
     assert rel["losses"] <= 1e-5 and rel["gnorms"] <= 1e-5, rel
     assert diff_over_update <= 1e-4 and max_abs_over_lr <= 1e-2, (
         diff_over_update, max_abs_over_lr)
+
+
+def phase_ckpt_resume(state):
+    """Checkpoints through ``launch/train.py --ckpt-dir`` on the card:
+    qwen2.5-3b at full width cut to CKPT_LAYERS layers (0.47 B params; its
+    params, m and v 5.6 GB), CKPT_BATCH x TRAIN_SEQ tokens, a new batch at
+    every step, CKPT_STEPS steps. Run 1 trains without checkpoints; run 2
+    trains the same and writes checkpoints 2 and 4 into a temporary
+    directory; their distance is the card's own run-to-run gap. Then
+    checkpoint 4 is deleted (the manifest is ahead of the data, as after a
+    crash mid-write), and run 3, the same command in a fresh trainer,
+    restores checkpoint 2 onto the card and trains steps 3-4: its losses and
+    final params must lie within the gap of run 1's. Prints the bytes
+    written and the seconds of the host copies, the waits, the writes and
+    the restore; deletes the directory."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.ckpt import latest_step
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+
+    argv = ["--arch", TRAIN_ARCH, "--layers", str(CKPT_LAYERS), "--batch",
+            str(CKPT_BATCH), "--seq", str(TRAIN_SEQ), "--steps", str(CKPT_STEPS),
+            "--log-every", "1", "--device", "cuda"]
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    ck = argv + ["--ckpt-dir", ckpt_dir, "--ckpt-every", "2"]
+
+    def run(args):
+        torch.cuda.empty_cache()
+        res = train.main(args)
+        out = {k: res[k] for k in ("losses", "start_step", "restored", "checkpoints",
+                                   "checkpoint_final_wait_s", "step_ms")}
+        out["params"] = [p.detach().cpu() for p in _leaves(res["params"])]
+        return out
+
+    try:
+        whole = run(argv)
+        saved = run(ck)
+        shutil.rmtree(os.path.join(ckpt_dir, f"step-{CKPT_STEPS:08d}"))
+        fallback = latest_step(ckpt_dir)
+        reset_launch_counts()
+        resumed = run(ck)
+        counts = launch_counts()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def dist(a, b):
+        return {"loss": max(abs(x - y) for x, y in zip(a["losses"], b["losses"])),
+                "params": max((x - y).abs().max().item()
+                              for x, y in zip(a["params"], b["params"]))}
+
+    gap = dist(saved, whole)
+    tail = {"losses": whole["losses"][2:], "params": whole["params"]}
+    got = dist(resumed, tail)
+    emit(ckpt_resume={
+        "arch": TRAIN_ARCH, "layers": CKPT_LAYERS, "batch": [CKPT_BATCH, TRAIN_SEQ],
+        "params": sum(p.numel() for p in whole["params"]),
+        "losses": {"whole": whole["losses"], "with_checkpoints": saved["losses"],
+                   "resumed": resumed["losses"]},
+        "checkpoints_written": saved["checkpoints"],
+        "final_wait_s": saved["checkpoint_final_wait_s"],
+        "fallback_step": fallback, "restored": resumed["restored"],
+        "start_step": resumed["start_step"], "run_to_run_gap": gap,
+        "resumed_vs_whole": got, "launches_resumed": counts, "card": state["card"]})
+    assert fallback == 2 and resumed["restored"]["step"] == 2, (fallback, resumed)
+    assert resumed["start_step"] == 2 and len(resumed["losses"]) == CKPT_STEPS - 2
+    assert got["loss"] <= gap["loss"] and got["params"] <= gap["params"], (got, gap)
+    assert counts["flash_attention_sm90"] > 0 and counts["flash_attention_bwd_sm90"] > 0
+    assert counts["rmsnorm"] > 0 and counts["rmsnorm_bwd"] > 0, counts
 
 
 def _train_card_vs_cpu(arch, seq):
@@ -1199,9 +1433,11 @@ def _bound(nbytes, ops, dtype_name):
 
 
 PATH_NAME = {ARCH: ARCH, HYB_ARCH: HYB_ARCH, "train": f"train {TRAIN_ARCH}",
-             "hybrid_train": f"train {HYB_ARCH}"}
+             "hybrid_train": f"train {HYB_ARCH}", DENSE14B: DENSE14B,
+             GRANITE: f"{GRANITE} ({GRANITE_LAYERS} of 88 layers)"}
 ERR_SUFFIX = {ARCH: "", HYB_ARCH: "_hybrid", "train": "_train",
-              "hybrid_train": "_hybrid_train"}
+              "hybrid_train": "_hybrid_train", DENSE14B: "_qwen14b",
+              GRANITE: "_granite"}
 
 
 def _time_flash(state, gen, path, b, s, h, kvh, d, t, window, iters):
@@ -1573,15 +1809,24 @@ def phase_times(state):
         _time_rmsnorm_backward(state, gen, "hybrid_train", HYB_TRAIN_X, 53),
         _time_rglru(state, gen, "hybrid_train", hb, hs, hd, False),
         _time_rglru_backward(state, gen, hb, hs, hd),
+        # K1 and K2 at the two new prefills: qwen2.5-14b q (4,512,40,128),
+        # k/v (4,528,8,128), x (4,512,5120); granite-34b q (4,512,48,128),
+        # k/v (4,528,1,128), x (4,512,6144)
+        _time_flash(state, gen, DENSE14B, *QWEN14B_ATTN, iters=50),
+        _time_rmsnorm(state, gen, DENSE14B, (BATCH, PROMPT, QWEN14B["d_model"])),
+        _time_flash(state, gen, GRANITE, *GRANITE_ATTN, iters=50),
+        _time_rmsnorm(state, gen, GRANITE, (BATCH, PROMPT, GRANITE_D["d_model"])),
     ]
     emit(rmsnorm_decode_shape=_time_rmsnorm(state, gen, ARCH, (BATCH, 1, 4096)))
     emit(times={"card": state["card"], "peak_bytes_per_s": PEAK_BYTES_PER_S,
                 "peak_ops_per_s": PEAK_OPS_PER_S,
-                **{f"{k}_{m}": v for k in ("train", "hybrid_train")
+                **{f"{k}_{m}": v
+                   for k in ("train", "hybrid_train", "train_dots", "hybrid_train_dots")
                    for m, v in (("step_ms", state[k]["step_ms"]),
                                 ("step_floor_ms", state[k]["floor_ms"]),
                                 ("floor_share", state[k]["floor_ms"]
-                                 / state[k]["step_ms"]))}})
+                                 / state[k]["step_ms"]),
+                                ("model_flops_share", state[k]["model_flops_share"]))}})
     state["kernels"] = kernels
 
 

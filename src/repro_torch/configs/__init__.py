@@ -3,7 +3,13 @@
 Only the architectures whose model family the port runs are registered;
 ``get_arch`` raises ``KeyError`` for any other name.
 """
-from repro_torch.configs import llama3_8b, qwen2_5_3b, recurrentgemma_2b  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    granite_34b,
+    llama3_8b,
+    qwen2_5_3b,
+    qwen2_5_14b,
+    recurrentgemma_2b,
+)
 from repro_torch.configs.base import (  # noqa: F401
     ModelConfig,
     ParallelConfig,

@@ -2,11 +2,14 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --batch 4 --prompt-len 512 --gen 16 [--reduced] [--kv-quant] \
-        [--device cuda|cpu]
+        [--layers N] [--device cuda|cpu]
 
 Builds the model from a seed on the device (``cuda`` by default), runs a
 batch of synthetic prompts through prefill and ``--gen`` greedy decode
-steps, and reports prefill time and per-token decode latency. On the card
+steps, and reports prefill time and per-token decode latency.
+``--layers`` cuts the depth (0 keeps the config's), for a model whose fp32
+weights exceed the card at full depth (granite-34b: 40 of its 88 layers
+fit one H100). On the card
 both are timed with CUDA events; the first prefill includes building the
 kernels. On the CPU the host clock times the plain PyTorch path.
 """
@@ -38,9 +41,11 @@ class Server:
 
 
 def setup(arch: str, *, reduced: bool = False, kv_quant: bool = False,
-          device=None, seed: int = 0) -> Server:
+          layers: int = 0, device=None, seed: int = 0) -> Server:
     dev = resolve_device(device)
     cfg = get_arch(arch, reduced=reduced)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
     if kv_quant:
         cfg = cfg.replace(kv_quant=True)
     api = build_model(cfg)
@@ -114,12 +119,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--kv-quant", action="store_true")
+    ap.add_argument("--layers", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     server = setup(args.arch, reduced=args.reduced, kv_quant=args.kv_quant,
-                   device=args.device)
-    print(f"[serve] {args.arch} reduced={args.reduced} device={server.device} "
+                   layers=args.layers, device=args.device)
+    print(f"[serve] {args.arch} layers={server.cfg.num_layers} "
+          f"reduced={args.reduced} device={server.device} "
           f"kv_quant={args.kv_quant}")
     tokens = synthetic_prompts(server.cfg, args.batch, args.prompt_len,
                                device=server.device)

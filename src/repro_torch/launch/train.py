@@ -2,27 +2,34 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \
         --steps 6 --batch 4 --seq 1024 --dp-sync gspmd [--mesh 1x1] \
-        [--device cuda]
+        [--device cuda] [--ckpt-dir runs/ckpt --ckpt-every 50]
     PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
         --reduced --device cpu --mesh 2x2x2 --dp-sync themis
 
 Port of ``repro/launch/train.py``: the synthetic data pipeline with host
 prefetch, AdamW with a cosine learning rate, gradient clipping, gradient
-accumulation, and Themis or baseline hierarchical gradient sync
-(``--dp-sync``) with optional int8 compression. It runs in one process on
-a 1x1 mesh, or under ``torchrun`` with one process per rank of
-``--mesh DATAxMODEL[xPOD]``; ranks of a CUDA run take the card of their
-``LOCAL_RANK``. ``--dp-sync gspmd`` runs on a 1x1 mesh only (ROADMAP M12),
-and ``--ckpt-dir`` raises until checkpoints are ported (ROADMAP M8).
+accumulation, Themis or baseline hierarchical gradient sync (``--dp-sync``)
+with optional int8 compression, and periodic atomic checkpoints written in
+a background thread (``--ckpt-dir``, ``--ckpt-every``; ``repro_torch.ckpt``,
+the reference's format). With ``--ckpt-dir``, a rerun of the same command
+resumes from the newest valid checkpoint, with the data cursor where it
+stopped. It runs in one process on a 1x1 mesh, or under ``torchrun`` with
+one process per rank of ``--mesh DATAxMODEL[xPOD]``; ranks of a CUDA run
+take the card of their ``LOCAL_RANK``. ``--dp-sync gspmd`` runs on a 1x1
+mesh only, and checkpoints are written by one-rank runs only: each rank of
+a Themis run holds its own optimizer shard (ROADMAP M12).
 
 Beyond the reference's flags: ``--device`` (``cuda`` by default),
-``--layers`` (cut the depth; 0 keeps the config's) and ``--fixed-batch``
-(train on step 0's batch at every step, an overfitting check). Step time
-is the host clock around a step that ends in a synchronisation.
+``--layers`` (cut the depth; 0 keeps the config's), ``--remat-policy``
+(``full`` or ``dots``, the config's ``remat_policy``; ``models/common.py``)
+and ``--fixed-batch`` (train on step 0's batch at every step, an
+overfitting check). Step time is the host clock around a step that ends in
+a synchronisation.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import statistics
 import time
@@ -31,6 +38,7 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
+from repro_torch.ckpt import AsyncCheckpointer, latest_step, restore
 from repro_torch.configs import ParallelConfig, TrainConfig, get_arch
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.device import resolve_device
@@ -48,6 +56,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="llama3-8b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=0)
+    ap.add_argument("--remat-policy", choices=["full", "dots"], default=None,
+                    help="activation checkpointing inside a block (default: "
+                         "the config's)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -75,14 +86,17 @@ def _device(name: str) -> torch.device:
 
 def main(argv=None, on_step: Callable | None = None) -> dict:
     """Train; returns the per-step losses, gnorms, lrs and times, the peak
-    device memory, the chunk orders, and the final state (``params``,
+    device memory, the chunk orders, the step it started from and the
+    checkpoints it wrote and restored, and the final state (``params``,
     ``opt``, ``step_fn``, ``batch``). ``on_step(step, metrics)`` is called
     after each step has finished on the device."""
     args = _parser().parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP M8)")
     dev = _device(args.device)
     shape, names = parse_mesh(args.mesh)
+    if args.ckpt_dir and math.prod(shape) > 1:
+        raise NotImplementedError(
+            f"--ckpt-dir on mesh {args.mesh}: checkpoints of a multi-rank run "
+            "are not ported yet (ROADMAP M12)")
     sizes = dict(zip(names, shape))
     owns_group = not dist.is_initialized()
     mesh = Mesh(shape, names, dev)
@@ -99,6 +113,8 @@ def _train(args, dev, mesh, sizes, lead: bool, on_step) -> dict:
     cfg = get_arch(args.arch, reduced=args.reduced)
     if args.layers:
         cfg = cfg.replace(num_layers=args.layers)
+    if args.remat_policy:
+        cfg = cfg.replace(remat_policy=args.remat_policy)
     api = build_model(cfg)
     parallel = ParallelConfig(data=sizes.get("data", 1),
                               model=sizes.get("model", 1),
@@ -124,12 +140,27 @@ def _train(args, dev, mesh, sizes, lead: bool, on_step) -> dict:
                         for o in uniq))
     log(f"[train] {cfg.name} layers={cfg.num_layers} reduced={args.reduced} "
         f"device={dev} mesh={args.mesh} dp_sync={args.dp_sync} "
+        f"remat={cfg.remat_policy if cfg.remat else 'off'} "
         f"batch={args.batch}x{args.seq}")
+    start_step, ckpt, restored = 0, None, None
+    if args.ckpt_dir:
+        ckpt = AsyncCheckpointer(args.ckpt_dir, keep=tcfg.keep_checkpoints)
+        last = latest_step(args.ckpt_dir)
+        if last is not None:
+            t0 = time.perf_counter()
+            (params, opt), extra = restore(args.ckpt_dir, (params, opt))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            restored = {"step": last, "seconds": time.perf_counter() - t0}
+            start_step = extra.get("next_step", last)
+            log(f"[train] resumed from step {last} (data cursor -> "
+                f"{start_step}) in {restored['seconds']:.2f} s")
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
     ds = SyntheticLM(cfg.vocab_size, args.batch, args.seq, seed=tcfg.seed)
-    pf = Prefetcher(ds, mesh, dev, fixed_step=0 if args.fixed_batch else None)
+    pf = Prefetcher(ds, mesh, dev, start_step=start_step,
+                    fixed_step=0 if args.fixed_batch else None)
     losses, gnorms, lrs, step_ms = [], [], [], []
     batch = None
     try:
@@ -150,8 +181,18 @@ def _train(args, dev, mesh, sizes, lead: bool, on_step) -> dict:
                 log(f"[train] step {step + 1:5d} loss={losses[-1]:.4f} "
                     f"gnorm={gnorms[-1]:.3f} lr={lrs[-1]:.2e} "
                     f"{step_ms[-1]:.1f} ms/step")
+            if ckpt and (step + 1) % tcfg.checkpoint_every == 0:
+                ckpt.save_async(step + 1, (params, opt),
+                                extra={"next_step": step + 1, "seed": tcfg.seed})
     finally:
         pf.close()
+        t0 = time.perf_counter()
+        if ckpt:
+            ckpt.wait()
+        final_wait_s = time.perf_counter() - t0
+    for c in ckpt.saves if ckpt else []:
+        log(f"[train] checkpoint step {c['step']}: {c['bytes'] / 1e9:.2f} GB, "
+            f"host copy {c['snapshot_s']:.2f} s, written in {c['write_s']:.2f} s")
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     if losses:
         tail = step_ms[1:] or step_ms
@@ -161,6 +202,9 @@ def _train(args, dev, mesh, sizes, lead: bool, on_step) -> dict:
             + (f", peak memory {peak / 2**30:.2f} GiB" if peak else ""))
     return {"losses": losses, "gnorms": gnorms, "lrs": lrs, "step_ms": step_ms,
             "peak_mem_bytes": peak, "orders": orders, "cfg": cfg,
+            "start_step": start_step, "restored": restored,
+            "checkpoints": ckpt.saves if ckpt else [],
+            "checkpoint_final_wait_s": final_wait_s if ckpt else None,
             "tokens_per_step": args.batch * args.seq, "params": params,
             "opt": opt, "step_fn": step_fn, "batch": batch}
 

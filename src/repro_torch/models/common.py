@@ -24,11 +24,16 @@ Dispatch to the hand-written kernels:
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.kernels import ops
 
@@ -36,20 +41,40 @@ Params = Any
 NEG_INF = -1e30
 
 
+# The matmuls that remat "dots" saves: ``x @ W`` of a 3-D activation and a
+# 2-D weight dispatches as view + ``aten.mm`` + view. Attention's products
+# have batch dims (``bmm`` on the CPU, K1 on the card) and are recomputed,
+# as ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` recomputes
+# them.
+DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat "dots": keep the output of every
+    matmul with no batch dims (the projections), recompute everything
+    else."""
+    return (CheckpointPolicy.MUST_SAVE if op in DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def remat_policy(cfg):
     """Activation-checkpoint policy of the per-layer remat wrapper, read from
-    ``cfg.remat_policy`` alone, as in the reference.
+    ``cfg.remat_policy`` alone, as in the reference: a ``context_fn`` for
+    ``torch.utils.checkpoint.checkpoint``, or None for its default.
 
-    Every name but ``"dots"`` (``"full"``, the default, and also ``"none"``
-    or any other) saves nothing inside a block: each layer keeps only its
-    input and recomputes the rest in the backward, as ``jax.checkpoint``
-    with no policy does; returns None (the default context of
-    ``torch.utils.checkpoint``). ``"dots"`` (save the matmul outputs) is not
-    ported yet and raises rather than running ``"full"`` in its place."""
+    ``"dots"`` saves the projections' outputs inside a block (``save_dots``)
+    and recomputes the rest in the backward: norms, RoPE, attention (K1),
+    the gate math, the conv and the scan (K3). It keeps every matmul
+    output, where the reference's XLA drops the ones its backward never
+    reads: so the port also holds the last projection of each checkpointed
+    unit (the MLP's ``wo``, whose output only enters the residual add).
+    Every other name (``"full"``, the default, and also ``"none"`` or any
+    other) saves nothing inside a block: each layer keeps only its input
+    and recomputes the rest, as ``jax.checkpoint`` with no policy does;
+    returns None."""
     if cfg.remat_policy == "dots":
-        raise NotImplementedError(
-            "remat_policy 'dots' is not ported yet (ROADMAP, training slice); "
-            "use remat_policy='full'")
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 save_dots)
     return None
 
 

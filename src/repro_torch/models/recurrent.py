@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -205,17 +205,17 @@ def _apply_period(slot_params, x, cfg: ModelConfig, *, pos0: int):
 def _run_layers(params, x, cfg: ModelConfig, *, pos0: int, caches=None):
     """Without caches (training, ``forward``) the periods take views from
     ``torch.unbind``; with ``cfg.remat`` and autograd recording each period
-    runs under ``torch.utils.checkpoint``: it saves only its input, and its
-    forward (K1, K2 and K3 included) runs again in the backward."""
+    runs under ``torch.utils.checkpoint``: it saves its input (and under
+    remat "dots" its projections' outputs), and the rest of its forward
+    (K1, K2 and K3 included) runs again in the backward."""
     if caches is None:
         remat = cfg.remat and torch.is_grad_enabled()
-        if remat:
-            remat_policy(cfg)          # "dots" raises; other names: full
+        context_fn = remat_policy(cfg) or noop_context_fn
         periods = tr._unbind(params["periods"]) if params["periods"] else []
         for p_i in periods:
             if remat:
                 x = checkpoint(_apply_period, p_i, x, cfg, pos0=pos0,
-                               use_reentrant=False)
+                               use_reentrant=False, context_fn=context_fn)
             else:
                 x = _apply_period(p_i, x, cfg, pos0=pos0)
     else:

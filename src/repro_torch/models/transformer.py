@@ -26,7 +26,7 @@ from __future__ import annotations
 import math
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (
@@ -235,15 +235,15 @@ def _unbind(tree) -> list:
 
 def _run_blocks(params, x, cfg: ModelConfig, *, pos0: int, caches=None):
     """With ``cfg.remat`` and autograd recording, each layer runs under
-    ``torch.utils.checkpoint``: it saves only its input, and its forward
-    (K1 and K2 included) runs again in the backward."""
+    ``torch.utils.checkpoint``: it saves its input (and under remat "dots"
+    its projections' outputs), and the rest of its forward (K1 and K2
+    included) runs again in the backward."""
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
-    if remat:
-        remat_policy(cfg)              # "dots" raises; other names: full
+    context_fn = remat_policy(cfg) or noop_context_fn
     for i, p_l in enumerate(_unbind(params["blocks"])):
         if remat:
             x = checkpoint(apply_block, p_l, x, cfg, pos0=pos0,
-                           use_reentrant=False)
+                           use_reentrant=False, context_fn=context_fn)
         else:
             x = apply_block(p_l, x, cfg, pos0=pos0,
                             cache=None if caches is None else _layer(caches, i))

@@ -11,24 +11,30 @@ carried over as numpy) go through the JAX function and its port:
   tolerance, ``tests/test_kernels.py``);
 - the reduced recurrentgemma-2b's loss and every leaf's gradient against
   ``jax.value_and_grad`` of the reference's ``loss_fn`` at batch 2 x 40,
-  past the reduced window of 32, remat off and on: fp32 within 1e-5
-  relative L2 per leaf; bf16 within the bound ``_bf16_bounds`` states;
-- remat against no remat, to the bit in fp32;
+  past the reduced window of 32, remat off, "full" and "dots": fp32 within
+  1e-5 relative L2 per leaf; bf16 within the bound ``_bf16_bounds`` states;
+- remat against no remat, to the bit in fp32, and "dots" against "full" to
+  the bit; the tensors "dots" keeps against the reference's residuals;
 - three GSPMD steps against the reference's, the one-rank Themis step
   against the GSPMD step, and ``launch.train`` end to end.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _remat_residuals import saved_by_port, saved_by_reference
 from repro.configs import ParallelConfig as JParallelConfig
 from repro.configs import TrainConfig as JTrainConfig
 from repro.configs import get_arch as jax_get_arch
 from repro.kernels.ref import rglru_scan_ref
 from repro.launch.mesh import make_mesh as jax_make_mesh
 from repro.models import build_model as jax_build_model
+from repro.models import common as jc
+from repro.models import recurrent as jrec
 from repro.train.step import gspmd_init_state as jax_gspmd_init
 from repro.train.step import make_gspmd_train_step as jax_gspmd_step
 from repro_torch import bridge
@@ -148,8 +154,12 @@ def test_rglru_source_exports_the_symbols_the_wrapper_binds(which):
 
 # -- model: loss and grads ------------------------------------------------------
 def _model_pair(dtype, remat, seed=0):
-    jcfg = jax_get_arch(ARCH, reduced=True).replace(dtype=dtype, remat=remat)
-    tcfg = get_arch(ARCH, reduced=True).replace(dtype=dtype, remat=remat)
+    """``remat``: False, True (policy "full") or "dots"."""
+    kw = dict(dtype=dtype, remat=bool(remat))
+    if remat == "dots":
+        kw["remat_policy"] = "dots"
+    jcfg = jax_get_arch(ARCH, reduced=True).replace(**kw)
+    tcfg = get_arch(ARCH, reduced=True).replace(**kw)
     jparams = jax_build_model(jcfg).init(jax.random.key(seed))
     tparams = bridge.params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     return jcfg, tcfg, jparams, tparams
@@ -187,9 +197,12 @@ def _bf16_bounds(gap):
     return max(3e-2, 2 * gap), max(3e-2, 1.5 * gap)
 
 
-@pytest.mark.parametrize("remat", [False, True], ids=["no-remat", "remat"])
+@pytest.mark.parametrize("remat", [False, True, "dots"],
+                         ids=["no-remat", "remat", "remat-dots"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_hybrid_loss_and_grads_match_reference(dtype, remat):
+    """Remat off, "full" and "dots" (the reference under its own "dots"
+    policy)."""
     reset_launch_counts()
     jcfg, tcfg, jparams, tparams = _model_pair(dtype, remat)
     batch = _batch(2, 40)
@@ -226,12 +239,44 @@ def test_hybrid_remat_recomputes_the_same_grads():
     assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
 
 
-def test_hybrid_remat_dots_raises():
-    _, tcfg, _, tparams = _model_pair("float32", True)
-    api = build_model(tcfg.replace(remat_policy="dots"))
-    batch = {k: torch.as_tensor(v) for k, v in _batch(1, 8).items()}
-    with pytest.raises(NotImplementedError, match="dots"):
-        api.loss_fn(trainable(tparams), batch)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_remat_dots_grads_equal_full_to_the_bit(dtype):
+    """Remat "dots" per period hands the backward the matmul outputs that
+    "full" recomputes (the gate math, the conv and the scan run again in
+    both): loss and every gradient equal to the bit."""
+    _, tcfg, _, tparams = _model_pair(dtype, True)
+    batch = _batch(2, 40, seed=2)
+    full, dots = (_port_loss_and_grads(tcfg.replace(remat_policy=p), tparams, batch)
+                  for p in ("full", "dots"))
+    assert torch.equal(full[0], dots[0])
+    assert all(torch.equal(a, b) for a, b in zip(full[1], dots[1]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_remat_dots_saves_the_reference_residuals(dtype, monkeypatch):
+    """What each checkpointed period (rec, rec, attn) keeps under "dots", as
+    a multiset of shapes: the reference's residuals for one
+    ``jax.checkpoint``-ed period (``linear_y``, ``linear_x``, both gates and
+    ``linear_out`` of each RG-LRU block, q, k, v and the output projection
+    of the attention block, every MLP's input projections and the ``wo`` of
+    the first two, which the next block's norm reads), and beside them the
+    last block's MLP ``wo``, which the reference's XLA drops and the port
+    keeps (see ``test_torch_train.py``). Nothing of the two tail blocks,
+    which are not checkpointed."""
+    jcfg, tcfg, jparams, tparams = _model_pair(dtype, True)
+    jcfg, tcfg = (c.replace(remat_policy="dots") for c in (jcfg, tcfg))
+    b, s = 2, 40
+    x = jnp.ones((b, s, jcfg.d_model), jnp.dtype(dtype))
+    period = jax.checkpoint(
+        functools.partial(jrec._apply_period, cfg=jcfg, positions=jnp.arange(s)),
+        policy=jc.remat_policy(jcfg))
+    p0 = jax.tree.map(lambda a: a[0], jparams["periods"])
+    want = saved_by_reference(lambda p, x: period(p, x)[0], p0, x)
+    n_periods = jcfg.num_layers // len(jcfg.block_pattern)
+    want = (want + [(b * s, jcfg.d_model, dtype)]) * n_periods
+    saved = saved_by_port(monkeypatch)
+    _port_loss_and_grads(tcfg, tparams, _batch(b, s))
+    assert sorted(saved) == sorted(want)
 
 
 # -- steps ------------------------------------------------------------------------

@@ -40,7 +40,8 @@ def test_checked_files_cover_every_kernel_and_model_module():
     assert {"models/recurrent.py", "models/transformer.py", "kernels/rglru.py",
             "kernels/flash_attention.py", "kernels/rmsnorm.py", "kernels/ops.py",
             "kernels/_build.py", "train/step.py", "comms/hierarchical.py",
-            "comms/schedule_bridge.py", "core/scheduler.py"} <= names
+            "comms/schedule_bridge.py", "core/scheduler.py",
+            "ckpt/checkpoint.py", "launch/roofline.py"} <= names
 
 
 def test_chip_smoke_builds_every_kernel_source():

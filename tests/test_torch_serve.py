@@ -1,8 +1,10 @@
 """The port's serving path against the reference package on the CPU.
 
-Reduced llama3-8b and qwen2.5-3b (qkv bias, tied embeddings): JAX init ->
-numpy -> ``bridge.params_from_jax``; prefill logits, caches and decode steps
-of ``repro_torch`` against ``repro.models``. Tolerances: 1e-4 for the fp32
+Reduced llama3-8b and qwen2.5-3b (qkv bias, tied embeddings), and of the
+dense configs added later, qwen2.5-14b (GQA 40/8, qkv bias) and granite-34b
+(MQA, the non-gated GELU-tanh MLP): JAX init -> numpy ->
+``bridge.params_from_jax``; prefill logits, caches and decode steps of
+``repro_torch`` against ``repro.models``. Tolerances: 1e-4 for the fp32
 config, 3e-2 for bf16 (``tests/test_models_smoke.py``'s decode tolerance).
 """
 import functools
@@ -24,6 +26,7 @@ from repro_torch.models import transformer as ttr
 from repro_torch.train.serve import make_serve_fns
 
 ARCHS = ["llama3-8b", "qwen2.5-3b"]
+DENSE_ARCHS = ARCHS + ["qwen2.5-14b", "granite-34b"]
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
@@ -47,17 +50,19 @@ def _np(x):
 
 
 def test_configs_match_reference():
-    for arch in ARCHS:
+    """Field for field, and only the families the port runs are registered
+    (deepseek-moe-16b, an MoE config of the reference, is not)."""
+    for arch in DENSE_ARCHS:
         for reduced in (False, True):
             j = jax_get_arch(arch, reduced=reduced)
             t = get_arch(arch, reduced=reduced)
             assert {f: getattr(t, f) for f in t.__dataclass_fields__} == \
                 {f: getattr(j, f) for f in j.__dataclass_fields__}
     with pytest.raises(KeyError):
-        get_arch("granite-34b")
+        get_arch("deepseek-moe-16b")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
 def test_init_shapes_and_scales_match_reference(arch):
     jcfg = jax_get_arch(arch, reduced=True)
     jp = jax.tree.map(np.asarray, jax_build_model(jcfg).init(jax.random.key(0)))
@@ -76,7 +81,7 @@ def test_init_shapes_and_scales_match_reference(arch):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
 def test_prefill_and_decode_match_reference(arch, dtype):
     jcfg, tcfg, jparams, tparams = _setup(arch, dtype)
     b, s, steps = 2, 12, 4
@@ -166,7 +171,7 @@ def test_int8_kv_cache_matches_reference(arch, dtype):
         np.testing.assert_allclose(tc[key], _np(j_cache[key]), rtol=2e-2)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
 def test_decode_matches_teacher_forcing(arch):
     """prefill(t[:n]) then decode(t[n]) reproduces forward's logits at n, in
     the port and against the reference's forward."""
@@ -200,7 +205,8 @@ def test_moe_and_sharded_serving_raise():
                        parallel=ParallelConfig(data=2, model=4))
 
 
-@pytest.mark.parametrize("extra", [[], ["--kv-quant"], ["--arch", "qwen2.5-3b"]])
+@pytest.mark.parametrize("extra", [[], ["--kv-quant"], ["--arch", "qwen2.5-3b"],
+                                   ["--arch", "granite-34b", "--layers", "1"]])
 def test_launch_serve_end_to_end_on_cpu(extra, capsys):
     from repro_torch.launch import serve
 
@@ -211,3 +217,4 @@ def test_launch_serve_end_to_end_on_cpu(extra, capsys):
     assert res["ids"].shape == (2, 4)
     assert torch.isfinite(res["last_logits"].float()).all()
     assert res["caches"]["k"].shape[2] == 8 + 3
+    assert res["caches"]["k"].shape[0] == (1 if "--layers" in extra else 2)

@@ -19,12 +19,15 @@ carried over as numpy) go through the JAX function and its port:
   steps;
 - ``SyntheticLM`` batches, byte for byte; the driver end to end.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _remat_residuals import saved_by_port, saved_by_reference
 from repro.configs import ParallelConfig as JParallelConfig
 from repro.configs import TrainConfig as JTrainConfig
 from repro.configs import get_arch as jax_get_arch
@@ -32,6 +35,7 @@ from repro.data.pipeline import SyntheticLM as JSyntheticLM
 from repro.launch.mesh import make_mesh as jax_make_mesh
 from repro.models import build_model as jax_build_model
 from repro.models import common as jc
+from repro.models import transformer as jtr
 from repro.models.registry import count_params as jax_count_params
 from repro.train import optimizer as jopt
 from repro.train.step import gspmd_init_state as jax_gspmd_init
@@ -55,6 +59,9 @@ from repro_torch.train.step import (
 
 DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 ARCHS = ["qwen2.5-3b", "llama3-8b"]
+# qwen2.5-14b: GQA 40/8 with QKV bias; granite-34b: MQA (kv 1) and the
+# non-gated GELU-tanh MLP
+DENSE_ARCHS = ARCHS + ["qwen2.5-14b", "granite-34b"]
 
 
 def _arr(rng, shape, dtype="float32", scale=1.0):
@@ -217,8 +224,12 @@ def test_cross_entropy_matches_reference(masked, dtype):
 
 # -- model: loss and grads ------------------------------------------------------
 def _model_pair(arch, dtype, remat, seed=0):
-    jcfg = jax_get_arch(arch, reduced=True).replace(dtype=dtype, remat=remat)
-    tcfg = get_arch(arch, reduced=True).replace(dtype=dtype, remat=remat)
+    """``remat``: False, True (policy "full") or "dots"."""
+    kw = dict(dtype=dtype, remat=bool(remat))
+    if remat == "dots":
+        kw["remat_policy"] = "dots"
+    jcfg = jax_get_arch(arch, reduced=True).replace(**kw)
+    tcfg = get_arch(arch, reduced=True).replace(**kw)
     jparams = jax_build_model(jcfg).init(jax.random.key(seed))
     tparams = bridge.params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     return jcfg, tcfg, jparams, tparams
@@ -230,15 +241,16 @@ def _batch(vocab, b, s, seed=0):
             "labels": rng.integers(0, vocab, (b, s)).astype(np.int32)}
 
 
-@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("remat", [False, True, "dots"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
 def test_loss_and_grads_match_reference(arch, dtype, remat):
     """Loss and every leaf's gradient, relative L2: 1e-5 with fp32
     activations; 3e-2 with bf16, or for a leaf where the reference's own
     bf16 gradient lies farther than that from its fp32 gradient, that
     distance (the bf16 rounding of the reference itself: qwen2.5-3b's
-    ``bk``, a sum of dk over every token, has 0.042)."""
+    ``bk``, a sum of dk over every token, has 0.042). Remat off, "full"
+    and "dots" (the reference under its own "dots" policy)."""
     jcfg, tcfg, jparams, tparams = _model_pair(arch, dtype, remat)
     batch = _batch(jcfg.vocab_size, 2, 24)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -278,26 +290,66 @@ def test_remat_recomputes_the_same_grads():
         assert torch.equal(a, b)
 
 
-def test_remat_dots_raises():
-    cfg = get_arch("qwen2.5-3b", reduced=True).replace(remat_policy="dots")
-    api = build_model(cfg)
-    params = api.init(0, "cpu")
-    batch = {k: torch.as_tensor(v) for k, v in _batch(256, 1, 8).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.loss_fn(params, batch)
-    assert tc.remat_policy(cfg.replace(remat_policy="full")) is None
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "granite-34b"])
+def test_remat_dots_grads_equal_full_to_the_bit(arch, dtype):
+    """Remat "dots" hands the backward the matmul outputs that "full"
+    recomputes, the same bits: loss and every gradient equal to the bit."""
+    _, tcfg, _, tparams = _model_pair(arch, dtype, True)
+    batch = {k: torch.as_tensor(v) for k, v in _batch(256, 2, 16).items()}
+    ps = leaves(tparams)
+    for p in ps:
+        p.requires_grad_(True)
+    out = []
+    for policy in ("full", "dots"):
+        loss = build_model(tcfg.replace(remat_policy=policy)).loss_fn(tparams, batch)
+        out.append((loss.detach(), torch.autograd.grad(loss, ps)))
+    (full_loss, full), (dots_loss, dots) = out
+    assert torch.equal(full_loss, dots_loss)
+    assert all(torch.equal(a, b) for a, b in zip(full, dots))
 
 
-@pytest.mark.parametrize("policy", ["full", "none", "no-such-policy"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "granite-34b"])
+def test_remat_dots_saves_the_reference_residuals(arch, dtype, monkeypatch):
+    """What each checkpointed block keeps under "dots", as a multiset of
+    shapes: the reference's residuals (``saved_residuals`` of one
+    ``jax.checkpoint``-ed block under ``dots_with_no_batch_dims_saveable``:
+    q, k, v, the attention output projection, the MLP's input projections)
+    and the output of the MLP's ``wo`` beside them, which the reference's
+    XLA drops since its backward never reads it (it only enters the
+    residual add) and the port's selective checkpoint keeps (it saves every
+    matmul output). One such set per layer, none of the head's matmul."""
+    jcfg, tcfg, jparams, tparams = _model_pair(arch, dtype, "dots")
+    b, s = 2, 16
+    x = jnp.ones((b, s, jcfg.d_model), DTYPES[dtype])
+    block = jax.checkpoint(
+        functools.partial(jtr.apply_block, cfg=jcfg, positions=jnp.arange(s)),
+        policy=jc.remat_policy(jcfg))
+    p0 = jax.tree.map(lambda a: a[0], jparams["blocks"])
+    want = saved_by_reference(lambda p, x: block(p, x)[0], p0, x)
+    want = (want + [(b * s, jcfg.d_model, dtype)]) * jcfg.num_layers
+    saved = saved_by_port(monkeypatch)
+    batch = {k: torch.as_tensor(v) for k, v in _batch(256, b, s).items()}
+    ps = leaves(tparams)
+    for p in ps:
+        p.requires_grad_(True)
+    torch.autograd.grad(build_model(tcfg).loss_fn(tparams, batch), ps)
+    assert sorted(saved) == sorted(want)
+
+
+@pytest.mark.parametrize("policy", ["full", "none", "no-such-policy", "dots"])
 def test_remat_policy_names_follow_reference(policy):
     """Every ``remat_policy`` name but "dots" means full remat, in the
-    reference (``repro/models/common.py::remat_policy``) and in the port:
-    the port's loss and grads under ``policy`` equal its "full" policy's to
-    the bit, and the reference accepts the name and agrees within 1e-5
-    relative L2 (fp32 activations)."""
+    reference (``repro/models/common.py::remat_policy``) and in the port;
+    "dots" saves the projections' outputs in both. The port's loss and
+    grads under ``policy`` equal its "full" policy's to the bit (a saved
+    output is the bits a recompute would give), and the reference agrees
+    within 1e-5 relative L2 (fp32 activations)."""
     jcfg, tcfg, jparams, tparams = _model_pair("qwen2.5-3b", "float32", True)
     jcfg, tcfg = (c.replace(remat_policy=policy) for c in (jcfg, tcfg))
-    assert jc.remat_policy(jcfg) is None and tc.remat_policy(tcfg) is None
+    full = policy != "dots"
+    assert (jc.remat_policy(jcfg) is None) == (tc.remat_policy(tcfg) is None) == full
     batch = _batch(jcfg.vocab_size, 2, 16)
     jloss, jgrads = jax.value_and_grad(jax_build_model(jcfg).loss_fn)(
         jparams, {k: jnp.asarray(v) for k, v in batch.items()})
@@ -317,7 +369,7 @@ def test_remat_policy_names_follow_reference(policy):
         assert _rel_l2(g, jg) <= 1e-5
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", DENSE_ARCHS + ["recurrentgemma-2b"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_param_spec_and_count_match_reference(arch, reduced):
     jspec = jax_build_model(jax_get_arch(arch, reduced=reduced)).param_spec()
@@ -541,6 +593,15 @@ def test_launch_train_end_to_end_on_cpu(dp_sync, capsys):
         assert "themis chunk orders (16 chunks)" in out
 
 
-def test_launch_train_refuses_checkpoints():
-    with pytest.raises(NotImplementedError, match="M8"):
-        ttrain.main(["--reduced", "--device", "cpu", "--ckpt-dir", "x"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "recurrentgemma-2b"])
+def test_launch_train_remat_dots_trains_as_full(arch, capsys):
+    """``--remat-policy dots`` through ``launch/train.py``: the same losses and
+    params as "full", to the bit, over three steps."""
+    argv = ["--reduced", "--arch", arch, "--device", "cpu", "--steps", "3",
+            "--batch", "2", "--seq", "40", "--fixed-batch", "--lr", "1e-2"]
+    full, dots = (ttrain.main(argv + ["--remat-policy", p]) for p in ("full", "dots"))
+    out = capsys.readouterr().out
+    assert "remat=full" in out and "remat=dots" in out
+    assert dots["cfg"].remat_policy == "dots" and dots["losses"] == full["losses"]
+    assert all(torch.equal(a, b) for a, b in zip(leaves(dots["params"]),
+                                                 leaves(full["params"])))
