@@ -32,7 +32,10 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    through their plain versions and against the plain backwards
    (``flash_attention_bwd``, ``rmsnorm_backward``) on the same inputs: fp32
    within 1e-5 abs / 1e-4 rel, bf16 within 2e-2 of max(1, the gradient's
-   largest magnitude), at the tests' shapes with and without a window, at
+   largest magnitude); K1's bf16 gradients also against autograd through
+   the plain version on fp32 copies of the inputs, at the same bound, with
+   the plain bf16 versions' distances to that reference printed beside; at
+   the tests' shapes with and without a window, at
    the training shape, at a windowed shape of training width, at head dim
    256 (windowed, ragged, and the hybrid's training shape q (2,4096,10,256)
    with window 2048; bf16 on the sm90 backward, fp32 on the SIMT one) and
@@ -112,7 +115,21 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    profile again under remat "dots" per period; the reduced
    recurrentgemma-2b (head dim 16, SIMT routes; 64 tokens past its window
    of 32) on the card against the CPU at qwen2.5-3b's bounds;
-7. each kernel's time at the serving and training shapes with CUDA events, beside its
+7. the simulator (``repro_torch.core``, on the host): paper Fig. 8 (the six
+   Table-2 topologies x 100-1000 MB all-reduce under baseline/FIFO,
+   themis/FIFO and themis/SCF through ``simulate_scheduled``) and Fig. 12
+   (four workloads, compute calibrated to the paper's Ideal, then
+   baseline/FIFO, themis/SCF and ideal iteration times), printed as
+   simulated values (the CPU tests hold them equal to the reference's);
+   then the compiled engine's wave kernel (``wave_done_times``, vectorized
+   torch) on the card over 20 MB baseline RS requests of 4096 chunks, one
+   every 100 us, at 64, 208 and 640 requests (2,621,440 chunks, 3 ranks):
+   within 1e-9 relative of ``simulate(engine="compiled", fusion=False)``
+   at 64 requests, of its own CPU run and of the sequential plain version
+   at 640, a second card call equal to the bit; its ms (median of CUDA
+   events), stage-ops per second and bound beside the host's
+   ``simulate_compiled`` and CPU times;
+8. each kernel's time at the serving and training shapes with CUDA events, beside its
    bound, its plain version's time and one PyTorch library call's time
    where one computes the same function (``ms`` with the launch queue
    filled first, so the card's time alone; ``host_ms`` as issued one call
@@ -146,7 +163,7 @@ import traceback
 
 # H100 SXM published peaks (dense, no sparsity), at the 700 W limit.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "float64": 34e12}
 L2_BYTES = 50 * 2**20
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SCAN_TOL = 1e-5
@@ -177,6 +194,20 @@ GRANITE_ATTN = (BATCH, PROMPT, GRANITE_D["h"], GRANITE_D["kv"], GRANITE_D["d"],
 # the checkpoint phase: qwen2.5-3b at full width cut to 2 layers
 CKPT_LAYERS, CKPT_BATCH, CKPT_STEPS = 2, 2, 4
 GRAD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": 2e-2}
+# the simulator: paper Fig. 8's all-reduce sizes (MB = 1e6 bytes) and Fig. 12's
+# reported speed-ups over the baseline (Sec. 6.2: Themis, and the Ideal that
+# calibrate_compute fits each workload's compute time to)
+FIG8_SIZES_MB = (100, 250, 500, 750, 1000)
+FIG8_PAPER = {"avg_speedup_fifo": 1.58, "avg_speedup_scf": 1.72, "max_speedup_scf": 2.70}
+FIG12_PAPER = {"resnet152": (1.49, 1.54), "gnmt": (1.30, 1.32), "dlrm": (1.30, 1.33),
+               "transformer_1t": (1.25, 1.26)}
+# the wave kernel's stream: baseline RS of 20 MB in 4096 chunks on
+# 3D-SW_SW_SW_hetero, one request every 100 us, each chunk a group of its own
+# (baseline visits each dim once per chunk, so the kernel's rank barriers are
+# exact); 640 requests is the compiled tier's backlog in BENCH_sched_perf.json
+WAVE_TOPOLOGY, WAVE_BYTES, WAVE_CHUNKS, WAVE_PERIOD_S = "3D-SW_SW_SW_hetero", 20e6, 4096, 100e-6
+WAVE_REQUESTS = (64, 208, 640)
+WAVE_RTOL = 1e-9
 FA_TEST_SHAPES = [(2, 128, 4, 2, 64, 128, 0), (1, 200, 8, 1, 64, 200, 0),
                   (2, 96, 4, 4, 32, 96, 32), (1, 64, 2, 2, 128, 256, 0),
                   (1, 257, 3, 3, 16, 257, 64)]
@@ -226,7 +257,7 @@ def main() -> int:
               phase_train_card_vs_cpu, phase_ckpt_resume, phase_hybrid_train,
               phase_hybrid_train_profile, phase_hybrid_train_dots,
               phase_hybrid_train_dots_profile, phase_hybrid_train_card_vs_cpu,
-              phase_times)
+              phase_simulator, phase_wave, phase_times)
     for phase in phases:
         t0 = time.perf_counter()
         try:
@@ -525,10 +556,13 @@ def _grad_checks(gen):
                 out, lse = fa.flash_attention(q, k, v, causal=True, window=win)
                 plain = flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
                                             window=win)
-            readings = None
+            readings = fp32_errs = None
             if dn == "bfloat16":
-                # how far each bf16 gradient lies from autograd through the
-                # plain version on fp32 copies of the same inputs (not a gate)
+                # the gate against fp32: the kernel's gradients against
+                # autograd through the plain version on fp32 copies of the
+                # same inputs; beside it, how far each bf16 gradient lies
+                # from that reference (the plain bf16 backward carries most
+                # of the error of the two bf16 gates below)
                 q32, k32, v32 = (x.detach().float().requires_grad_(True)
                                  for x in (q, k, v))
                 ref = torch.autograd.grad(fa.flash_attention_plain(
@@ -538,6 +572,10 @@ def _grad_checks(gen):
                                     zip(("dq", "dk", "dv"), grads, ref)}
                             for label, grads in (("kernel", got), ("autograd_plain", want),
                                                  ("flash_attention_bwd", plain))}
+                fp32_errs = []
+                for n, a, r in zip(("dq", "dk", "dv"), got, ref):
+                    _grad_close(f"flash_attention{(b, s, h, kv, d, t, win)} {dn} {n} "
+                                "vs fp32 autograd", a, r, dn, fp32_errs)
                 del q32, k32, v32, ref
             torch.cuda.synchronize()
             errs, plain_errs = [], []
@@ -554,6 +592,7 @@ def _grad_checks(gen):
                            "shape": [b, s, h, kv, d, t], "window": win,
                            "dtype": dn, "grads": errs,
                            "vs_plain_backward": plain_errs, "tol": GRAD_TOL[dn],
+                           "vs_fp32_autograd": fp32_errs,
                            "bf16_max_abs_err_vs_fp32_autograd": readings})
             del q, k, v, dout, got, p_out, want, out, lse, plain
             torch.cuda.empty_cache()
@@ -1772,6 +1811,205 @@ def _time_rmsnorm_backward(state, gen, path, shape, calls_per_step):
             "library": "F.rms_norm forward+backward minus forward"}
 
 
+# -- phase 7: the simulator -------------------------------------------------------
+def fig8_grid():
+    """Paper Fig. 8 through the port: all-reduce makespans on the six Table-2
+    topologies x ``FIG8_SIZES_MB`` under baseline/FIFO, themis/FIFO and
+    themis/SCF (``simulate_scheduled``, 64 chunks), and the speed-ups'
+    summary. Simulated fabric times, computed on the host."""
+    from repro_torch.core import simulate_scheduled
+    from repro_torch.topology import make_table2_topologies
+
+    rows = []
+    for name, topo in make_table2_topologies().items():
+        for mb in FIG8_SIZES_MB:
+            rows.append({"topology": name, "size_mb": mb, **{
+                label: simulate_scheduled(topo, "AR", mb * 1e6, policy=policy,
+                                          intra=intra)[0].makespan
+                for label, policy, intra in (("baseline_fifo_s", "baseline", "FIFO"),
+                                             ("themis_fifo_s", "themis", "FIFO"),
+                                             ("themis_scf_s", "themis", "SCF"))}})
+    fifo = [r["baseline_fifo_s"] / r["themis_fifo_s"] for r in rows]
+    scf = [r["baseline_fifo_s"] / r["themis_scf_s"] for r in rows]
+    return rows, {"avg_speedup_fifo": sum(fifo) / len(fifo),
+                  "avg_speedup_scf": sum(scf) / len(scf), "max_speedup_scf": max(scf)}
+
+
+def fig12_grid():
+    """Paper Fig. 12 through the port: each workload's compute time
+    calibrated to the paper's Ideal speed-up (``calibrate_compute``), then
+    its iteration time under baseline/FIFO, themis/SCF and ideal on the six
+    Table-2 topologies, and the speed-ups' summary. Simulated times."""
+    import statistics
+
+    from repro_torch.core.workloads import ALL_WORKLOADS, calibrate_compute, iteration_time
+    from repro_torch.topology import make_table2_topologies
+
+    topos = list(make_table2_topologies().values())
+    rows, summary = [], {}
+    for wname, make in ALL_WORKLOADS.items():
+        w = make()
+        compute_s = calibrate_compute(w, topos, FIG12_PAPER[wname][1])
+        themis, ideal = [], []
+        for topo in topos:
+            b = iteration_time(w, topo, "baseline", intra="FIFO").total_s
+            t = iteration_time(w, topo, "themis", intra="SCF").total_s
+            i = iteration_time(w, topo, "ideal").total_s
+            rows.append({"workload": wname, "topology": topo.name, "baseline_fifo_s": b,
+                         "themis_scf_s": t, "ideal_s": i})
+            themis.append(b / t)
+            ideal.append(b / i)
+        summary[wname] = {"compute_s": compute_s, "themis_avg": statistics.mean(themis),
+                          "themis_max": max(themis), "ideal_avg": statistics.mean(ideal)}
+    return rows, summary
+
+
+def phase_simulator(state):
+    """Fig. 8 and Fig. 12 on the port's simulator (the host, no card). The
+    CPU tests hold each value equal to the reference's; this prints them."""
+    t0 = time.perf_counter()
+    rows8, sum8 = fig8_grid()
+    t1 = time.perf_counter()
+    rows12, sum12 = fig12_grid()
+    t2 = time.perf_counter()
+    emit(fig8={"simulated": True, "summary": sum8, "paper": FIG8_PAPER,
+               "rows": rows8, "host_seconds": t1 - t0})
+    emit(fig12={"simulated": True, "summary": sum12,
+                "paper": {k: {"themis_avg": v[0], "ideal_avg": v[1]}
+                          for k, v in FIG12_PAPER.items()},
+                "rows": rows12, "host_seconds": t2 - t1})
+
+
+def _wave_stream(n_requests):
+    """The wave stream's chunk groups and issue times: ``n_requests``
+    requests of one baseline RS schedule, each chunk a group of its own."""
+    from repro_torch.core import schedule_collective
+    from repro_torch.topology import make_table2_topologies
+
+    topo = make_table2_topologies()[WAVE_TOPOLOGY]
+    one = schedule_collective(topo, "RS", WAVE_BYTES, WAVE_CHUNKS, "baseline")
+    groups = [[c] for _ in range(n_requests) for c in one]
+    issue = [r * WAVE_PERIOD_S for r in range(n_requests) for _ in one]
+    return topo, groups, issue
+
+
+def _tiled_wave_arrays(one, n_requests):
+    """``wave_arrays`` of ``n_requests`` requests from one request's (issued
+    at 0): the arrays tiled, each request's issue time added."""
+    import numpy as np
+
+    issue, occupy, fixed, dims = one
+    offsets = np.arange(n_requests) * WAVE_PERIOD_S
+    return ((offsets[:, None] + issue[None, :]).ravel(), np.tile(occupy, (n_requests, 1)),
+            np.tile(fixed, (n_requests, 1)), np.tile(dims, (n_requests, 1)))
+
+
+def _rel_err(got, want):
+    import numpy as np
+
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def _cuda_event_ms(fn, warmup=3, reps=10):
+    """Median of ``reps`` CUDA-event timings of ``fn()``, after ``warmup`` calls."""
+    import statistics
+
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return statistics.median(times)
+
+
+def phase_wave(state):
+    """The compiled engine's wave kernel (``wave_done_times``, vectorized
+    torch) on the card: the stream at 64, 208 and 640 requests of 4096
+    chunks, against the port's ``simulate(engine="compiled", fusion=False)``
+    at 64 requests, against its own CPU run and the sequential plain version
+    at 640, and a second card call at 640 equal to the first."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import engine_compiled as ec
+    from repro_torch.core import simulate
+
+    topo, groups, issue = _wave_stream(1)
+    one = ec.wave_arrays(topo, groups, issue)
+    topo, groups, issue = _wave_stream(16)
+    want = ec.wave_arrays(topo, groups, issue)
+    tiled_equal = all(np.array_equal(a, w) for a, w in zip(_tiled_wave_arrays(one, 16), want))
+    assert tiled_equal, "tiled wave arrays differ from wave_arrays at 16 requests"
+    arrays = {n: _tiled_wave_arrays(one, n) for n in WAVE_REQUESTS}
+    ec.launches = 0
+    done = {n: ec.wave_done_times(*arrays[n]) for n in WAVE_REQUESTS}
+    again = ec.wave_done_times(*arrays[WAVE_REQUESTS[-1]])
+    launches = ec.launches
+    assert launches == len(WAVE_REQUESTS) + 1, launches
+    n = WAVE_REQUESTS[0]
+    topo, groups, issue = _wave_stream(n)
+    t0 = time.perf_counter()
+    res = simulate(topo, groups, engine="compiled", issue_times=issue, fusion=False)
+    host_s = time.perf_counter() - t0
+    assert ec.LAST_FALLBACK is None, ec.LAST_FALLBACK
+    err_sim = _rel_err(done[n], np.asarray(res.group_finish))
+    del groups, issue, res
+    big = WAVE_REQUESTS[-1]
+    t0 = time.perf_counter()
+    cpu = ec.wave_done_times(*arrays[big], device="cpu")
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = ec.wave_done_times_plain(*arrays[big])
+    plain_s = time.perf_counter() - t0
+    err_cpu, err_plain = _rel_err(done[big], cpu), _rel_err(done[big], plain)
+    same = bool(np.array_equal(done[big], again))
+    rows = []
+    for n in WAVE_REQUESTS:
+        issue_t, occupy, fixed, dims = (torch.as_tensor(x, device="cuda") for x in arrays[n])
+        C, R = occupy.shape
+        ms = _cuda_event_ms(lambda: ec._wave_scan(issue_t, occupy, fixed, dims))
+        call_ms = _cuda_event_ms(lambda: ec.wave_done_times(*arrays[n]), reps=5)
+        # each input read once (issue C, occupy, fixed and dims C x R, 8 bytes
+        # each), the done times written once (C); five float64 operations per
+        # chunk and rank in the closed form
+        bound_ms, bound_by = _bound(8 * (2 * C + 3 * C * R), 5 * C * R, "float64")
+        rows.append({"requests": n, "chunks": C, "ranks": R, "ms": ms, "call_ms": call_ms,
+                     "stage_ops_per_s": C * R / (ms * 1e-3), "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bound_fraction": bound_ms / ms})
+        del issue_t, occupy, fixed, dims
+    checks = {"tiled_arrays_equal_wave_arrays_at_16": tiled_equal,
+              "rel_err_vs_simulate_compiled_at_64": err_sim,
+              "rel_err_vs_cpu_at_640": err_cpu, "rel_err_vs_plain_at_640": err_plain,
+              "second_call_equal": same, "rtol": WAVE_RTOL}
+    emit(wave={"card": state["card"], "rows": rows, "checks": checks,
+               "host_simulate_compiled_s_at_64": host_s, "cpu_torch_s_at_640": cpu_s,
+               "plain_s_at_640": plain_s, "launches": launches})
+    assert err_sim <= WAVE_RTOL, f"wave vs simulate_compiled: {err_sim}"
+    assert err_cpu <= WAVE_RTOL, f"wave card vs cpu: {err_cpu}"
+    assert err_plain <= WAVE_RTOL, f"wave card vs plain: {err_plain}"
+    assert same, "wave: a second card call differs"
+    top = rows[-1]
+    state["wave_kernel"] = {
+        "name": "wave_done_times", "route": "torch", "path": "simulator",
+        "source": "src/repro_torch/core/engine_compiled.py",
+        "replaces": "src/repro/core/engine_compiled.py:962 (jax.jit, not Pallas)",
+        "launches": launches, "max_abs_err": float(np.max(np.abs(done[big] - plain))),
+        "ms": top["ms"], "plain_ms": plain_s * 1e3, "bound_ms": top["bound_ms"],
+        "bound_by": top["bound_by"], "library_ms": None, "call_ms": top["call_ms"],
+        "cpu_torch_ms": cpu_s * 1e3, "stage_ops_per_s": top["stage_ops_per_s"],
+        "shape": {"chunks": top["chunks"], "ranks": top["ranks"], "dtype": "float64/int64"},
+        "plain": "wave_done_times_plain: the sequential loop, float64 on the host CPU",
+        "library": "none: no single PyTorch call computes a segmented max-plus scan"}
+
+
 def phase_times(state):
     import torch
 
@@ -1827,7 +2065,7 @@ def phase_times(state):
                                 ("floor_share", state[k]["floor_ms"]
                                  / state[k]["step_ms"]),
                                 ("model_flops_share", state[k]["model_flops_share"]))}})
-    state["kernels"] = kernels
+    state["kernels"] = kernels + [state["wave_kernel"]]
 
 
 if __name__ == "__main__":
