@@ -121,6 +121,23 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    (four workloads, compute calibrated to the paper's Ideal, then
    baseline/FIFO, themis/SCF and ideal iteration times), printed as
    simulated values (the CPU tests hold them equal to the reference's);
+   the scenarios of ``benchmarks/faults_study.py``, ``tenancy_study.py``
+   and ``traffic_study.py`` at their full sizes, through the port's
+   ``faults``, ``tenancy`` and ``traffic`` packages (host only; simulated
+   fabric times beside host seconds): the fault-free identity, 24 seeded
+   chaos scenarios equal across the indexed and reference engines with the
+   invariant sanitizer armed, and re-planning's speed-up >= 1.15 at a
+   degradation to 0.1 (``phase_faults``); the fairness and workloads
+   sweeps over four arbiter policies, the preemption cost and the tracker
+   ablation on three Table-2 topologies, with weighted-fair beating fifo on
+   Jain and the shared tracker winning on each (``phase_tenancy``); the
+   traffic equivalence gate (the IR equal to ``simulate_requests`` and the
+   batch runner equal to indexed, exactly; indexed within 1e-12 relative
+   of reference, the reference's own 1-2 ulp gap), the mixed training and
+   serving tenants' decode p50/p95/p99 and prefill p99, the DCN jitter
+   sweep, and the long stream up to about 953k stage-ops with the compiled
+   engine equal to indexed at each size (``phase_traffic``; its host times
+   and their scaling exponent are printed, not gated);
    then the compiled engine's wave kernel (``wave_done_times``, vectorized
    torch) on the card over 20 MB baseline RS requests of 4096 chunks, one
    every 100 us, at 64, 208 and 640 requests (2,621,440 chunks, 3 ranks):
@@ -208,6 +225,20 @@ FIG12_PAPER = {"resnet152": (1.49, 1.54), "gnmt": (1.30, 1.32), "dlrm": (1.30, 1
 WAVE_TOPOLOGY, WAVE_BYTES, WAVE_CHUNKS, WAVE_PERIOD_S = "3D-SW_SW_SW_hetero", 20e6, 4096, 100e-6
 WAVE_REQUESTS = (64, 208, 640)
 WAVE_RTOL = 1e-9
+# faults, tenancy and traffic: the scenarios of
+# benchmarks/{faults,tenancy,traffic}_study.py at their full sizes
+MB = 1e6
+FAULTS_TOPOLOGY, FAULTS_HORIZON_S = "2D-SW_SW", 2e-3
+REPLAN_GATE, SWEEP_FACTORS = 1.15, (0.7, 0.5, 0.25, 0.1)
+TENANCY_TOPOLOGIES = ("2D-SW_SW", "3D-SW_SW_SW_homo", "3D-SW_SW_SW_hetero")
+TENANCY_POLICIES = ("fifo", "strict-priority", "weighted-fair", "slo-aware")
+TENANCY_CHUNKS, PREEMPT_PENALTIES_S = 16, (0.0, 50e-6, 200e-6, 1e-3)
+TRAFFIC_ARCH, TRAFFIC_COSTS = "llama3-8b", dict(batch=4, prompt_len=512, tp=8)
+LONG_STREAM_SIZES = ((10, 150), (30, 450), (80, 1200), (160, 2400))
+# indexed vs reference on traffic graphs: the reference's own engines sum
+# group_wire_bytes (and, under an arbiter, dim_busy / dim_wire_bytes) in
+# another order and differ by 1-2 ulp (ROADMAP §3, R6); the port's copies too
+TRAFFIC_ENGINE_RTOL = 1e-12
 FA_TEST_SHAPES = [(2, 128, 4, 2, 64, 128, 0), (1, 200, 8, 1, 64, 200, 0),
                   (2, 96, 4, 4, 32, 96, 32), (1, 64, 2, 2, 128, 256, 0),
                   (1, 257, 3, 3, 16, 257, 64)]
@@ -257,7 +288,8 @@ def main() -> int:
               phase_train_card_vs_cpu, phase_ckpt_resume, phase_hybrid_train,
               phase_hybrid_train_profile, phase_hybrid_train_dots,
               phase_hybrid_train_dots_profile, phase_hybrid_train_card_vs_cpu,
-              phase_simulator, phase_wave, phase_times)
+              phase_simulator, phase_faults, phase_tenancy, phase_traffic,
+              phase_wave, phase_times)
     for phase in phases:
         t0 = time.perf_counter()
         try:
@@ -1878,6 +1910,582 @@ def phase_simulator(state):
                 "paper": {k: {"themis_avg": v[0], "ideal_avg": v[1]}
                           for k, v in FIG12_PAPER.items()},
                 "rows": rows12, "host_seconds": t2 - t1})
+
+
+# -- phase 7b: faults, tenancy and traffic ----------------------------------------
+# The scenarios of benchmarks/{faults,tenancy,traffic}_study.py at their full
+# sizes, through the port. Each is a function here, and a CPU test holds it
+# equal to the study's own on every simulated value; the phases print the
+# simulated fabric times beside host seconds and gate as the studies do
+# (the constants are with the others at the top).
+
+
+def _gap(a, b):
+    """Largest relative gap between two results' float values and the
+    number of non-float values (ints, orders, tags, lengths) that differ."""
+    if isinstance(a, float) and isinstance(b, float):
+        return (0.0 if a == b else abs(a - b) / max(abs(a), abs(b))), 0
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return 0.0, 1
+        gaps = [_gap(x, y) for x, y in zip(a, b)]
+        return max((g for g, _ in gaps), default=0.0), sum(n for _, n in gaps)
+    return 0.0, int(a != b)
+
+
+def sim_gap(res_a, res_b):
+    """``_gap`` over every ``SimResult`` field: (largest relative float gap,
+    the fields whose non-float values differ)."""
+    import dataclasses
+
+    gaps = {f.name: _gap(getattr(res_a, f.name), getattr(res_b, f.name))
+            for f in dataclasses.fields(res_a)}
+    return max(g for g, _ in gaps.values()), sorted(k for k, (_, n) in gaps.items() if n)
+
+
+def faults_identity():
+    """``faults_study.identity_part``: with ``faults=None`` both engines give
+    the same result, and an empty ``FaultSchedule`` changes nothing but the
+    retry counts (all zero)."""
+    from repro_torch.core import simulate_requests
+    from repro_torch.core.requests import CollectiveRequest
+    from repro_torch.faults import FaultSchedule
+    from repro_torch.topology import make_table2_topologies
+
+    topo = make_table2_topologies()[FAULTS_TOPOLOGY]
+    reqs = [CollectiveRequest("AR", 8.0 * MB, issue_time=i * 2e-4) for i in range(8)]
+
+    def run_once(eng, faults):
+        return simulate_requests(topo, reqs, chunks_per_collective=8, engine=eng,
+                                 check_invariants=True, faults=faults)[0]
+
+    base = {eng: run_once(eng, None) for eng in ("indexed", "reference")}
+    empty_same = True
+    for eng, res in base.items():
+        empty = run_once(eng, FaultSchedule())
+        diff = [f for f in res.diff_fields(empty) if f != "group_retries"]
+        empty_same &= not diff and not any(empty.group_retries) and not empty.failed_groups
+    return {"engines_identical": not base["indexed"].diff_fields(base["reference"]),
+            "empty_schedule_identical": empty_same}
+
+
+def _random_faults(rng, horizon):
+    """``faults_study._random_faults``: per dim at most one degradation,
+    outage or flap plus an optional straggler burst, and a retry policy."""
+    from repro_torch.faults import (BwDegradation, DimOutage, FaultSchedule, LinkFlap,
+                                    RetryPolicy, StragglerBurst)
+
+    events = []
+    for dim in (0, 1):
+        kind = rng.choice(("degrade", "outage", "flap", "none"))
+        t0 = rng.uniform(0.1, 0.5) * horizon
+        if kind == "degrade":
+            events.append(BwDegradation(
+                dim=dim, start=t0, end=t0 + rng.uniform(0.2, 0.5) * horizon,
+                factor=rng.uniform(0.1, 0.8)))
+        elif kind == "outage":
+            events.append(DimOutage(
+                dim=dim, start=t0, end=t0 + rng.uniform(0.05, 0.2) * horizon))
+        elif kind == "flap":
+            down = rng.uniform(0.02, 0.06) * horizon
+            events.append(LinkFlap(
+                dim=dim, start=t0, down_s=down,
+                period_s=down + rng.uniform(0.05, 0.15) * horizon,
+                count=rng.randint(1, 3)))
+        if rng.random() < 0.5:
+            s0 = rng.uniform(0.0, 0.4) * horizon
+            events.append(StragglerBurst(
+                dim=dim, start=s0, end=s0 + rng.uniform(0.2, 0.6) * horizon,
+                sigma=rng.uniform(0.05, 0.4)))
+    retry = RetryPolicy(timeout_s=rng.uniform(0.02, 0.08) * horizon,
+                        backoff_s=rng.uniform(0.01, 0.03) * horizon,
+                        max_attempts=rng.choice((3, 8)))
+    return FaultSchedule(events=tuple(events), retry=retry)
+
+
+def faults_chaos():
+    """``faults_study.chaos_part``: 24 seeded fault timelines over
+    {themis, baseline} x {SCF, FIFO} x {no arbiter, weighted-fair,
+    strict-priority}, re-planning on odd seeds under themis, each run on
+    both engines with the invariant sanitizer armed."""
+    import random
+
+    from repro_torch.core import simulate_requests
+    from repro_torch.core.requests import CollectiveRequest
+    from repro_torch.tenancy import FabricArbiter, TenantSpec
+    from repro_torch.topology import make_table2_topologies
+
+    topo = make_table2_topologies()[FAULTS_TOPOLOGY]
+    policies, intras = ("themis", "baseline"), ("SCF", "FIFO")
+    arbiters = (None, "weighted-fair", "strict-priority")
+    specs = [TenantSpec("a", weight=1.0), TenantSpec("b", weight=3.0, priority=5)]
+    results = []
+    for i in range(24):
+        policy, intra, arb_policy, seed = (policies[i % 2], intras[(i // 2) % 2],
+                                           arbiters[(i // 4) % 3], 1000 + i)
+        faults = _random_faults(random.Random(seed), FAULTS_HORIZON_S)
+        reqs = [CollectiveRequest("AR", 6.0 * MB, issue_time=j * 2e-4,
+                                  tenant="a" if j % 3 else "b") for j in range(10)]
+        replan = bool(seed % 2) and policy == "themis"
+
+        def run_once(eng):
+            arb = (FabricArbiter(arb_policy, specs, quantum_chunks=4, preemption=True)
+                   if arb_policy is not None else None)
+            return simulate_requests(topo, reqs, policy=policy, chunks_per_collective=8,
+                                     intra=intra, arbiter=arb, engine=eng,
+                                     check_invariants=True, faults=faults,
+                                     replan=replan)[0]
+
+        res_i, res_r = run_once("indexed"), run_once("reference")
+        results.append({"policy": policy, "intra": intra, "arbiter": arb_policy,
+                        "seed": seed, "replan": replan, "makespan": res_i.makespan,
+                        "retries": sum(res_i.group_retries),
+                        "failed_groups": len(res_i.failed_groups),
+                        "identical": not res_i.diff_fields(res_r)})
+    return {"n_scenarios": len(results),
+            "all_identical": all(r["identical"] for r in results),
+            "total_retries": sum(r["retries"] for r in results),
+            "total_failed_groups": sum(r["failed_groups"] for r in results),
+            "scenarios": results}
+
+
+def faults_sweep():
+    """``faults_study.sweep_part``: six staggered 64 MiB all-reduces in 16
+    chunks, the fat dim degraded to each of ``SWEEP_FACTORS`` from 150 us on,
+    with and without Themis re-planning (indexed engine, sanitizer armed)."""
+    from repro_torch.core import simulate_requests
+    from repro_torch.core.requests import CollectiveRequest
+    from repro_torch.faults import BwDegradation, FaultSchedule
+    from repro_torch.topology import make_table2_topologies
+
+    topo = make_table2_topologies()[FAULTS_TOPOLOGY]
+    reqs = [CollectiveRequest("AR", float(1 << 26), issue_time=i * 1e-4) for i in range(6)]
+
+    def run_once(faults, replan):
+        return simulate_requests(topo, reqs, chunks_per_collective=16, engine="indexed",
+                                 check_invariants=True, faults=faults, replan=replan)[0]
+
+    clean = run_once(None, False).makespan
+    points = []
+    for f in SWEEP_FACTORS:
+        faults = FaultSchedule(events=(BwDegradation(dim=1, start=1.5e-4, end=1.0,
+                                                     factor=f),))
+        plain, replanned = run_once(faults, False), run_once(faults, True)
+        points.append({"factor": f, "makespan_clean": clean,
+                       "makespan_no_replan": plain.makespan,
+                       "makespan_replan": replanned.makespan,
+                       "inflation_no_replan": plain.makespan / clean,
+                       "inflation_replan": replanned.makespan / clean,
+                       "replan_speedup": plain.makespan / replanned.makespan})
+    worst = points[-1]["replan_speedup"]  # factors descend: the last is the harshest
+    return {"factors": list(SWEEP_FACTORS), "points": points, "gate": REPLAN_GATE,
+            "worst_severity_speedup": worst, "gate_passed": worst >= REPLAN_GATE}
+
+
+def _timed(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def phase_faults(state):
+    """Fault injection and re-planning through the port (host only): the
+    fault-free identity, 24 chaos scenarios equal across the port's two
+    engines with the sanitizer armed, and re-planning's speed-up of at
+    least ``REPLAN_GATE`` at the harshest degradation."""
+    identity, s_id = _timed(faults_identity)
+    chaos, s_chaos = _timed(faults_chaos)
+    sweep, s_sweep = _timed(faults_sweep)
+    emit(faults={"simulated": True, "identity": identity, "chaos": chaos, "sweep": sweep,
+                 "host_seconds": {"identity": s_id, "chaos": s_chaos, "sweep": s_sweep}})
+    assert identity["engines_identical"], "fault-free engines differ"
+    assert identity["empty_schedule_identical"], "an empty FaultSchedule changed a result"
+    bad = [(r["seed"], r["policy"], r["intra"], r["arbiter"]) for r in chaos["scenarios"]
+           if not r["identical"]]
+    assert not bad, f"engines differ under faults in {len(bad)}/24 scenarios: {bad}"
+    assert sweep["gate_passed"], (
+        f"re-planning speed-up {sweep['worst_severity_speedup']} < {REPLAN_GATE} "
+        f"at factor {SWEEP_FACTORS[-1]}")
+
+
+def _tenancy_scenario(name):
+    """``tenancy_study._fairness_tenants`` / ``_workload_tenants`` /
+    ``_ablation_tenants``: (specs, requests)."""
+    from repro_torch.core.workloads import make_gnmt, make_resnet152
+    from repro_torch.tenancy import TenantJob, TenantSpec, synthetic_requests
+
+    if name == "fairness":
+        specs = [TenantSpec("batch", weight=1.0),
+                 TenantSpec("prod", weight=1.0, priority=1, slo_slowdown=1.5)]
+        return specs, (synthetic_requests("batch", "AR", 400 * MB, 3)
+                       + synthetic_requests("prod", "AR", 10 * MB, 12, gap_s=0.0005,
+                                            start_s=0.0002))
+    if name == "workloads":
+        light = TenantJob(TenantSpec("resnet", weight=1.0, priority=1, slo_slowdown=2.0,
+                                     arrival_offset_s=0.005, iterations=2, n_buckets=8),
+                          make_resnet152())
+        heavy = TenantJob(TenantSpec("gnmt", weight=1.0, iterations=2, n_buckets=2),
+                          make_gnmt())
+        return [light.spec, heavy.spec], light.requests() + heavy.requests()
+    specs = [TenantSpec(n) for n in ("a", "b", "c")]
+    reqs = []
+    for i, s in enumerate(specs):
+        reqs += synthetic_requests(s.name, "AR", 200 * MB, 3, gap_s=3 * 0.001,
+                                   start_s=i * 0.001)
+    return specs, reqs
+
+
+def tenancy_sweep(topo, name):
+    """``tenancy_study._sweep``: the scenario under each arbiter policy, with
+    isolated latencies as the slowdowns' base; (cells, (specs, reqs, iso))."""
+    from repro_torch.tenancy import (FabricArbiter, fairness_index, isolated_latencies,
+                                     mean_slowdown, simulate_fabric, slo_violations,
+                                     tenant_reports)
+
+    specs, reqs = _tenancy_scenario(name)
+    iso = isolated_latencies(topo, reqs, chunks_per_collective=TENANCY_CHUNKS)
+    spec_map = {s.name: s for s in specs}
+    iso_mean = {t: sum(v) / len(v) for t, v in iso.items()}
+    cells = {}
+    for policy in TENANCY_POLICIES:
+        arb = FabricArbiter(policy, specs, isolated_latency=iso_mean)
+        res, _ = simulate_fabric(topo, reqs, arbiter=arb,
+                                 chunks_per_collective=TENANCY_CHUNKS)
+        reps = tenant_reports(res, reqs, iso, spec_map)
+        cells[policy] = {
+            "jain": fairness_index(reps), "mean_slowdown": mean_slowdown(reps),
+            "makespan_ms": res.finish_time() * 1e3, "slo_violations": slo_violations(reps),
+            "preemptions": arb.preempt_count,
+            "tenants": {t: {"mean_slowdown": r.mean_slowdown, "finish_ms": r.finish_s * 1e3,
+                            "bw_share": r.bw_share, "slo_violated": r.slo_violated}
+                        for t, r in reps.items()}}
+    return cells, (specs, reqs, iso)
+
+
+def tenancy_ablation(topo):
+    """``tenancy_study._ablation``: three staggered tenants under
+    weighted-fair, one shared Dim Load Tracker against one per tenant."""
+    from repro_torch.tenancy import (FabricArbiter, isolated_latencies, mean_slowdown,
+                                     simulate_fabric, tenant_reports)
+
+    specs, reqs = _tenancy_scenario("ablation")
+    spec_map = {s.name: s for s in specs}
+    iso = isolated_latencies(topo, reqs, chunks_per_collective=32)
+    out = {}
+    for mode, shared in (("shared", True), ("per_tenant", False)):
+        arb = FabricArbiter("weighted-fair", specs)
+        res, _ = simulate_fabric(topo, reqs, arbiter=arb, shared_tracker=shared,
+                                 chunks_per_collective=32)
+        reps = tenant_reports(res, reqs, iso, spec_map)
+        out[mode] = {"makespan_ms": res.finish_time() * 1e3,
+                     "mean_slowdown": mean_slowdown(reps)}
+    out["shared_wins"] = (
+        out["shared"]["makespan_ms"] < out["per_tenant"]["makespan_ms"]
+        or out["shared"]["mean_slowdown"] < out["per_tenant"]["mean_slowdown"])
+    return out
+
+
+def tenancy_preemption_cost(topo, specs, reqs, iso):
+    """``tenancy_study._preemption_cost``: the fairness scenario under
+    weighted-fair at each re-arm penalty of ``PREEMPT_PENALTIES_S``."""
+    from repro_torch.tenancy import (FabricArbiter, fairness_index, simulate_fabric,
+                                     tenant_reports)
+
+    spec_map = {s.name: s for s in specs}
+    out = {}
+    for penalty in PREEMPT_PENALTIES_S:
+        arb = FabricArbiter("weighted-fair", specs, preempt_penalty_s=penalty)
+        res, _ = simulate_fabric(topo, reqs, arbiter=arb, chunks_per_collective=TENANCY_CHUNKS)
+        reps = tenant_reports(res, reqs, iso, spec_map)
+        out[f"{penalty * 1e6:.0f}us"] = {
+            "makespan_ms": res.finish_time() * 1e3, "prod_slowdown": reps["prod"].mean_slowdown,
+            "jain": fairness_index(reps), "preemptions": arb.preempt_count}
+    return out
+
+
+def tenancy_study():
+    """``tenancy_study.run``'s report, without its file: on each of
+    ``TENANCY_TOPOLOGIES`` the fairness and workloads sweeps, the
+    preemption cost and the tracker ablation, and the study's two checks."""
+    from repro_torch.topology import make_table2_topologies
+
+    topos = make_table2_topologies()
+    report = {"scenarios": {}, "checks": {}}
+    wf_beats_fifo, shared_wins = [], []
+    for tname in TENANCY_TOPOLOGIES:
+        topo = topos[tname]
+        fairness, ctx = tenancy_sweep(topo, "fairness")
+        workloads, _ = tenancy_sweep(topo, "workloads")
+        abl = tenancy_ablation(topo)
+        report["scenarios"][tname] = {
+            "fairness": fairness, "workloads": workloads,
+            "preemption_cost": tenancy_preemption_cost(topo, *ctx),
+            "tracker_ablation": abl}
+        if fairness["weighted-fair"]["jain"] > fairness["fifo"]["jain"]:
+            wf_beats_fifo.append(tname)
+        if abl["shared_wins"]:
+            shared_wins.append(tname)
+    report["checks"] = {"weighted_fair_beats_fifo_jain_on": wf_beats_fifo,
+                        "shared_tracker_wins_on": shared_wins}
+    return report
+
+
+def phase_tenancy(state):
+    """Multi-tenant arbitration through the port (host only): the study's
+    checks hold on every topology, as in ``BENCH_tenancy.json``."""
+    report, secs = _timed(tenancy_study)
+    emit(tenancy={"simulated": True, **report, "host_seconds": secs})
+    for check, on in report["checks"].items():
+        assert list(on) == list(TENANCY_TOPOLOGIES), f"{check} holds only on {on}"
+
+
+def traffic_costs():
+    """The serving costs of the traffic study: llama3-8b, 4 x 512, tp 8, from
+    the port's config and roofline."""
+    from repro_torch.traffic import serving_costs_from_arch
+
+    return serving_costs_from_arch(TRAFFIC_ARCH, **TRAFFIC_COSTS)
+
+
+def _serving_job(costs, *, gen_tokens, n_requests, arrival_gap_s):
+    from repro_torch.tenancy import TenantJob, TenantSpec
+    from repro_torch.traffic import serving_traffic
+
+    return TenantJob(TenantSpec("serve", weight=2.0, slo_slowdown=1.5),
+                     traffic_builder=lambda job: serving_traffic(
+                         gen_tokens=gen_tokens, n_requests=n_requests,
+                         arrival_gap_s=arrival_gap_s, **costs))
+
+
+def _mixed_graph(costs, *, iterations, gen_tokens, n_requests, arrival_gap_s=2e-3,
+                 n_buckets=16):
+    """``traffic_study._mixed_graph``: closed-loop ResNet-152 training beside
+    a serving tenant, as one graph, and the two tenants' specs."""
+    from repro_torch.core.workloads import make_resnet152
+    from repro_torch.tenancy import TenantJob, TenantSpec, tenant_traffic
+
+    train = TenantJob(TenantSpec("train", weight=1.0, iterations=iterations,
+                                 n_buckets=n_buckets), make_resnet152())
+    serve = _serving_job(costs, gen_tokens=gen_tokens, n_requests=n_requests,
+                         arrival_gap_s=arrival_gap_s)
+    return tenant_traffic([train, serve]), [train.spec, serve.spec]
+
+
+def traffic_equivalence(costs):
+    """``traffic_study.equivalence_gate``'s scenarios: a fixed-time stream
+    through the IR against ``simulate_requests``, then the 1F1B pipeline, the
+    serving chains and the mixed tenants, each plain, under weighted-fair
+    and with DCN stragglers, on the indexed and reference engines and through
+    ``simulate_batch``. Returns the pairs of results under the study's
+    labels: ``exact`` (the IR against ``simulate_requests``, each batch
+    against indexed) and ``engines`` (indexed against reference)."""
+    from repro_torch.core import simulate_requests
+    from repro_torch.core.batch import Scenario, simulate_batch
+    from repro_torch.core.requests import CollectiveRequest
+    from repro_torch.tenancy import FabricArbiter
+    from repro_torch.topology import make_tpu_pod_topology
+    from repro_torch.traffic import (from_requests, pipeline_traffic, serving_traffic,
+                                     simulate_traffic)
+
+    topo = make_tpu_pod_topology(2, 8, 8)
+    reqs = [CollectiveRequest(["AR", "RS", "AG"][i % 3], (4 + 7 * (i % 5)) * MB,
+                              issue_time=i * 1.1e-4, priority=i % 2, stream=f"s{i % 2}")
+            for i in range(14)]
+    r_plain, _ = simulate_requests(topo, reqs, chunks_per_collective=8)
+    r_graph, _ = simulate_traffic(topo, from_requests(reqs), chunks_per_collective=8)
+    out = {"exact": {"fixed-time-ir-vs-simulate_requests": (r_graph, r_plain)},
+           "engines": {}}
+    graphs = {
+        "pipeline-1f1b": pipeline_traffic(stages=4, microbatches=6, fwd_s=1e-3, bwd_s=2e-3,
+                                          act_bytes=8 * MB, grad_ar_bytes=60 * MB,
+                                          n_grad_buckets=4),
+        "serving-chains": serving_traffic(gen_tokens=12, n_requests=3,
+                                          arrival_gap_s=1.5e-3, **costs)}
+    mixed, specs = _mixed_graph(costs, iterations=2, gen_tokens=8, n_requests=2)
+    graphs["mixed-tenant"] = mixed
+    jit_topo = make_tpu_pod_topology(2, 8, 8, dcn_straggler_sigma=0.4)
+    cases = [("plain", topo, None, 0.0, 0),
+             ("arbiter:weighted-fair", topo, lambda: FabricArbiter("weighted-fair", specs),
+              0.0, 0),
+             ("dcn-straggler", jit_topo, None, 0.05, 3)]
+    for gname, graph in graphs.items():
+        for cname, t, factory, jitter, seed in cases:
+            kw = dict(chunks_per_collective=6, jitter=jitter, seed=seed)
+            ri, _ = simulate_traffic(t, graph, engine="indexed",
+                                     arbiter=factory() if factory else None, **kw)
+            rr, _ = simulate_traffic(t, graph, engine="reference",
+                                     arbiter=factory() if factory else None, **kw)
+            sc = Scenario(t, traffic=graph, chunks_per_collective=6, jitter=jitter,
+                          seed=seed, arbiter_factory=factory)
+            rb = simulate_batch([sc])[0]
+            label = f"{gname}/{cname}"
+            out["engines"][label] = (ri, rr)
+            out["exact"][label + "/batch"] = (rb, ri)
+    return out
+
+
+def traffic_mixed_tenancy(costs):
+    """``traffic_study.mixed_tenancy``: 3 training iterations beside 3
+    serving requests of 32 tokens on a 2 x 8 x 8 pod under fifo,
+    weighted-fair and slo-aware through ``simulate_batch``: decode
+    p50/p95/p99, prefill p99 and the training slowdown."""
+    from repro_torch.core.batch import BatchCaches, Scenario, simulate_batch
+    from repro_torch.core.workloads import make_resnet152
+    from repro_torch.tenancy import FabricArbiter, TenantJob, TenantSpec
+    from repro_torch.topology import make_tpu_pod_topology
+    from repro_torch.traffic import simulate_traffic
+
+    topo = make_tpu_pod_topology(2, 8, 8)
+    iterations, gen_tokens = 3, 32
+    graph, specs = _mixed_graph(costs, iterations=iterations, gen_tokens=gen_tokens,
+                                n_requests=3)
+    train_alone = TenantJob(TenantSpec("train", iterations=iterations, n_buckets=16),
+                            make_resnet152())
+    res_train, _ = simulate_traffic(topo, train_alone.traffic(), chunks_per_collective=16)
+    train_iso = res_train.finish_time()
+    serve_alone = _serving_job(costs, gen_tokens=gen_tokens, n_requests=3,
+                               arrival_gap_s=2e-3)
+    res_serve, _ = simulate_traffic(topo, serve_alone.traffic(), chunks_per_collective=16)
+    decode_iso = res_serve.stream_stats()["serve/decode"]
+    iso_lat = {"serve": decode_iso.latency_mean, "train": train_iso / max(1, iterations)}
+    scenarios = [Scenario(topo, traffic=graph, chunks_per_collective=16,
+                          arbiter_factory=(lambda p=pol: FabricArbiter(
+                              p, specs, isolated_latency=iso_lat)), label=pol)
+                 for pol in ("fifo", "weighted-fair", "slo-aware")]
+    results = simulate_batch(scenarios, caches=BatchCaches())
+    out = {"topology": topo.name, "iterations": iterations, "gen_tokens": gen_tokens,
+           "train_isolated_finish_s": train_iso,
+           "decode_isolated_p99_s": decode_iso.latency_p99, "policies": {}}
+    for sc, res in zip(scenarios, results):
+        dec = res.stream_stats()["serve/decode"]
+        train_fin = res.stream_stats(by="tenant")["train"].finish
+        out["policies"][sc.label] = {
+            "decode_p50_s": dec.latency_p50, "decode_p95_s": dec.latency_p95,
+            "decode_p99_s": dec.latency_p99,
+            "prefill_p99_s": res.stream_stats()["serve/prefill"].latency_p99,
+            "train_finish_s": train_fin, "train_slowdown": train_fin / train_iso}
+    return out
+
+
+def traffic_dcn_jitter(costs):
+    """``traffic_study.dcn_jitter``: the mixed scenario (2 iterations, 2
+    requests of 24 tokens) under weighted-fair with a lognormal straggler
+    sigma of 0, 0.25 and 0.5 on the pod dim, 4 seeds each: decode p99."""
+    from repro_torch.core.batch import BatchCaches, Scenario, simulate_batch
+    from repro_torch.tenancy import FabricArbiter
+    from repro_torch.topology import make_tpu_pod_topology
+
+    sigmas, seeds = (0.0, 0.25, 0.5), range(4)
+    out = {"sigmas": {}}
+    caches = BatchCaches()
+    for sigma in sigmas:
+        topo = make_tpu_pod_topology(2, 8, 8, dcn_straggler_sigma=sigma)
+        graph, specs = _mixed_graph(costs, iterations=2, gen_tokens=24, n_requests=2)
+        scenarios = [Scenario(topo, traffic=graph, chunks_per_collective=8, seed=seed,
+                              arbiter_factory=(lambda: FabricArbiter("weighted-fair", specs)))
+                     for seed in seeds]
+        results = simulate_batch(scenarios, caches=caches)
+        p99s = [r.stream_stats()["serve/decode"].latency_p99 for r in results]
+        fins = [r.finish_time() for r in results]
+        out["sigmas"][str(sigma)] = {"decode_p99_mean_s": sum(p99s) / len(p99s),
+                                     "decode_p99_max_s": max(p99s),
+                                     "finish_mean_s": sum(fins) / len(fins),
+                                     "seeds": len(seeds)}
+    base = out["sigmas"]["0.0"]["decode_p99_mean_s"]
+    worst = out["sigmas"][str(sigmas[-1])]["decode_p99_mean_s"]
+    out["tail_inflation"] = worst / base if base else 0.0
+    return out
+
+
+def _fit_exponent(points):
+    xs = [math.log(n) for n, _ in points]
+    ys = [math.log(s) for _, s in points]
+    mx, my = sum(xs) / len(xs), sum(ys) / len(ys)
+    return (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+            / sum((x - mx) ** 2 for x in xs))
+
+
+def traffic_long_stream(costs, sizes=LONG_STREAM_SIZES):
+    """``traffic_study.long_stream``: the mixed scenario grown to about 1M
+    stage-ops (``sizes`` of (iterations, decode tokens)); at each size the
+    indexed and compiled engines on the same task arrays, timed (best of 3
+    up to 60k stage-ops, else 1; compiled best of 2 or more). The host
+    seconds and their log-log exponent are printed, not gated: a timing fit
+    on a shared host is no correctness check. ``compiled_equal`` is."""
+    from repro_torch.core import simulate
+    from repro_torch.core.batch import BatchCaches, Scenario
+    from repro_torch.topology import make_tpu_pod_topology
+
+    def best(repeat, **kw):
+        out, secs = None, float("inf")
+        for _ in range(repeat):
+            t0 = time.perf_counter()
+            out = simulate(topo, groups, task_arrays=ta, **kw)
+            secs = min(secs, time.perf_counter() - t0)
+        return out, secs
+
+    topo = make_tpu_pod_topology(2, 8, 8)
+    caches = BatchCaches()
+    detail = []
+    for iterations, gen_tokens in sizes:
+        graph, _ = _mixed_graph(costs, iterations=iterations, gen_tokens=gen_tokens,
+                                n_requests=2, arrival_gap_s=1e-3)
+        groups, ta = caches.groups_and_arrays(Scenario(topo, traffic=graph,
+                                                       chunks_per_collective=32))
+        kw = graph.sim_kwargs()
+        repeat = 3 if ta.n_tasks <= 60_000 else 1
+        res, secs = best(repeat, engine="indexed", **kw)
+        equal = not res.diff_fields(simulate(topo, groups, task_arrays=ta,
+                                             engine="compiled", **kw))
+        _, secs_c = best(max(repeat, 2), engine="compiled", **kw)
+        detail.append({"iterations": iterations, "gen_tokens": gen_tokens,
+                       "stage_ops": ta.n_tasks,
+                       "stage_ops_match_groups": ta.n_tasks == sum(
+                           len(c.schedule) for g in groups for c in g),
+                       "makespan_s": res.makespan, "compiled_equal": equal,
+                       "indexed_s": secs, "compiled_s": secs_c,
+                       "compiled_stage_ops_per_sec": ta.n_tasks / secs_c})
+    return {"points": detail,
+            "exponent": _fit_exponent([(p["stage_ops"], p["indexed_s"]) for p in detail]),
+            "compiled_exponent": _fit_exponent([(p["stage_ops"], p["compiled_s"])
+                                                for p in detail]),
+            "compiled_speedup_largest": detail[-1]["indexed_s"] / detail[-1]["compiled_s"],
+            "largest_stage_ops": detail[-1]["stage_ops"]}
+
+
+def phase_traffic(state):
+    """Dependency-gated traffic through the port (host only): the
+    equivalence gate (the IR equals ``simulate_requests`` and the batch
+    equals indexed, exactly; indexed and reference within
+    ``TRAFFIC_ENGINE_RTOL`` on float values and equal on the rest), the mixed
+    tenancy, the DCN jitter and the long stream (compiled equals indexed at
+    every size)."""
+    costs, s_costs = _timed(traffic_costs)
+    equiv, s_equiv = _timed(traffic_equivalence, costs)
+    mixed, s_mixed = _timed(traffic_mixed_tenancy, costs)
+    dcn, s_dcn = _timed(traffic_dcn_jitter, costs)
+    long, s_long = _timed(traffic_long_stream, costs)
+    gaps = {kind: {label: sim_gap(*pair) for label, pair in pairs.items()}
+            for kind, pairs in equiv.items()}
+    del equiv
+    emit(traffic={"simulated": True, "serving_costs": costs,
+                  "equivalence": {kind: {label: {"max_rel_gap": g, "other_fields_differ": f}
+                                         for label, (g, f) in by_label.items()}
+                                  for kind, by_label in gaps.items()},
+                  "indexed_vs_reference_max_rel_gap": max(
+                      g for g, _ in gaps["engines"].values()),
+                  "mixed_tenancy": mixed, "dcn_jitter": dcn, "long_stream": long,
+                  "host_seconds": {"costs": s_costs, "equivalence": s_equiv,
+                                   "mixed_tenancy": s_mixed, "dcn_jitter": s_dcn,
+                                   "long_stream": s_long}})
+    for kind, rtol in (("exact", 0.0), ("engines", TRAFFIC_ENGINE_RTOL)):
+        for label, (gap, fields) in gaps[kind].items():
+            assert not fields and gap <= rtol, (
+                f"traffic equivalence {label}: largest relative gap {gap} "
+                f"(limit {rtol}), other values differ in {fields}")
+    bad = [p["stage_ops"] for p in long["points"]
+           if not (p["compiled_equal"] and p["stage_ops_match_groups"])]
+    assert not bad, f"long stream: compiled differs from indexed at {bad} stage-ops"
 
 
 def _wave_stream(n_requests):

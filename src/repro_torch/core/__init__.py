@@ -6,11 +6,12 @@ engines ``indexed``, ``compiled`` and ``reference``), the Fig. 12
 workload models, the batch runner and the Sec. 6.3 provisioning analysis:
 the port's copies of ``repro/core``, imports aside.  The simulator runs on
 the host, as the reference's does; the compiled engine's wave kernel
-(``engine_compiled.wave_done_times``) runs on the card.  Arguments that
-need a package the port does not carry yet (``arbiter``, ``faults``,
-``replanner``, ``admission``, a scenario's ``traffic``) raise
-``NotImplementedError`` (ROADMAP §1 item 8); the scheduler has no
-``replan_degraded``.
+(``engine_compiled.wave_done_times``) runs on the card.  ``arbiter``
+(``repro_torch.tenancy``), ``faults`` and ``replanner``
+(``repro_torch.faults``) and a scenario's ``traffic``
+(``repro_torch.traffic``) run as in the reference; ``admission`` needs
+``fleet``, which the port does not carry yet, and raises
+``NotImplementedError`` (ROADMAP §1 item 1d).
 """
 from repro_torch.core.chunking import Chunk, coalesce_by_order, schedule_classes, split_equal
 from repro_torch.core.consistency import fix_intra_dim_order, verify_consistent_execution

@@ -37,17 +37,13 @@ agree field-for-field, and scenarios the fast path cannot serve (tracer,
 arbiter, faults) fall back to indexed with the documented signal.
 
 Dependency-gated streams (``Scenario.traffic``, a
-``repro.traffic.TrafficGraph``) ride the same machinery: the scheduling
+``repro_torch.traffic.TrafficGraph``) ride the same machinery: the scheduling
 pass and the vectorized task build are shared per graph family exactly
 like request streams, and dependency resolution stays in the per-scenario
 event loop — so pipeline and serving scenarios batch as cheaply as
 training ones.
 
-This is the port's copy of ``repro/core/batch.py``, imports aside.  It
-leaves out what needs a package the port does not carry yet (ROADMAP §1
-item 8): a scenario with ``traffic`` (``repro.traffic``), ``faults``
-(``repro.faults``) or an ``arbiter_factory`` (``repro.tenancy``) raises
-``NotImplementedError``.
+This is the port's copy of ``repro/core/batch.py``, imports aside.
 """
 from __future__ import annotations
 
@@ -65,7 +61,6 @@ from repro_torch.obs.metrics import current_registry
 from repro_torch.core.simulator import (
     SimResult,
     TaskArrays,
-    _refuse_unported,
     simulate,
     stage_sequence,
     task_arrays_fingerprint,
@@ -82,7 +77,7 @@ class Scenario:
     instance) because arbiters are stateful and each scenario must get a
     fresh one; ``label`` is free-form for reporting.
 
-    ``traffic`` (a :class:`repro.traffic.TrafficGraph`, mutually exclusive
+    ``traffic`` (a :class:`repro_torch.traffic.TrafficGraph`, mutually exclusive
     with ``requests``) runs a *dependency-gated* stream instead of a
     fixed-time one: the scheduling pass walks the graph's estimated-issue
     order and the vectorized task build is reused unchanged, while
@@ -95,7 +90,7 @@ class Scenario:
     (e.g. ``lambda: traces.append(Tracer()) or traces[-1]``) or a closure
     per scenario.
 
-    ``faults`` (a :class:`repro.faults.FaultSchedule`) injects a fault
+    ``faults`` (a :class:`repro_torch.faults.FaultSchedule`) injects a fault
     timeline into this scenario's run; ``replan=True`` additionally arms
     the Themis graceful-degradation hook (re-plans un-issued chunks at
     each BW fault boundary).  Faults are deliberately NOT part of
@@ -123,9 +118,9 @@ class Scenario:
     arbiter_factory: Callable[[], Any] | None = None
     preempt_penalty_s: float | None = None
     label: str = ""
-    traffic: Any | None = None   # repro.traffic.TrafficGraph
+    traffic: Any | None = None   # repro_torch.traffic.TrafficGraph
     tracer_factory: Callable[[], Any] | None = None
-    faults: Any | None = None    # repro.faults.FaultSchedule
+    faults: Any | None = None    # repro_torch.faults.FaultSchedule
     replan: bool = False
     engine: str = "indexed"
 
@@ -152,7 +147,14 @@ def simulate_scenario(scenario: Scenario) -> SimResult:
     ``simulate()`` calls does, and the baseline the fleet benchmark times
     ``simulate_batch`` against."""
     sc = scenario
-    _refuse_unported(traffic=sc.traffic)
+    if sc.traffic is not None:
+        from repro_torch.traffic.engine import schedule_traffic
+
+        groups = schedule_traffic(
+            sc.topology, sc.traffic, policy=sc.policy,
+            chunks_per_collective=sc.chunks_per_collective,
+            water_filling=sc.water_filling)
+        return _run_scenario(sc, groups, None)
     sched = ThemisScheduler(LatencyModel.for_topology(sc.topology), sc.policy)
     groups = sched.schedule_stream(
         sc.requests, sc.chunks_per_collective,
@@ -193,13 +195,22 @@ class BatchCaches:
         got = self._groups.get(key)
         if got is None:
             sched = self._scheduler(sc.topology, sc.policy)
-            _refuse_unported(traffic=sc.traffic)
-            with sched.isolated_run():
-                groups = sched.schedule_stream(
-                    sc.requests, sc.chunks_per_collective,
-                    water_filling=sc.water_filling)
-            pri = [r.priority for r in sc.requests]
-            ten = [r.tenant for r in sc.requests]
+            if sc.traffic is not None:
+                from repro_torch.traffic.engine import schedule_traffic
+
+                groups = schedule_traffic(
+                    sc.topology, sc.traffic, policy=sc.policy,
+                    chunks_per_collective=sc.chunks_per_collective,
+                    water_filling=sc.water_filling, scheduler=sched)
+                pri = [n.priority for n in sc.traffic.nodes]
+                ten = [n.tenant_tag for n in sc.traffic.nodes]
+            else:
+                with sched.isolated_run():
+                    groups = sched.schedule_stream(
+                        sc.requests, sc.chunks_per_collective,
+                        water_filling=sc.water_filling)
+                pri = [r.priority for r in sc.requests]
+                ten = [r.tenant for r in sc.requests]
             ta = self._build_arrays(sc.topology, groups, pri, ten)
             if len(self._groups) >= self._GROUP_CAP:
                 self._groups.pop(next(iter(self._groups)))
@@ -374,18 +385,26 @@ def _run_scenario(sc: Scenario, groups: list[list[Chunk]],
                   ta: TaskArrays) -> SimResult:
     arb = sc.arbiter_factory() if sc.arbiter_factory is not None else None
     trc = sc.tracer_factory() if sc.tracer_factory is not None else None
-    # an arbiter and faults (with or without replan) reach simulate, which
-    # refuses them; traffic was refused before scheduling
+    replanner = None
+    if sc.replan:
+        from repro_torch.faults.replan import make_replanner
+
+        replanner = make_replanner(sc.topology, sc.policy)
+    if sc.traffic is not None:
+        kw = sc.traffic.sim_kwargs()
+    else:
+        kw = dict(
+            issue_times=[r.issue_time for r in sc.requests],
+            priorities=[r.priority for r in sc.requests],
+            tenants=[r.tenant for r in sc.requests],
+            streams=[r.stream for r in sc.requests])
     return simulate(
         sc.topology, groups,
         intra=sc.intra, fusion=sc.fusion, fusion_limit=sc.fusion_limit,
         jitter=sc.jitter, seed=sc.seed,
         arbiter=arb, preempt_penalty_s=sc.preempt_penalty_s,
-        engine=sc.engine, task_arrays=ta, tracer=trc, faults=sc.faults,
-        issue_times=[r.issue_time for r in sc.requests],
-        priorities=[r.priority for r in sc.requests],
-        tenants=[r.tenant for r in sc.requests],
-        streams=[r.stream for r in sc.requests])
+        engine=sc.engine, task_arrays=ta, tracer=trc,
+        faults=sc.faults, replanner=replanner, **kw)
 
 
 def simulate_batch(

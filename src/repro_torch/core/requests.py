@@ -20,7 +20,7 @@ class CollectiveRequest:
     ``stream`` is a free-form tag identifying the issuing stream (e.g.
     "bwd-buckets", "mp-critical-path") used for reporting; ``tenant``
     identifies the job the request belongs to on a shared fabric — the
-    :class:`repro.tenancy.FabricArbiter` arbitrates service between tenants
+    :class:`repro_torch.tenancy.FabricArbiter` arbitrates service between tenants
     and per-tenant metrics aggregate over it.
     """
 

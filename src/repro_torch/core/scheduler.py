@@ -26,9 +26,9 @@ All policies return the same artifact: a list of ``Chunk``s whose
 ``schedule`` is the ordered list of (phase, dim) stage ops.
 
 The port's copy of ``repro/core/scheduler.py`` (it imports nothing from
-``repro``): the same code, without ``replan_degraded``, whose fault model
-(``repro/faults``) the port does not carry. ``tests/test_torch_sched.py``
-holds its chunk orders equal to the reference's.
+``repro``): the same code, imports aside. ``tests/test_torch_sched.py``
+holds its chunk orders equal to the reference's, and
+``tests/test_torch_faults.py`` the orders ``replan_degraded`` gives.
 """
 from __future__ import annotations
 
@@ -87,7 +87,7 @@ class ThemisScheduler:
 
     ``tracker`` may be supplied to share one Dim Load Tracker between
     several scheduler instances — the cross-tenant Themis mode
-    (``repro.tenancy``) gives every tenant's scheduler the same fabric-wide
+    (``repro_torch.tenancy``) gives every tenant's scheduler the same fabric-wide
     tracker so each tenant's chunk orders steer around *other tenants'*
     residual loads, not just their own.
 
@@ -252,6 +252,48 @@ class ThemisScheduler:
                 cache_hit=self._last_hit,
                 num_chunks=len(chunks)))
         return chunks
+
+    def replan_degraded(
+        self,
+        pending: Sequence[tuple[int, float, Sequence[Chunk]]],
+        bw_factors: Sequence[float],
+        *,
+        bw_floor: float = 1e-6,
+    ) -> dict[int, list[Chunk]]:
+        """Graceful-degradation hook: recompute pending chunks' dim orders
+        against post-fault per-dim bandwidth (the fault-injection fabric's
+        re-planning half of the ROADMAP closed-loop item).
+
+        ``pending`` lists not-yet-started request groups as
+        ``(group_id, issue_time, chunks)`` in issue order; ``bw_factors``
+        is the current per-dim BW multiplier vector (0 == fully out,
+        clamped to ``bw_floor``).  The chunk *partition* is preserved —
+        same count, sizes and stage counts per chunk — only the dim orders
+        are recomputed, by this scheduler's policy, on the degraded
+        topology with a fresh load tracker replayed over the pending
+        groups.  Deterministic and RNG-free, so the two engines stay in
+        lockstep.  Returns ``{group_id: replanned chunks}``.
+        """
+        from repro_torch.faults.replan import degraded_topology
+
+        topo = degraded_topology(
+            self.latency_model.topology, bw_factors, floor=bw_floor)
+        sched = ThemisScheduler(LatencyModel.for_topology(topo), self.policy)
+        out: dict[int, list[Chunk]] = {}
+        for group_id, issue_time, chunks in pending:
+            kind = _collective_of(chunks)
+            if kind is None:  # nothing scheduled in this group — skip
+                continue
+            sched.tracker.advance_to(issue_time)
+            sched.tracker.begin_collective(kind)
+            replanned = []
+            for c in chunks:
+                nc = Chunk(c.index, c.size_bytes)
+                if c.schedule:
+                    nc.schedule = sched._schedule_chunk(kind, c.size_bytes)
+                replanned.append(nc)
+            out[group_id] = replanned
+        return out
 
     def _split_and_schedule(
         self,

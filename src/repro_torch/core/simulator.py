@@ -34,11 +34,11 @@ issue time is itself an output of the simulation (Rashidi et al.'s ACE,
 arXiv 2007.00156: compute->comm dependencies determine overlap).  Groups
 with an empty chunk list act as pure compute nodes: they finish at their
 eligibility instant and only exist to gate (and delay) their dependents.
-``repro.traffic`` builds these graphs; ``SimResult.group_issue`` reports
+``repro_torch.traffic`` builds these graphs; ``SimResult.group_issue`` reports
 the *resolved* issue times.
 
 Multi-tenant fabrics plug in through an *arbiter* (duck-typed; see
-``repro.tenancy.FabricArbiter``): when present it replaces the per-dim
+``repro_torch.tenancy.FabricArbiter``): when present it replaces the per-dim
 queue discipline (inter-tenant policies such as weighted-fair or
 strict-priority), batches same-tenant chunks into multi-chunk services,
 and may **preempt** an in-flight multi-chunk service at chunk granularity —
@@ -69,13 +69,12 @@ per-request completion times, and per-dim service logs attributing every
 service interval to the requests it carried.
 
 This is the port's copy of ``repro/core/simulator.py``: the same code,
-imports aside.  It leaves out what needs a package the port does not
-carry yet (ROADMAP §1 item 8): ``simulate`` raises
-``NotImplementedError`` when given an ``arbiter`` (``tenancy``),
-``faults`` or a ``replanner`` (``faults``) or ``admission`` (``fleet``),
-and so do ``simulate_scheduled`` and ``simulate_requests`` for their
-``arbiter`` and ``faults``.  The engines keep those paths as the
-reference has them, for when the packages come.
+imports aside.  ``arbiter`` (``repro_torch.tenancy``), ``faults`` and
+``replanner`` (``repro_torch.faults``) run as in the reference.  Only
+``admission`` needs a package the port does not carry yet (``fleet``,
+ROADMAP §1 item 1d): ``simulate`` raises ``NotImplementedError`` when
+given one.  The engines keep that path as the reference has it, for when
+the package comes.
 """
 from __future__ import annotations
 
@@ -515,9 +514,8 @@ def _resolve_penalty(preempt_penalty_s: float | None, arbiter) -> float:
 
 
 # Arguments that need a package the port does not carry yet (ROADMAP §1
-# item 8), with the package each needs.
-_UNPORTED = {"arbiter": "tenancy", "faults": "faults", "replanner": "faults",
-             "admission": "fleet", "traffic": "traffic"}
+# item 1d), with the package each needs.
+_UNPORTED = {"admission": "fleet"}
 
 
 def _refuse_unported(**given) -> None:
@@ -527,7 +525,7 @@ def _refuse_unported(**given) -> None:
         if value is not None:
             raise NotImplementedError(
                 f"{arg}= needs repro_torch.{_UNPORTED[arg]}, which the port "
-                "does not carry yet (ROADMAP §1 item 8)")
+                "does not carry yet (ROADMAP §1 item 1d)")
 
 
 def _arbiter_indexable(arbiter) -> bool:
@@ -541,9 +539,15 @@ def _arbiter_indexable(arbiter) -> bool:
     remaining hooks (``should_preempt``/``on_served``/...) are invoked on
     both engines, so overriding those stays indexable.
     """
-    # The reference checks for repro.tenancy's FabricArbiter here; the
-    # port refuses every arbiter until it carries tenancy.
-    _refuse_unported(arbiter=arbiter)
+    if getattr(arbiter, "policy", None) not in _INDEXABLE_ARBITER_POLICIES:
+        return False
+    # Lazy import: repro_torch.tenancy depends on repro_torch.core, not vice
+    # versa.  An arbiter of another package (the reference's) is not this
+    # FabricArbiter, so it runs on the reference engine.
+    from repro_torch.tenancy.arbiter import FabricArbiter
+
+    return (isinstance(arbiter, FabricArbiter)
+            and type(arbiter).order_key is FabricArbiter.order_key)
 
 
 def simulate(
@@ -588,7 +592,7 @@ def simulate(
     ``tenants``/``streams``: per-group tags for multi-tenant attribution
         (``SimResult.stream_stats``).
     ``arbiter``: inter-tenant queue discipline + preemption policy (see
-        ``repro.tenancy.FabricArbiter``).  When set it replaces the
+        ``repro_torch.tenancy.FabricArbiter``).  When set it replaces the
         ``intra`` ordering, batches same-tenant chunks into multi-chunk
         services (up to ``arbiter.quantum_chunks``), and — if
         ``arbiter.preemption`` — may split an in-flight service at chunk
@@ -653,7 +657,7 @@ def simulate(
         result is bit-identical to the untraced run; off (default) costs
         one branch per event, same contract as ``check_invariants``.  One
         tracer records exactly one run.
-    ``faults``: a :class:`repro.faults.FaultSchedule` (or a pre-compiled
+    ``faults``: a :class:`repro_torch.faults.FaultSchedule` (or a pre-compiled
         ``CompiledFaults``) injected into either engine as a fourth event
         class.  At each fault boundary the affected dim's effective BW is
         rescaled: an in-flight service is *re-rated* (bytes already drained
@@ -662,7 +666,7 @@ def simulate(
         layer extra lognormal sigma on service times.  A fully-out dim cuts
         its in-flight service at chunk granularity (undrained chunks
         requeue) and queued chunks follow the schedule's
-        :class:`~repro.faults.RetryPolicy`: timeout, exponential backoff
+        :class:`~repro_torch.faults.RetryPolicy`: timeout, exponential backoff
         with jitter drawn from the simulation RNG, and after
         ``max_attempts`` the chunk's whole request group is marked failed
         (``SimResult.failed_groups``; its unserved work is abandoned and
@@ -670,7 +674,7 @@ def simulate(
         (default) is byte-for-byte the fault-free engine.  Mutually
         exclusive with ``enforced_order``.
     ``replanner``: graceful-degradation hook (see
-        :func:`repro.faults.make_replanner`), called at every BW-changing
+        :func:`repro_torch.faults.make_replanner`), called at every BW-changing
         fault boundary with ``(now, factors, pending)`` where ``pending``
         lists the not-yet-started groups; it returns re-planned chunk
         schedules computed against the degraded fabric, which the engine
@@ -690,8 +694,7 @@ def simulate(
         as faults.  ``None`` (default) is byte-for-byte the
         admission-free engine.
     """
-    _refuse_unported(arbiter=arbiter, faults=faults, replanner=replanner,
-                     admission=admission)
+    _refuse_unported(admission=admission)
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; want {ENGINES}")
     n_groups = len(chunk_groups)
@@ -929,7 +932,7 @@ def _simulate_reference(
         task.arrival_seq = next(seq)
         heapq.heappush(events, (t, task.arrival_seq, "ready", task))
 
-    # -- fault injection (repro.faults) --------------------------------------
+    # -- fault injection (repro_torch.faults) --------------------------------------
     # Every fault structure and closure lives behind this one guard; when
     # ``flt`` is None the engine touches none of it (the fault-free path is
     # byte-for-byte the pre-fault engine — no extra seq/RNG consumption).
@@ -1771,7 +1774,7 @@ def _simulate_indexed(
             hh = entry[-1]
             return t_inq[hh] and entry[-2] == t_arr[hh]
 
-    # -- fault injection (repro.faults) --------------------------------------
+    # -- fault injection (repro_torch.faults) --------------------------------------
     # Mirrors the reference engine's fault block event-for-event (same seq
     # and RNG consumption order); when ``flt`` is None none of this state
     # exists and the engine is byte-for-byte the pre-fault engine.
@@ -2480,7 +2483,6 @@ def simulate_scheduled(
     """
     from repro_torch.core.scheduler import schedule_collective
 
-    _refuse_unported(faults=faults)
     if replan and faults is None:
         raise ValueError("replan=True requires faults")
     chunks = schedule_collective(
@@ -2491,9 +2493,14 @@ def simulate_scheduled(
         policy,
         water_filling=water_filling,
     )
+    replanner = None
+    if replan:
+        from repro_torch.faults.replan import make_replanner
+
+        replanner = make_replanner(topology, policy)
     res = simulate(topology, [chunks], intra=intra, fusion=fusion,
                    engine=engine, check_invariants=check_invariants,
-                   tracer=tracer)
+                   tracer=tracer, faults=faults, replanner=replanner)
     return res, chunks
 
 
@@ -2525,7 +2532,7 @@ def simulate_requests(
     ``requests``; ``SimResult.group_issue``/``group_finish`` give each
     request's service window.  For multi-tenant streams this is the
     *shared-tracker* mode (one fabric-wide load view); see
-    ``repro.tenancy.simulate_fabric`` for per-tenant trackers and
+    ``repro_torch.tenancy.simulate_fabric`` for per-tenant trackers and
     inter-tenant arbitration.
 
     ``scheduler`` — the scenario-reuse contract: pass a shared
@@ -2546,7 +2553,6 @@ def simulate_requests(
     """
     from repro_torch.core.scheduler import ThemisScheduler
 
-    _refuse_unported(arbiter=arbiter, faults=faults)
     if replan and faults is None:
         raise ValueError("replan=True requires faults")
     if scheduler is None:
@@ -2563,6 +2569,12 @@ def simulate_requests(
     with sched_ctx as sched:
         groups = sched.schedule_stream(
             requests, chunks_per_collective, water_filling=water_filling)
+    replanner = None
+    if replan:
+        from repro_torch.faults.replan import make_replanner
+
+        replanner = make_replanner(
+            topology, scheduler.policy if scheduler is not None else policy)
     res = simulate(
         topology,
         groups,
@@ -2572,9 +2584,12 @@ def simulate_requests(
         fusion=fusion,
         tenants=[r.tenant for r in requests],
         streams=[r.stream for r in requests],
+        arbiter=arbiter,
         preempt_penalty_s=preempt_penalty_s,
         engine=engine,
         check_invariants=check_invariants,
         tracer=tracer,
+        faults=faults,
+        replanner=replanner,
     )
     return res, groups

@@ -44,7 +44,10 @@ def test_checked_files_cover_every_kernel_and_model_module():
             "ckpt/checkpoint.py", "launch/roofline.py", "core/simulator.py",
             "core/engine_compiled.py", "core/invariants.py", "core/consistency.py",
             "core/insights.py", "core/workloads.py", "core/batch.py",
-            "obs/tracer.py", "obs/timeline.py", "topology/search.py"} <= names
+            "obs/tracer.py", "obs/timeline.py", "topology/search.py",
+            "faults/schedule.py", "faults/replan.py", "traffic/ir.py", "traffic/engine.py",
+            "traffic/builders.py", "tenancy/tenants.py", "tenancy/arbiter.py",
+            "tenancy/elastic.py", "tenancy/metrics.py", "tenancy/fabric.py"} <= names
 
 
 def test_chip_smoke_builds_every_kernel_source():

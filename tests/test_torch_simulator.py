@@ -9,8 +9,8 @@ tenants and streams, dependency gating, enforced orders and the invariant
 sanitizer. No test asserts indexed == reference or "Themis never loses to
 the baseline by more than 10%": the reference itself breaks both (ROADMAP
 R2, R4). Also: Sec. 4.6's consistency helpers, Sec. 6.3's insights, the
-arguments that need a package the port does not carry yet, and the engine
-lint over the port's copy.
+argument that needs a package the port does not carry yet (``admission``),
+and the engine lint over the port's copies of ``core`` and ``tenancy``.
 """
 import dataclasses
 import random
@@ -33,7 +33,6 @@ from repro.topology import make_table2_topologies as j_table2
 from repro.topology import make_tpu_pod_topology as j_tpu_pod
 from repro_torch.core import consistency, insights
 from repro_torch.core import engine_compiled as ec
-from repro_torch.core.batch import Scenario, simulate_batch, simulate_scenario
 from repro_torch.core.invariants import InvariantViolation
 from repro_torch.core.requests import CollectiveRequest
 from repro_torch.core.scheduler import POLICIES, schedule_collective
@@ -304,53 +303,32 @@ def test_argument_errors_match_reference():
 def _unported_calls():
     topo = T_TOPOS["2D-SW_SW"]
     groups = [schedule_collective(topo, "AR", 10 * MB, 4, "themis")]
-    reqs = (CollectiveRequest("AR", 4 * MB),)
     sentinel = object()
     return {
-        "simulate arbiter": (lambda: simulate(topo, groups, arbiter=sentinel), "arbiter",
-                             "tenancy"),
-        "simulate faults": (lambda: simulate(topo, groups, faults=sentinel), "faults",
-                            "faults"),
-        "simulate replanner": (lambda: simulate(topo, groups, replanner=sentinel),
-                               "replanner", "faults"),
         "simulate admission": (lambda: simulate(topo, groups, admission=sentinel,
                                                 deps=[()]), "admission", "fleet"),
-        "simulate compiled arbiter": (lambda: simulate(topo, groups, arbiter=sentinel,
-                                                       engine="compiled"), "arbiter",
-                                      "tenancy"),
-        "simulate_scheduled faults": (lambda: simulate_scheduled(
-            topo, "AR", MB, faults=sentinel, replan=True), "faults", "faults"),
-        "simulate_requests arbiter": (lambda: simulate_requests(
-            topo, list(reqs), arbiter=sentinel), "arbiter", "tenancy"),
-        "simulate_requests faults": (lambda: simulate_requests(
-            topo, list(reqs), faults=sentinel), "faults", "faults"),
-        "scenario traffic": (lambda: simulate_scenario(Scenario(topo, (), traffic=sentinel)),
-                             "traffic", "traffic"),
-        "batch traffic": (lambda: simulate_batch([Scenario(topo, (), traffic=sentinel)]),
-                          "traffic", "traffic"),
-        "scenario faults": (lambda: simulate_scenario(Scenario(topo, reqs, faults=sentinel,
-                                                               replan=True)),
-                            "faults", "faults"),
-        "batch arbiter": (lambda: simulate_batch([Scenario(
-            topo, reqs, arbiter_factory=lambda: sentinel)]), "arbiter", "tenancy"),
     }
 
 
 @pytest.mark.parametrize("case", list(_unported_calls()))
 def test_unported_packages_raise_not_implemented(case):
-    """Every argument that needs ``tenancy``, ``faults``, ``fleet`` or
-    ``traffic`` raises ``NotImplementedError`` naming the argument, the
-    missing package and ROADMAP §1 item 8, before any engine runs."""
+    """``admission`` needs ``fleet``, which the port does not carry yet: it
+    raises ``NotImplementedError`` naming the argument, the missing package
+    and ROADMAP §1 item 1d, before any engine runs. (``arbiter``, ``faults``,
+    ``replanner`` and a scenario's ``traffic`` run, and
+    ``tests/test_torch_{faults,traffic,tenancy}.py`` hold them to the
+    reference.)"""
     call, arg, package = _unported_calls()[case]
     with pytest.raises(NotImplementedError) as err:
         call()
     msg = str(err.value)
     assert msg.startswith(f"{arg}=") and f"repro_torch.{package}" in msg
-    assert "ROADMAP §1 item 8" in msg
+    assert "ROADMAP §1 item 1d" in msg
 
 
 def test_engine_lint_passes_on_the_port_core():
-    """``tools/lint_engine.py`` over ``src/repro_torch/core``: no float
+    """``tools/lint_engine.py`` over ``src/repro_torch/core`` and
+    ``src/repro_torch/tenancy`` (the reference's two default trees): no float
     equality, no wall-clock reads, no unguarded tracer, fault or admission
     calls, no scalar mutation in vector zones."""
     sys.path.insert(0, str(ROOT / "tools"))
@@ -358,4 +336,5 @@ def test_engine_lint_passes_on_the_port_core():
         import lint_engine
     finally:
         sys.path.remove(str(ROOT / "tools"))
-    assert lint_engine.main([str(ROOT / "src" / "repro_torch" / "core")]) == 0
+    assert lint_engine.main([str(ROOT / "src" / "repro_torch" / "core"),
+                             str(ROOT / "src" / "repro_torch" / "tenancy")]) == 0
