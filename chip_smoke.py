@@ -137,7 +137,18 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    serving tenants' decode p50/p95/p99 and prefill p99, the DCN jitter
    sweep, and the long stream up to about 953k stage-ops with the compiled
    engine equal to indexed at each size (``phase_traffic``; its host times
-   and their scaling exponent are printed, not gated);
+   and their scaling exponent are printed, not gated); the four parts of
+   ``benchmarks/fleet_study.py`` at full size through the port's ``fleet``
+   package: calibration on 2D-SW_SW, the knee at 0.5-1.75x saturation
+   with and without admission, four overload scenarios equal across the
+   indexed and reference engines with the sanitizer armed (compiled equal
+   to indexed), and the SLO-debt sweep on three Table-2 topologies, held to
+   the study's gates and to its printed values (``phase_fleet``); the
+   prover of ``verify_study.py`` through the port's ``verify`` package (24
+   decisions in the expected verdict pattern, each refutation replayed
+   identically on both engines) and the sanitizer off and on with
+   identical results on both engines (``phase_verify``; its host-time
+   ratios printed, not gated);
    then the compiled engine's wave kernel (``wave_done_times``, vectorized
    torch) on the card over 20 MB baseline RS requests of 4096 chunks, one
    every 100 us, at 64, 208 and 640 requests (2,621,440 chunks, 3 ranks):
@@ -235,6 +246,35 @@ TENANCY_POLICIES = ("fifo", "strict-priority", "weighted-fair", "slo-aware")
 TENANCY_CHUNKS, PREEMPT_PENALTIES_S = 16, (0.0, 50e-6, 200e-6, 1e-3)
 TRAFFIC_ARCH, TRAFFIC_COSTS = "llama3-8b", dict(batch=4, prompt_len=512, tp=8)
 LONG_STREAM_SIZES = ((10, 150), (30, 450), (80, 1200), (160, 2400))
+# fleet and verify: the scenarios of benchmarks/{fleet,verify}_study.py at
+# their full sizes. One serving request's costs (heavy enough that 2D-SW_SW
+# saturates at a few hundred requests/s), the knee's loads as multiples of the
+# saturation rate, and the study's gates: admission p99 at >= 1.5x within
+# P99_GATE of its at-capacity value, goodput within GOODPUT_GATE of the best
+FLEET_COSTS = dict(prefill_bytes=512e6, decode_bytes=24e6, prefill_s=1e-3, decode_s=1e-4,
+                   prefill_ops=2, gen_tokens=6)
+FLEET_TOPOLOGY, FLEET_LOADS = "2D-SW_SW", (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)
+FLEET_SLO_TOPOLOGIES = ("2D-SW_SW", "3D-SW_SW_SW_homo", "4D-Ring_FC_Ring_SW")
+P99_GATE, GOODPUT_GATE = 3.0, 0.9
+# the studies' simulated values, as they print them (the reference's run on a
+# CPU): phase_fleet holds the port's readings to them digit for digit
+FLEET_READINGS = {
+    "sat_rate_rps": "368", "capacity": 4, "est_service_s": "2.78e-03",
+    "knee_shed": ["0%", "0%", "16%", "27%", "36%", "41%"],
+    "knee_admission_p99_s": ["8.24e-03", "1.05e-02"],
+    "knee_baseline_p99_max_s": "4.83e-02",
+    "differential_shed_groups": [88, 88, 56, 112],
+    "slo_violation_rate": [["0.3", "0.0"], ["0.2", "0.0"], ["0.0", "0.0"]]}
+# (instance, property) pairs the prover must refute; every other one it proves
+VERIFY_EXPECTED_REFUTED = {("wf-rearrival-stale", "bounded_slowdown"),
+                           ("fifo-mixed", "bounded_slowdown")}
+VERIFY_READINGS = {"n_decided": 24, "n_proved": 22, "n_refuted": 2, "replays": 2}
+# the prover's backend: witness evaluation, which decides these instances (the
+# systems are functionally determined) and which the study's recorded run used.
+# Its "auto" picks z3 where z3 is importable; z3's lowering slackens every
+# comparison by 1e-6 s and refutes 15 of the 22 theorems the witnesses prove
+# (ROADMAP §3, R7), so phase_verify prints z3's verdicts beside, ungated
+VERIFY_BACKEND = "native"
 # indexed vs reference on traffic graphs: the reference's own engines sum
 # group_wire_bytes (and, under an arbiter, dim_busy / dim_wire_bytes) in
 # another order and differ by 1-2 ulp (ROADMAP §3, R6); the port's copies too
@@ -289,7 +329,7 @@ def main() -> int:
               phase_hybrid_train_profile, phase_hybrid_train_dots,
               phase_hybrid_train_dots_profile, phase_hybrid_train_card_vs_cpu,
               phase_simulator, phase_faults, phase_tenancy, phase_traffic,
-              phase_wave, phase_times)
+              phase_fleet, phase_verify, phase_wave, phase_times)
     for phase in phases:
         t0 = time.perf_counter()
         try:
@@ -2488,6 +2528,348 @@ def phase_traffic(state):
     assert not bad, f"long stream: compiled differs from indexed at {bad} stage-ops"
 
 
+# -- phase 7c: fleet and verify ---------------------------------------------------
+# The four parts of benchmarks/fleet_study.py and the two of verify_study.py,
+# through the port's fleet and verify packages, without their files. A CPU
+# test holds each function equal to the study's own part.
+
+
+def fleet_unit_metrics(res, unit_of):
+    """``fleet_study._unit_metrics``: each request unit's (tenant, arrival,
+    finish, alive); a shed or failed group kills its unit."""
+    dead = {g for g, _ in res.shed_groups} | {g for g, _ in res.failed_groups}
+    n_units = max(unit_of) + 1 if unit_of else 0
+    arrive, finish = [float("inf")] * n_units, [0.0] * n_units
+    tenant, alive = [""] * n_units, [True] * n_units
+    for g, u in enumerate(unit_of):
+        arrive[u] = min(arrive[u], res.group_issue[g])
+        tenant[u] = res.group_tenants[g]
+        if g in dead:
+            alive[u] = False
+        else:
+            finish[u] = max(finish[u], res.group_finish[g])
+    return [(tenant[u], arrive[u], finish[u], alive[u]) for u in range(n_units)]
+
+
+def _p99(vals):
+    s = sorted(vals)
+    return s[min(len(s) - 1, int(0.99 * len(s)))] if s else 0.0
+
+
+def fleet_calibrate(quick=False):
+    """``fleet_study.calibrate_part``: the saturation rate of a closed batch,
+    then a traced open-loop run at that rate through ``calibrate_admission``."""
+    from repro_torch.fleet import FleetTenant, PoissonArrivals, calibrate_admission, fleet_traffic
+    from repro_torch.obs import BwTimeline, Tracer
+    from repro_torch.topology import make_table2_topologies
+    from repro_torch.traffic import serving_traffic, simulate_traffic
+
+    topo = make_table2_topologies()[FLEET_TOPOLOGY]
+    n = 12 if quick else 24
+    res, _ = simulate_traffic(topo, serving_traffic(name="cal", arrival_times=[0.0] * n,
+                                                    **FLEET_COSTS), engine="indexed")
+    sat_rate = n / res.makespan
+    graph = fleet_traffic([FleetTenant("web", PoissonArrivals(sat_rate, seed=7),
+                                       serving=dict(FLEET_COSTS))],
+                          horizon_s=(8 if quick else 16) / sat_rate)
+    trc = Tracer()
+    simulate_traffic(topo, graph, engine="indexed", tracer=trc)
+    n_req = sum(1 for node in graph.nodes if node.name.endswith("prefill-compute"))
+    # 64 chunks per collective x the request's wire collectives: chunk-stage
+    # queue depth in request units
+    per_unit = 64.0 * (FLEET_COSTS["prefill_ops"] + FLEET_COSTS["gen_tokens"])
+    calib = calibrate_admission(BwTimeline.from_tracer(trc), window_s=res.makespan / n,
+                                n_requests=n_req, target_depth=3.0, chunks_per_unit=per_unit)
+    return {"sat_rate_rps": sat_rate, "closed_makespan_s": res.makespan, **calib}
+
+
+def fleet_overload_run(topo, rate, horizon, *, admission=None, engine="indexed", faults=None):
+    """``fleet_study._overload_run``: one Poisson web tenant at ``rate`` over
+    ``horizon`` with the sanitizer armed and a fresh controller built from
+    the keywords ``admission``; (result, unit of each group)."""
+    from repro_torch.fleet import (AdmissionController, FleetTenant, PoissonArrivals,
+                                   fleet_traffic, unit_of_group)
+    from repro_torch.traffic import simulate_traffic
+
+    graph = fleet_traffic([FleetTenant("web", PoissonArrivals(rate, seed=11),
+                                       serving=dict(FLEET_COSTS))], horizon_s=horizon)
+    unit_of, unit_priority = unit_of_group(graph)
+    ctl = (None if admission is None else
+           AdmissionController(unit_of, unit_priority=unit_priority, **admission))
+    res, _ = simulate_traffic(topo, graph, engine=engine, admission=ctl, faults=faults,
+                              check_invariants=True)
+    return res, unit_of
+
+
+def _fleet_policies(calib):
+    cap, est = int(calib["capacity"]), calib["est_service_s"]
+    return {"reject-newest": dict(policy="reject-newest", capacity=cap),
+            "shed-lowest-priority": dict(policy="shed-lowest-priority", capacity=cap),
+            "deadline-aware": dict(policy="deadline-aware", capacity=cap,
+                                   deadline_s=cap * est, est_service_s=est)}
+
+
+def fleet_knee(calib, quick=False):
+    """``fleet_study.knee_part``: offered load through and past saturation,
+    without admission and under each policy: p99 request latency, goodput
+    and shed rate per point, and the study's three gates (returned, not
+    raised)."""
+    from repro_torch.topology import make_table2_topologies
+
+    topo = make_table2_topologies()[FLEET_TOPOLOGY]
+    sat = calib["sat_rate_rps"]
+    loads = (0.75, 1.0, 1.5) if quick else FLEET_LOADS
+    horizon = (10 if quick else 24) / sat
+    policies = _fleet_policies(calib)
+    points = []
+    for x in loads:
+        pt = {"load_x": x, "rate_rps": x * sat}
+        for name, kw in (("baseline", None), *policies.items()):
+            res, uo = fleet_overload_run(topo, x * sat, horizon, admission=kw)
+            units = fleet_unit_metrics(res, uo)
+            lats = [f - a for _, a, f, alive in units if alive]
+            pt[name] = {"p99_s": _p99(lats), "goodput_rps": len(lats) / res.makespan,
+                        "shed_rate": (sum(1 for u in units if not u[3]) / len(units)
+                                      if units else 0.0)}
+            if kw is None:
+                pt[name]["n_requests"] = len(units)
+        points.append(pt)
+    at_cap = next(p for p in points if abs(p["load_x"] - 1.0) < 1e-9)
+    over = [p for p in points if p["load_x"] >= 1.5]
+    best = max(p["reject-newest"]["goodput_rps"] for p in points)
+    gates = {
+        "p99_bounded": all(p[n]["p99_s"] <= P99_GATE * max(at_cap[n]["p99_s"], 1e-12)
+                           for p in over for n in policies),
+        "baseline_p99_grows": all(p["baseline"]["p99_s"] > at_cap["baseline"]["p99_s"]
+                                  for p in over),
+        "goodput_retained": all(p["reject-newest"]["goodput_rps"] >= GOODPUT_GATE * best
+                                for p in over)}
+    return {"loads": list(loads), "horizon_s": horizon, "points": points, "gates": gates}
+
+
+def fleet_differential(calib, quick=False):
+    """``fleet_study.differential_part``: four overload scenarios at 1.6x
+    saturation (each policy, and reject-newest under a dim outage) on the
+    indexed and reference engines with the sanitizer armed; also on the
+    compiled engine, which falls back to indexed under admission and must
+    equal it."""
+    from repro_torch.faults import DimOutage, FaultSchedule, RetryPolicy
+    from repro_torch.topology import make_table2_topologies
+
+    topo = make_table2_topologies()[FLEET_TOPOLOGY]
+    sat = calib["sat_rate_rps"]
+    horizon = (8 if quick else 16) / sat
+    outage = FaultSchedule(events=(DimOutage(dim=1, start=0.3 * horizon, end=0.45 * horizon),),
+                           retry=RetryPolicy(timeout_s=0.1 * horizon, backoff_s=0.02 * horizon,
+                                             max_attempts=4))
+    policies = _fleet_policies(calib)
+    scenarios = [(name, kw, None) for name, kw in policies.items()]
+    scenarios.append(("overload+outage", policies["reject-newest"], outage))
+    results, compiled_equal = [], []
+    for name, kw, faults in scenarios:
+        res = {eng: fleet_overload_run(topo, 1.6 * sat, horizon, admission=kw, engine=eng,
+                                       faults=faults)[0]
+               for eng in ("indexed", "reference", "compiled")}
+        results.append({"scenario": name, "shed_groups": len(res["indexed"].shed_groups),
+                        "failed_groups": len(res["indexed"].failed_groups),
+                        "identical": not res["indexed"].diff_fields(res["reference"])})
+        compiled_equal.append(not res["indexed"].diff_fields(res["compiled"]))
+    return {"scenarios": results, "all_identical": all(r["identical"] for r in results),
+            "total_shed_groups": sum(r["shed_groups"] for r in results),
+            "compiled_equal_indexed": compiled_equal}
+
+
+def _slo_tenants(sat):
+    """A steady web tenant with a tight SLO against a bursty batch tenant."""
+    from repro_torch.fleet import FleetTenant, MMPPArrivals, PoissonArrivals
+
+    period = 4.0 / sat
+    return [FleetTenant("web", PoissonArrivals(0.45 * sat, seed=3), serving=dict(FLEET_COSTS),
+                        weight=1.0, slo_slowdown=2.5),
+            FleetTenant("batch", MMPPArrivals((0.1 * sat, 1.4 * sat), (period, period), seed=4),
+                        serving=dict(FLEET_COSTS), weight=1.0)]
+
+
+def fleet_slo_debt(quick=False):
+    """``fleet_study.slo_debt_part``: on each of ``FLEET_SLO_TOPOLOGIES``,
+    the worst tenant's SLO-violation rate under ``SloDebtArbiter`` against
+    the instantaneous slo-aware policy; ``wins`` counts where the debted
+    controller is no worse, ``needed`` is the study's gate."""
+    from repro_torch.fleet import fleet_tenant_specs, fleet_traffic, unit_of_group
+    from repro_torch.tenancy import FabricArbiter, SloDebtArbiter
+    from repro_torch.topology import make_table2_topologies
+    from repro_torch.traffic import serving_traffic, simulate_traffic
+
+    topos = make_table2_topologies()
+    names = FLEET_SLO_TOPOLOGIES[:2] if quick else FLEET_SLO_TOPOLOGIES
+    results, wins = [], 0
+    for tn in names:
+        topo = topos[tn]
+        res8, _ = simulate_traffic(topo, serving_traffic(name="web", arrival_times=[0.0] * 8,
+                                                         **FLEET_COSTS), engine="indexed")
+        sat = 8 / res8.makespan
+        res1, _ = simulate_traffic(topo, serving_traffic(name="web", arrival_times=[0.0],
+                                                         **FLEET_COSTS), engine="indexed")
+        iso_unit = res1.makespan
+        tenants = _slo_tenants(sat)
+        graph = fleet_traffic(tenants, horizon_s=(12 if quick else 24) / sat)
+        uo, _ = unit_of_group(graph)
+        specs = fleet_tenant_specs(tenants)
+        # the arbiter's slowdowns are per group, the score's per request unit
+        iso_group = {"web": iso_unit / (2 + FLEET_COSTS["gen_tokens"])}
+        rates = {}
+        for label, arb in (
+                ("slo-aware", FabricArbiter("slo-aware", specs, isolated_latency=iso_group)),
+                ("slo-debt", SloDebtArbiter(specs, isolated_latency=iso_group,
+                                            horizon_s=6.0 / sat, gain=2.0, alpha=0.4))):
+            res, _ = simulate_traffic(topo, graph, engine="indexed", arbiter=arb,
+                                      check_invariants=True)
+            slow = [(f - a) / iso_unit for t, a, f, alive in fleet_unit_metrics(res, uo)
+                    if alive and t == "web"]
+            rates[label] = sum(1 for s in slow if s > 2.5) / len(slow) if slow else 0.0
+        win = rates["slo-debt"] <= rates["slo-aware"] + 1e-12
+        wins += win
+        results.append({"topology": tn, "sat_rate_rps": sat, "violation_rate": rates,
+                        "debt_no_worse": win})
+    return {"topologies": results, "wins": wins,
+            "needed": 2 if len(names) >= 3 else len(names) - 1}
+
+
+def fleet_readings(calib, knee, diff, slo):
+    """The values the study prints, as it prints them (``FLEET_READINGS``)."""
+    adm = [p["reject-newest"]["p99_s"] for p in knee["points"]]
+    return {
+        "sat_rate_rps": f"{calib['sat_rate_rps']:.0f}", "capacity": calib["capacity"],
+        "est_service_s": f"{calib['est_service_s']:.2e}",
+        "knee_shed": [f"{p['reject-newest']['shed_rate']:.0%}" for p in knee["points"]],
+        "knee_admission_p99_s": [f"{min(adm):.2e}", f"{max(adm):.2e}"],
+        "knee_baseline_p99_max_s": f"{max(p['baseline']['p99_s'] for p in knee['points']):.2e}",
+        "differential_shed_groups": [r["shed_groups"] for r in diff["scenarios"]],
+        "slo_violation_rate": [[f"{t['violation_rate'][k]:.1f}" for k in ("slo-aware", "slo-debt")]
+                               for t in slo["topologies"]]}
+
+
+def phase_fleet(state):
+    """Open-loop overload and admission control through the port (host
+    only): calibration, the knee, the engines under overload and the SLO-debt
+    sweep at the study's full sizes, held to the study's gates and to its
+    printed values (``FLEET_READINGS``)."""
+    calib, s_cal = _timed(fleet_calibrate)
+    knee, s_knee = _timed(fleet_knee, calib)
+    diff, s_diff = _timed(fleet_differential, calib)
+    slo, s_slo = _timed(fleet_slo_debt)
+    readings = fleet_readings(calib, knee, diff, slo)
+    emit(fleet={"simulated": True, "calibrate": calib, "knee": knee, "differential": diff,
+                "slo_debt": slo, "readings": readings,
+                "host_seconds": {"calibrate": s_cal, "knee": s_knee, "differential": s_diff,
+                                 "slo_debt": s_slo}})
+    assert all(knee["gates"].values()), f"fleet knee gates failed: {knee['gates']}"
+    bad = [r["scenario"] for r in diff["scenarios"] if not r["identical"]]
+    assert not bad, f"indexed and reference differ under overload in {bad}"
+    assert all(diff["compiled_equal_indexed"]), (
+        f"compiled differs from indexed under overload: {diff['compiled_equal_indexed']}")
+    assert diff["total_shed_groups"] > 0, "the overload never engaged the controller"
+    assert slo["wins"] >= slo["needed"], (
+        f"slo-debt no worse on {slo['wins']} of {len(slo['topologies'])} topologies")
+    wrong = {k: (readings[k], v) for k, v in FLEET_READINGS.items() if readings[k] != v}
+    assert not wrong, f"fleet readings differ from the study's (got, want): {wrong}"
+
+
+def verify_prover(quick=False):
+    """``verify_study.prover_part``: ``verify_suite`` over the default
+    instances with the ``VERIFY_BACKEND`` backend; (report, the pairs whose verdict is not the expected one,
+    the refutations without a bit-identical replay)."""
+    from repro_torch.verify import verify_suite
+
+    rep = verify_suite(quick=quick, backend=VERIFY_BACKEND)
+    flipped, unreplayed = [], []
+    for v in rep["verdicts"]:
+        key = (v["instance"], v["property"])
+        if v["status"] != ("refuted" if key in VERIFY_EXPECTED_REFUTED else "proved"):
+            flipped.append(key)
+        if v["status"] == "refuted" and not (
+                v["replays"] and all(r["engines_bit_identical"] for r in v["replays"])):
+            unreplayed.append(key)
+    return rep, flipped, unreplayed
+
+
+def verify_z3():
+    """Where z3 is importable: its version and the pairs whose verdict under
+    the z3 backend differs from ``VERIFY_BACKEND``'s (no replays); else
+    None."""
+    from repro_torch.verify import verify_suite, z3_available
+
+    if not z3_available():
+        return None
+    import z3
+
+    want = {(v["instance"], v["property"]): v["status"]
+            for v in verify_suite(backend=VERIFY_BACKEND, replay=False)["verdicts"]}
+    got = verify_suite(backend="z3", replay=False)
+    return {"version": z3.get_version_string(), "n_proved": got["n_proved"],
+            "n_refuted": got["n_refuted"],
+            "differ": [[v["instance"], v["property"], v["status"]] for v in got["verdicts"]
+                       if v["status"] != want[(v["instance"], v["property"])]]}
+
+
+def verify_sanitizer(quick=False):
+    """``verify_study.sanitizer_part``: a pinned two-tenant preemption
+    stream under weighted-fair on both engines with ``check_invariants`` off
+    and on, best of 5 (3 quick): host seconds, their ratio and whether the
+    results are identical."""
+    from repro_torch.core import simulate_requests
+    from repro_torch.core.requests import CollectiveRequest
+    from repro_torch.tenancy import FabricArbiter, TenantSpec
+    from repro_torch.topology import make_table2_topologies
+
+    topo = make_table2_topologies()["2D-SW_SW"]
+    specs = [TenantSpec("heavy", weight=1.0), TenantSpec("light", weight=4.0, priority=5)]
+    reqs = [CollectiveRequest("AR", (200.0 if i % 4 == 0 else 4.0) * MB, issue_time=i * 2e-4,
+                              tenant="heavy" if i % 4 == 0 else "light")
+            for i in range(24 if quick else 64)]
+
+    def best(eng, check):
+        out, secs = None, float("inf")
+        for _ in range(3 if quick else 5):
+            arb = FabricArbiter("weighted-fair", specs, quantum_chunks=8, preemption=True)
+            t0 = time.perf_counter()
+            out, _ = simulate_requests(topo, reqs, chunks_per_collective=16, arbiter=arb,
+                                       engine=eng, check_invariants=check)
+            secs = min(secs, time.perf_counter() - t0)
+        return out, secs
+
+    out = {}
+    for eng in ("indexed", "reference"):
+        (res_off, t_off), (res_on, t_on) = best(eng, False), best(eng, True)
+        out[eng] = {"off_s": t_off, "on_s": t_on, "on_over_off": t_on / t_off,
+                    "results_identical": not res_off.diff_fields(res_on)}
+    return out
+
+
+def phase_verify(state):
+    """The prover and the sanitizer through the port (host only): under
+    ``VERIFY_BACKEND``, the verdict pattern of ``verify_study.py``
+    (``VERIFY_EXPECTED_REFUTED`` refuted, the rest proved, each refutation
+    replayed identically on both engines, the counts of
+    ``VERIFY_READINGS``), and the sanitizer off and on giving identical
+    results on both engines (its host-time ratios printed, not gated);
+    where z3 is importable, its verdicts (printed, not gated: R7)."""
+    (rep, flipped, unreplayed), s_prover = _timed(verify_prover)
+    sanitizer, s_san = _timed(verify_sanitizer)
+    z3_verdicts, s_z3 = _timed(verify_z3)
+    readings = {"n_decided": rep["n_decided"], "n_proved": rep["n_proved"],
+                "n_refuted": rep["n_refuted"],
+                "replays": sum(len(v["replays"]) for v in rep["verdicts"])}
+    emit(verify={"simulated": True, "backend": VERIFY_BACKEND, "prover": rep,
+                 "readings": readings, "sanitizer": sanitizer, "z3": z3_verdicts,
+                 "host_seconds": {"prover": s_prover, "sanitizer": s_san, "z3": s_z3}})
+    assert not flipped, f"verdicts differ from the expected pattern: {flipped}"
+    assert not unreplayed, f"refutations without an identical replay: {unreplayed}"
+    assert readings == VERIFY_READINGS, f"prover readings {readings}, want {VERIFY_READINGS}"
+    bad = [eng for eng, r in sanitizer.items() if not r["results_identical"]]
+    assert not bad, f"check_invariants changed the results of {bad}"
+
+
 def _wave_stream(n_requests):
     """The wave stream's chunk groups and issue times: ``n_requests``
     requests of one baseline RS schedule, each chunk a group of its own."""
@@ -2564,6 +2946,7 @@ def phase_wave(state):
     assert launches == len(WAVE_REQUESTS) + 1, launches
     n = WAVE_REQUESTS[0]
     topo, groups, issue = _wave_stream(n)
+    ec.reset_fallbacks()  # earlier phases run compiled under faults and admission
     t0 = time.perf_counter()
     res = simulate(topo, groups, engine="compiled", issue_times=issue, fusion=False)
     host_s = time.perf_counter() - t0

@@ -8,10 +8,9 @@ the port's copies of ``repro/core``, imports aside.  The simulator runs on
 the host, as the reference's does; the compiled engine's wave kernel
 (``engine_compiled.wave_done_times``) runs on the card.  ``arbiter``
 (``repro_torch.tenancy``), ``faults`` and ``replanner``
-(``repro_torch.faults``) and a scenario's ``traffic``
-(``repro_torch.traffic``) run as in the reference; ``admission`` needs
-``fleet``, which the port does not carry yet, and raises
-``NotImplementedError`` (ROADMAP §1 item 1d).
+(``repro_torch.faults``), a scenario's ``traffic``
+(``repro_torch.traffic``) and ``admission`` (``repro_torch.fleet``) run as
+in the reference.
 """
 from repro_torch.core.chunking import Chunk, coalesce_by_order, schedule_classes, split_equal
 from repro_torch.core.consistency import fix_intra_dim_order, verify_consistent_execution

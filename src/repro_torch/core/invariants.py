@@ -3,7 +3,7 @@
 ``simulate(..., check_invariants=True)`` arms these checks inside the
 event loop of *both* engines (indexed and reference), asserting the same
 conservation / ordering / work-conservation theorems the offline SMT
-prover (``repro.verify``) states over small instances — so the formal
+prover (``repro_torch.verify``) states over small instances — so the formal
 model and the implementation are checked against each other, not just
 against our intentions:
 
@@ -111,7 +111,7 @@ def check_final(
     conservation theorem holds across re-rating, aborts and retries).
 
     ``shed`` — the groups the admission controller shed (demand-side
-    losses, ``repro.fleet``).  Same exemptions as ``failed``, plus the
+    losses, ``repro_torch.fleet``).  Same exemptions as ``failed``, plus the
     progress checks: a shed group's stale ``group_finish`` entry is its
     static issue time, which can sit on either side of the makespan (a
     late-arriving request shed on arrival never advances the clock).

@@ -70,11 +70,8 @@ service interval to the requests it carried.
 
 This is the port's copy of ``repro/core/simulator.py``: the same code,
 imports aside.  ``arbiter`` (``repro_torch.tenancy``), ``faults`` and
-``replanner`` (``repro_torch.faults``) run as in the reference.  Only
-``admission`` needs a package the port does not carry yet (``fleet``,
-ROADMAP §1 item 1d): ``simulate`` raises ``NotImplementedError`` when
-given one.  The engines keep that path as the reference has it, for when
-the package comes.
+``replanner`` (``repro_torch.faults``) and ``admission``
+(``repro_torch.fleet``) run as in the reference.
 """
 from __future__ import annotations
 
@@ -513,21 +510,6 @@ def _resolve_penalty(preempt_penalty_s: float | None, arbiter) -> float:
     return preempt_penalty_s
 
 
-# Arguments that need a package the port does not carry yet (ROADMAP §1
-# item 1d), with the package each needs.
-_UNPORTED = {"admission": "fleet"}
-
-
-def _refuse_unported(**given) -> None:
-    """Raise ``NotImplementedError`` for the first argument of ``given``
-    that is set: each needs a package the port does not carry yet."""
-    for arg, value in given.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{arg}= needs repro_torch.{_UNPORTED[arg]}, which the port "
-                "does not carry yet (ROADMAP §1 item 1d)")
-
-
 def _arbiter_indexable(arbiter) -> bool:
     """Can the indexed engine replicate this arbiter's queue ordering?
 
@@ -680,7 +662,7 @@ def simulate(
         schedules computed against the degraded fabric, which the engine
         applies to those groups' un-issued work.  Requires ``faults``.
     ``admission``: an admission controller / load shedder (see
-        :class:`repro.fleet.AdmissionController`) consulted at each
+        :class:`repro_torch.fleet.AdmissionController`) consulted at each
         group's *first* ready event.  A shed group's queued chunks are
         purged, its unstarted work never issues, and dependents it gates
         are shed with it (shedding a request unit drops the whole unit);
@@ -694,7 +676,6 @@ def simulate(
         as faults.  ``None`` (default) is byte-for-byte the
         admission-free engine.
     """
-    _refuse_unported(admission=admission)
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; want {ENGINES}")
     n_groups = len(chunk_groups)
@@ -1183,7 +1164,7 @@ def _simulate_reference(
             heapq.heappush(events, (flt_bounds[bi].t, next(seq),
                                     "fault", bi))
 
-    # -- admission control / load shedding (repro.fleet) ---------------------
+    # -- admission control / load shedding (repro_torch.fleet) ---------------
     # The controller is consulted at each group's *first* ready pop — ready
     # pops are time-ordered and identical across engines, and the controller
     # consumes no seq/RNG, so shed sets are bit-identical by construction.
@@ -2004,7 +1985,7 @@ def _simulate_indexed(
         for bi in range(len(flt_bounds)):
             heapq.heappush(events, (flt_bounds[bi].t, next(seq), 3, bi))
 
-    # -- admission control / load shedding (repro.fleet) ---------------------
+    # -- admission control / load shedding (repro_torch.fleet) ---------------
     # Mirror of the reference engine's admission block (same call sites,
     # same event order; the controller consumes no seq/RNG).  Shed purges
     # flip ``t_inq`` (lazy heap deletion) instead of filtering queue lists.

@@ -38,7 +38,7 @@ recent service — and an arriving task raises its tenant's virtual time to
 that floor (``on_enqueued``).  For continuously backlogged tenants the
 clamp is a no-op (a backlogged tenant's clock is never behind the start
 tag of a service that beat it), so only idle→busy transitions are
-affected.  ``repro.verify`` proves the bounded-slowdown property with the
+affected.  ``repro_torch.verify`` proves the bounded-slowdown property with the
 clamp on and extracts the monopolization counterexample with it off.
 """
 from __future__ import annotations
@@ -70,7 +70,7 @@ class FabricArbiter:
 
     ``vt_clamp`` enables the fair-policy virtual-time floor clamp (see the
     module docstring); turn it off only to reproduce the pre-fix staleness
-    behavior (the ``repro.verify`` counterexamples pin it).
+    behavior (the ``repro_torch.verify`` counterexamples pin it).
     """
 
     def __init__(
@@ -242,7 +242,7 @@ class FabricArbiter:
 
     def discipline_state(self) -> dict:
         """Structured snapshot of the discipline's internal state — what the
-        SMT encoder (``repro.verify.encode``) mirrors and the sanitizer
+        SMT encoder (``repro_torch.verify.encode``) mirrors and the sanitizer
         cross-checks.  Keys are JSON-friendly (tuple keys stringified)."""
         return {
             "policy": self.policy,

@@ -231,7 +231,7 @@ def serving_traffic(
 
     ``arrival_times`` switches the fixed-gap arrival grid to an explicit
     per-request timestamp list (the open-loop fleet path: seeded arrival
-    processes from ``repro.fleet`` hand their draws in here).  When
+    processes from ``repro_torch.fleet`` hand their draws in here).  When
     given, it overrides ``n_requests``/``arrival_gap_s``/``start_s``.
     """
     if arrival_times is not None:

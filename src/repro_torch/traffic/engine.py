@@ -106,12 +106,10 @@ def simulate_traffic(
     timeline; ``replan=True`` additionally arms Themis graceful
     degradation (re-plan un-issued chunks at each BW fault boundary).
 
-    ``admission`` (a :class:`repro.fleet.AdmissionController`) puts an
+    ``admission`` (a :class:`repro_torch.fleet.AdmissionController`) puts an
     admission/shedding gate in front of the engines — shed requests land
     in ``SimResult.shed_groups`` (traffic graphs always carry deps, the
-    admission prerequisite).  The port does not carry ``fleet`` yet, so
-    its ``simulate`` raises ``NotImplementedError`` for one (ROADMAP §1
-    item 1d).
+    admission prerequisite).
 
     The returned ``SimResult`` is indexed like ``graph.nodes``:
     ``group_issue`` holds each node's *resolved* issue time, so

@@ -1,5 +1,6 @@
 """The reference (``repro``) and the port (``repro_torch``) side by side, for
-the tests of the port's ``faults``, ``traffic`` and ``tenancy`` packages.
+the tests of the port's ``faults``, ``traffic``, ``tenancy``, ``fleet`` and
+``verify`` packages.
 
 ``REF`` and ``PORT`` carry the same names, each from its own package, so a
 test builds one scenario twice from the same numbers with ``make(ns)`` and
@@ -34,6 +35,18 @@ _NAMES = {
     "topology": ("make_table2_topologies", "make_tpu_pod_topology"),
     "obs": ("Tracer", "BwTimeline"),
     "obs.tracer": ("parse_chrome_trace",),
+    "fleet": ("ADMISSION_POLICIES", "AdmissionController", "ArrivalProcess",
+              "DiurnalArrivals", "FleetTenant", "MMPPArrivals", "PoissonArrivals",
+              "TraceArrivals", "calibrate_admission", "fleet_tenant_specs",
+              "fleet_traffic", "unit_of_group"),
+    "verify": ("ALL_PROPERTIES", "Encoding", "FabricInstance", "FreeVar", "Property",
+               "PropertyVerdict", "TraceRecorder", "decide_property", "default_instances",
+               "encode_assignment", "replay_counterexample", "solve_encoding",
+               "validate_encoding", "verify_suite", "z3_available"),
+    "verify.encode": ("RequestTemplate",),
+    "verify.properties": ("bounded_slowdown",),
+    "verify.smt": ("Abs", "And", "Const", "Implies", "Max", "Min", "Not", "Var",
+                   "evaluate", "free_vars"),
 }
 
 

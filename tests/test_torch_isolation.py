@@ -47,7 +47,9 @@ def test_checked_files_cover_every_kernel_and_model_module():
             "obs/tracer.py", "obs/timeline.py", "topology/search.py",
             "faults/schedule.py", "faults/replan.py", "traffic/ir.py", "traffic/engine.py",
             "traffic/builders.py", "tenancy/tenants.py", "tenancy/arbiter.py",
-            "tenancy/elastic.py", "tenancy/metrics.py", "tenancy/fabric.py"} <= names
+            "tenancy/elastic.py", "tenancy/metrics.py", "tenancy/fabric.py",
+            "fleet/arrivals.py", "fleet/admission.py", "verify/smt.py", "verify/encode.py",
+            "verify/properties.py", "verify/harness.py"} <= names
 
 
 def test_chip_smoke_builds_every_kernel_source():

@@ -8,9 +8,9 @@ fusion on and off, staggered issue times, priorities, seeded jitter,
 tenants and streams, dependency gating, enforced orders and the invariant
 sanitizer. No test asserts indexed == reference or "Themis never loses to
 the baseline by more than 10%": the reference itself breaks both (ROADMAP
-R2, R4). Also: Sec. 4.6's consistency helpers, Sec. 6.3's insights, the
-argument that needs a package the port does not carry yet (``admission``),
-and the engine lint over the port's copies of ``core`` and ``tenancy``.
+R2, R4). Also: admission control (``repro_torch.fleet``) on each engine,
+Sec. 4.6's consistency helpers, Sec. 6.3's insights, and the engine lint
+over the port's copies of ``core`` and ``tenancy``.
 """
 import dataclasses
 import random
@@ -300,30 +300,50 @@ def test_argument_errors_match_reference():
         assert str(got.value) == str(want.value)
 
 
-def _unported_calls():
-    topo = T_TOPOS["2D-SW_SW"]
-    groups = [schedule_collective(topo, "AR", 10 * MB, 4, "themis")]
-    sentinel = object()
-    return {
-        "simulate admission": (lambda: simulate(topo, groups, admission=sentinel,
-                                                deps=[()]), "admission", "fleet"),
-    }
+@pytest.mark.parametrize("engine", ENGINES)
+def test_admission_equals_reference_engine(engine):
+    """``admission`` (``repro_torch.fleet.AdmissionController``, one per run
+    and package) on random request chains under each policy: the shed
+    groups and every other field equal the same reference engine's, and so
+    do the controllers' books; the compiled engine falls back to indexed,
+    as the reference's does."""
+    from types import SimpleNamespace
 
+    from repro.fleet import AdmissionController as JAdmission
+    from repro.fleet import unit_of_group as j_unit_of_group
+    from repro_torch.fleet import ADMISSION_POLICIES, AdmissionController, unit_of_group
 
-@pytest.mark.parametrize("case", list(_unported_calls()))
-def test_unported_packages_raise_not_implemented(case):
-    """``admission`` needs ``fleet``, which the port does not carry yet: it
-    raises ``NotImplementedError`` naming the argument, the missing package
-    and ROADMAP §1 item 1d, before any engine runs. (``arbiter``, ``faults``,
-    ``replanner`` and a scenario's ``traffic`` run, and
-    ``tests/test_torch_{faults,traffic,tenancy}.py`` hold them to the
-    reference.)"""
-    call, arg, package = _unported_calls()[case]
-    with pytest.raises(NotImplementedError) as err:
-        call()
-    msg = str(err.value)
-    assert msg.startswith(f"{arg}=") and f"repro_torch.{package}" in msg
-    assert "ROADMAP §1 item 1d" in msg
+    rng = random.Random(900 + ENGINES.index(engine))
+    name = "2D-SW_SW"
+    for policy in ADMISSION_POLICIES:
+        # 10 request chains of two collectives, the second gated on the first
+        j_groups, groups, deps, issue = [], [], [], []
+        for i in range(20):
+            coll, size = rng.choice(("AR", "RS", "AG")), rng.uniform(1, 40) * MB
+            j_groups.append(j_schedule(J_TOPOS[name], coll, size, 6, "themis"))
+            groups.append(schedule_collective(T_TOPOS[name], coll, size, 6, "themis"))
+            deps.append((i - 1,) if i % 2 else ())
+            issue.append(0.0 if i % 2 else rng.uniform(0, 1e-3))
+        kw = dict(deps=deps, dep_delay_s=[1e-5] * 20, issue_times=issue)
+        # the units are the chains; unit_of_group reads only these fields
+        graph = SimpleNamespace(deps_idx=deps, nodes=[
+            SimpleNamespace(request="r", priority=rng.choice((0, 1, 2))) for _ in groups])
+        unit_of, unit_priority = unit_of_group(graph)
+        assert (unit_of, unit_priority) == j_unit_of_group(graph)
+        ctl_kw = dict(policy=policy, capacity=1, unit_priority=unit_priority)
+        if policy == "deadline-aware":
+            ctl_kw.update(deadline_s=2e-4, est_service_s=2e-4)
+        j_ctl, ctl = JAdmission(unit_of, **ctl_kw), AdmissionController(unit_of, **ctl_kw)
+        want = j_simulate(J_TOPOS[name], j_groups, engine=engine, admission=j_ctl,
+                          check_invariants=True, **kw)
+        got = simulate(T_TOPOS[name], groups, engine=engine, admission=ctl,
+                       check_invariants=True, **kw)
+        _same(got, want)
+        assert got.shed_groups == want.shed_groups and got.shed_groups, policy
+        assert (ctl.n_admitted, ctl.n_shed, ctl.shed_units) == (
+            j_ctl.n_admitted, j_ctl.n_shed, j_ctl.shed_units)
+        if engine == "compiled":
+            assert ec.LAST_FALLBACK == "admission"
 
 
 def test_engine_lint_passes_on_the_port_core():
