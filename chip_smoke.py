@@ -21,7 +21,9 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    bf16 within 2e-2, the LSE within 2e-5, the scan within 1e-5
    (``tests/test_kernels.py``), at the tests' shapes, at non-causal shapes
    with T != S, on strided views (sm90 route) and at the serving and
-   training shapes of both paths, each check naming its route; K3's
+   training shapes of every path (whisper's non-causal encoder over 1500
+   frames and cross-attention with T != S among them; K2 at widths 1024
+   and 4096 too), each check naming its route; K3's
    backward against ``rglru_scan_backward_plain`` within the scan's 1e-5,
    with and without h0, at the tests' shapes and at the hybrid's training
    shape (2, 4096, 2560); K3 and its backward also equal to the bit to
@@ -72,6 +74,27 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    layers (63.1 GB in fp32; all 88 would take 135.8 GB): the same prefill
    and decode with launch counts (K1 48 and 40 per prefill, all sm90),
    teacher forcing and the reduced config card vs CPU;
+   then the MoE, VLM, audio and SSM families at their published widths
+   through the same entry points, each with launch counts per step,
+   the peak memory, teacher forcing and its reduced config card vs CPU:
+   deepseek-moe-16b whole (28 layers, 64 experts top 6 and 2 shared; 16.88
+   B params, 67.5 GB in fp32; K1 28 / K2 57 per prefill, all sm90) with the
+   share of assignments its capacity factor of 1.25 drops and the expert
+   bytes a decode step reads; qwen3-moe-235b-a22b (128 experts top 8, 64 q
+   heads on 4 kv heads: a GQA group of 16; bf16 params) cut to 12 of its
+   94 layers (62.2 GB); both checked against teacher forcing at a
+   capacity factor of E/k, where nothing drops, the decode step routed to
+   the forward's experts, at batch 1, with bf16 and fp32 activations
+   (3e-2), and card vs CPU in fp32 (bf16 routing near-ties); internvl2-26b's backbone (a GQA group of 6) cut to
+   36 of its 48 layers (60.7 GB), 256 stub patches in front of 4 x 512
+   tokens,
+   decoding at 256 + 512 + i; whisper-medium whole (24 + 24 layers, head
+   dim 64), 1500 stub frames and 4 x 432 tokens: K1 72 per prefill (24
+   non-causal encoder, 24 non-causal cross-attention with S 432 and T
+   1500, 24 causal self-attention; all sm90, tallied by shape), K2 122 per
+   prefill and 73 per decode step; xlstm-1.3b whole (48 blocks, 4 x 2048
+   tokens: 8 mLSTM chunks and 12,288 sLSTM steps), no K1, K2 97 per step,
+   checked against teacher forcing in bf16 (1e-1) and fp32 (3e-2);
 5. train qwen2.5-3b at its published width and depth (36 layers, d_model
    2048, vocab 151936, tied embeddings, 3.09 B params in fp32, bf16
    activations, remat "full"; random weights from a seed) through
@@ -168,7 +191,10 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    training path ran before them: the plain recompute at qwen2.5-3b's
    shape, the SIMT kernel at head dim 256), the library's backward and
    their bounds; K3 and its backward at (2, 4096, 2560); K1 and K2 at the
-   prefills of qwen2.5-14b and granite-34b; and each training step's floor
+   prefills of qwen2.5-14b, granite-34b, deepseek-moe-16b, qwen3-moe,
+   internvl2-26b and whisper-medium (its three attention shapes, the two
+   non-causal ones against SDPA with ``is_causal=False``), K2 at
+   xlstm-1.3b's (4, 2048, 4096); and each training step's floor
    (its FLOPs at the bf16 peak) and ``model_flops_6nd`` share beside the
    measured step time.
 
@@ -219,6 +245,44 @@ QWEN14B_ATTN = (BATCH, PROMPT, QWEN14B["h"], QWEN14B["kv"], QWEN14B["d"],
                 PROMPT + GEN, 0)
 GRANITE_ATTN = (BATCH, PROMPT, GRANITE_D["h"], GRANITE_D["kv"], GRANITE_D["d"],
                 PROMPT + GEN, 0)
+# the MoE, VLM, audio and SSM families served at full width: deepseek-moe-16b
+# at its published depth (16.88 B params, 67.5 GB in fp32), qwen3-moe-235b-a22b
+# cut to 12 of its 94 layers (bf16 params, its own param_dtype: 62.2 GB),
+# internvl2-26b's backbone cut to 36 of its 48 layers (60.7 GB in fp32),
+# whisper-medium (24 + 24 layers) and xlstm-1.3b (48 blocks), both whole
+MOE16B, QWEN3MOE, QWEN3MOE_LAYERS = "deepseek-moe-16b", "qwen3-moe-235b-a22b", 12
+VLM, VLM_LAYERS, WHISPER, XLSTM = "internvl2-26b", 36, "whisper-medium", "xlstm-1.3b"
+MOE16B_D = dict(h=16, kv=16, d=128, d_model=2048, layers=28)
+QWEN3MOE_D = dict(h=64, kv=4, d=128, d_model=4096)
+VLM_D = dict(h=48, kv=8, d=128, d_model=6144, patches=256)
+WHISPER_D = dict(h=16, kv=16, d=64, d_model=1024, frames=1500, prompt=432, layers=24)
+XLSTM_D = dict(d_model=2048, inner=4096, prompt=2048, blocks=48)
+# K1's (b, s, h, kv, d, t, window) on the new paths; window None: non-causal
+MOE16B_ATTN = (BATCH, PROMPT, MOE16B_D["h"], MOE16B_D["kv"], 128, PROMPT + GEN, 0)
+QWEN3MOE_ATTN = (BATCH, PROMPT, QWEN3MOE_D["h"], QWEN3MOE_D["kv"], 128,
+                 PROMPT + GEN, 0)
+VLM_PROMPT = VLM_D["patches"] + PROMPT
+VLM_ATTN = (BATCH, VLM_PROMPT, VLM_D["h"], VLM_D["kv"], 128, VLM_PROMPT + GEN, 0)
+WH_S, WH_F = WHISPER_D["prompt"], WHISPER_D["frames"]
+WHISPER_ENC_ATTN = (BATCH, WH_F, 16, 16, 64, WH_F, None)
+WHISPER_CROSS_ATTN = (BATCH, WH_S, 16, 16, 64, WH_F, None)
+WHISPER_SELF_ATTN = (BATCH, WH_S, 16, 16, 64, WH_S + GEN, 0)
+# K2's x on the new paths (b, s, width)
+MOE16B_X = (BATCH, PROMPT, MOE16B_D["d_model"])
+QWEN3MOE_X = (BATCH, PROMPT, QWEN3MOE_D["d_model"])
+VLM_X = (BATCH, VLM_PROMPT, VLM_D["d_model"])
+WHISPER_X = (BATCH, WH_F, WHISPER_D["d_model"])
+XLSTM_X = (BATCH, XLSTM_D["prompt"], XLSTM_D["inner"])
+# the serving-error keys of the new paths' kernel checks, by shape
+FAMILY_ATTN = {MOE16B_ATTN: "flash_attention_moe16b",
+               QWEN3MOE_ATTN: "flash_attention_qwen3moe",
+               VLM_ATTN: "flash_attention_vlm",
+               WHISPER_ENC_ATTN: "flash_attention_whisper_enc",
+               WHISPER_CROSS_ATTN: "flash_attention_whisper_cross",
+               WHISPER_SELF_ATTN: "flash_attention_whisper_self"}
+FAMILY_NORM = {MOE16B_X: "rmsnorm_moe16b", QWEN3MOE_X: "rmsnorm_qwen3moe",
+               VLM_X: "rmsnorm_vlm", WHISPER_X: "rmsnorm_whisper",
+               XLSTM_X: "rmsnorm_xlstm"}
 # the checkpoint phase: qwen2.5-3b at full width cut to 2 layers
 CKPT_LAYERS, CKPT_BATCH, CKPT_STEPS = 2, 2, 4
 GRAD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": 2e-2}
@@ -322,7 +386,9 @@ def main() -> int:
     phases = (phase_kernels, phase_serve, phase_profile, phase_teacher_forcing,
               phase_card_vs_cpu, phase_hybrid_serve, phase_hybrid_profile,
               phase_hybrid_teacher_forcing, phase_hybrid_card_vs_cpu,
-              phase_dense14b_serve, phase_granite_serve,
+              phase_dense14b_serve, phase_granite_serve, phase_moe16b_serve,
+              phase_qwen3moe_serve, phase_vlm_serve, phase_whisper_serve,
+              phase_xlstm_serve,
               phase_train, phase_train_profile, phase_train_dots,
               phase_train_dots_profile, phase_themis_train,
               phase_train_card_vs_cpu, phase_ckpt_resume, phase_hybrid_train,
@@ -438,31 +504,15 @@ def phase_kernels(state):
                       HYB_TRAIN_ATTN: "flash_attention_hybrid_train",
                       QWEN14B_ATTN: "flash_attention_qwen14b",
                       GRANITE_ATTN: "flash_attention_granite"}
-    for b, s, h, kv, d, t, win in seq:
-        causal = win is not None
-        g = new_gen if (b, s, h, kv, d, t, win) in new_shapes else gen
+    for shape in seq:
+        g = new_gen if shape in new_shapes else gen
         for dn in ("float32", "bfloat16"):
-            dt = _dtype(dn)
-            q = _randn(g, (b, s, h, d), dt)
-            k, v = _randn(g, (b, t, kv, d), dt), _randn(g, (b, t, kv, d), dt)
-            out, lse = fa.flash_attention(q, k, v, causal=causal, window=win or 0)
-            torch.cuda.synchronize()
-            p_out, p_lse = fa.flash_attention_plain(q, k, v, causal=causal,
-                                                    window=win or 0)
             errs = []
-            if dn == "bfloat16" and (b, s, h) == (BATCH, PROMPT, 32):
+            if dn == "bfloat16" and shape[:3] == (BATCH, PROMPT, 32):
                 errs = serving_errs["flash_attention"]
-            elif dn == "bfloat16" and (b, s, h, kv, d, t, win) in serving_shapes:
-                errs = serving_errs[serving_shapes[(b, s, h, kv, d, t, win)]]
-            name = f"flash_attention{(b, s, h, kv, d, t, win)} {dn}"
-            e = _check(name, out, p_out, TOL[dn], errs)
-            el = _check(name + " lse", lse, p_lse, TOL["float32"], [])
-            checks.append({"kernel": "flash_attention", "route": fa.route(dt, d),
-                           "shape": [b, s, h, kv, d, t],
-                           "window": win, "causal": causal, "dtype": dn,
-                           "max_abs_err": e, "lse_max_abs_err": el,
-                           "tol": TOL[dn]})
-            del q, k, v, out, lse, p_out, p_lse
+            elif dn == "bfloat16" and shape in serving_shapes:
+                errs = serving_errs[serving_shapes[shape]]
+            checks.append(_flash_check(g, shape, dn, errs))
     # the sm90 kernel reads views through their strides: q from a packed QKV
     # projection, k and v from a packed cache longer than T (llama3-8b shape)
     b, s, h, kv, d, t = BATCH, PROMPT, 32, 8, 128, PROMPT + GEN
@@ -560,11 +610,54 @@ def phase_kernels(state):
             assert mirror and again, (f"{name} backward", mirror, again)
             del got, want
         del a, bb, h0, g, out
+    # the shapes of the MoE, VLM, audio and SSM paths draw from a generator
+    # of their own, so every check above keeps its inputs
+    fam_gen = torch.Generator(device="cuda").manual_seed(23)
+    for shape, key in FAMILY_ATTN.items():
+        for dn in ("float32", "bfloat16"):
+            errs = serving_errs.setdefault(key, []) if dn == "bfloat16" else []
+            checks.append(_flash_check(fam_gen, shape, dn, errs))
+    for shape, key in FAMILY_NORM.items():
+        for dn in ("float32", "bfloat16"):
+            dt = _dtype(dn)
+            x, w = _randn(fam_gen, shape, dt), _randn(fam_gen, shape[-1:], dt)
+            y = rn.rmsnorm(x, w, 1e-6)
+            torch.cuda.synchronize()
+            errs = serving_errs.setdefault(key, []) if dn == "bfloat16" else []
+            e = _check(f"rmsnorm{shape} {dn}", y, rn.rmsnorm_plain(x, w, 1e-6),
+                       TOL[dn], errs)
+            checks.append({"kernel": "rmsnorm", "shape": list(shape), "dtype": dn,
+                           "max_abs_err": e, "tol": TOL[dn]})
+            del x, w, y
     emit(kernel_checks=checks)
     state["serving_err"] = {k: max(v) for k, v in serving_errs.items()}
     torch.cuda.empty_cache()
     state["grad_err"] = _grad_checks(gen)
     torch.cuda.empty_cache()
+
+
+def _flash_check(gen, shape, dn, errs):
+    """K1 at ``shape`` = (b, s, h, kv, d, t, window) in ``dn`` against its
+    plain version (window None: non-causal); out within TOL[dn], the LSE
+    within TOL["float32"]; the out error also goes into ``errs``."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s, h, kv, d, t, win = shape
+    causal = win is not None
+    dt = _dtype(dn)
+    q = _randn(gen, (b, s, h, d), dt)
+    k, v = _randn(gen, (b, t, kv, d), dt), _randn(gen, (b, t, kv, d), dt)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=win or 0)
+    torch.cuda.synchronize()
+    p_out, p_lse = fa.flash_attention_plain(q, k, v, causal=causal, window=win or 0)
+    name = f"flash_attention{shape} {dn}"
+    e = _check(name, out, p_out, TOL[dn], errs)
+    el = _check(name + " lse", lse, p_lse, TOL["float32"], [])
+    return {"kernel": "flash_attention", "route": fa.route(dt, d),
+            "shape": [b, s, h, kv, d, t], "window": win, "causal": causal,
+            "dtype": dn, "max_abs_err": e, "lse_max_abs_err": el, "tol": TOL[dn]}
 
 
 def _grad_close(name, got, want, dn, errs):
@@ -786,10 +879,13 @@ def _sass_counts(so):
 
 
 # -- phase 3 and 4: the two serving paths ---------------------------------------
-def _serve(state, arch, prompt, expect, layers=0):
+def _serve(state, arch, prompt, expect, layers=0, on_reset=None):
     """Serve ``arch`` at full width (``layers`` > 0: cut to that depth):
-    BATCH x ``prompt`` tokens, GEN decode steps, launch counts per step held
-    to ``expect`` (kind -> counts)."""
+    BATCH x ``prompt`` tokens (with the family's patches or frames,
+    ``serve.synthetic_batch``), GEN decode steps, launch counts per step
+    held to ``expect`` (kind -> counts); the peak memory of the counted
+    run. ``on_reset()`` is called where the counts are set to 0, after the
+    warm-up, just before the counted run."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -799,13 +895,18 @@ def _serve(state, arch, prompt, expect, layers=0):
     torch.cuda.empty_cache()
     server = serve.setup(arch, layers=layers, device="cuda", seed=0)
     cfg = server.cfg
-    tokens = serve.synthetic_prompts(cfg, BATCH, prompt, device="cuda")
-    serve.generate(server, tokens[:, :64], 2)          # warm-up, not counted
+    batch = serve.synthetic_batch(cfg, BATCH, prompt, device="cuda")
+    serve.generate(server, {**batch, "tokens": batch["tokens"][:, :64]}, 2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     snaps = []
     reset_launch_counts()
-    res = serve.generate(server, tokens, GEN,
+    if on_reset:
+        on_reset()
+    res = serve.generate(server, batch, GEN,
                          on_step=lambda kind: snaps.append((kind, launch_counts())))
     total = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     per_step, prev = [], {k: 0 for k in total}
     for kind, c in snaps:
         per_step.append((kind, {k: c[k] - prev[k] for k in c}))
@@ -822,14 +923,16 @@ def _serve(state, arch, prompt, expect, layers=0):
                 "launches_total": total,
                 "launches_prefill": per_step[0][1],
                 "launches_per_decode_step": [c for _, c in per_step[1:]],
+                "peak_memory_gib": peak_gib,
                 "finite": finite, "sample_ids": res["ids"][0].tolist(),
                 "card": state["card"]})
     assert finite, "non-finite logits"
     assert len(per_step) == GEN + 1
     for kind, c in per_step:
         assert c == expect[kind], f"{kind}: launches {c}, expected {expect[kind]}"
-    return {"server": server, "tokens": tokens, "ids": res["ids"],
-            "launches": total, "prompt": prompt}
+    return {"server": server, "tokens": batch["tokens"], "batch": batch,
+            "ids": res["ids"], "launches": total, "prompt": prompt,
+            "decode_ms_per_token": res["decode_ms_per_token"]}
 
 
 NO_BACKWARD = {"flash_attention_bwd": 0, "flash_attention_bwd_sm90": 0,
@@ -920,11 +1023,51 @@ def phase_hybrid_profile(state):
     _profile(state[HYB_ARCH])
 
 
-def _teacher_forcing(state, arch, batch, limits):
+class _moe_last_token_routes:
+    """With ``on``, record for each MoE layer of a call, in order, the last
+    token's input (fp32) and the top-k expert ids that its routing chose,
+    as (x, ids) pairs in ``out``. With ``replay`` (the pairs of an earlier
+    call), a call of one token is routed to the replayed ids of each layer
+    instead, weighted by its own gates: teacher-forced routing."""
+
+    def __init__(self, on, out, replay=None):
+        self.on, self.out, self.replay = on, out, replay
+
+    def __enter__(self):
+        if self.on:
+            import torch
+
+            from repro_torch.models import moe
+
+            self.mod, self.orig = moe, moe.route
+
+            def route(p, x, cfg):
+                res = self.orig(p, x, cfg)
+                self.out.append((x[:, -1].float(), res[1][:, -1]))
+                if self.replay is None:
+                    return res
+                assert x.shape[1] == 1, "replay routes a decode step"
+                ids = self.replay[len(self.out) - 1][1][:, None]        # (B,1,k)
+                gates = torch.softmax((x @ p["router"].to(x.dtype)).float(), -1)
+                w = torch.gather(gates, -1, ids)
+                w = (w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)).to(x.dtype)
+                return (w, ids, *moe.dispatch_plan(ids, cfg, moe.expert_capacity(cfg, 1)))
+
+            moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        if self.on:
+            self.mod.route = self.orig
+        return False
+
+
+def _teacher_forcing(state, arch, batch, limits, cfg_kw=None):
     """``forward`` over prompt + 1 tokens against prefill(prompt) +
     decode(1), for each activation dtype in ``limits`` (dtype -> limit on
-    the relative L2 of the last logits), with the served weights. Frees
-    the model."""
+    the relative L2 of the last logits), with the served weights and
+    inputs (the VLM's patches come first: decode at P + prompt) and the
+    config's fields replaced by ``cfg_kw``. Frees the model."""
     import torch
 
     from repro_torch.models import build_model
@@ -933,19 +1076,37 @@ def _teacher_forcing(state, arch, batch, limits):
     run = state[arch]
     server, prompt = run["server"], run["prompt"]
     toks = torch.cat([run["tokens"], run["ids"][:, :1]], dim=1)[:batch]
+    extra = {k: v[:batch] for k, v in run.get("batch", {}).items() if k != "tokens"}
+    n_extra = extra["patches"].shape[1] if "patches" in extra else 0
     fails = []
+    moe_family = server.cfg.family == "moe"
     for dtype, limit in limits.items():
-        api = build_model(server.cfg.replace(dtype=dtype))
+        api = build_model(server.cfg.replace(dtype=dtype, **(cfg_kw or {})))
         prefill, decode = make_serve_fns(api, "cuda")
-        with torch.inference_mode():
-            full = api.forward(server.params, toks)[:, -1].float()
-        _, caches = prefill(server.params, {"tokens": toks[:, :prompt]}, prompt + 1)
-        step, _ = decode(server.params, caches, toks[:, prompt], prompt)
+        fwd_routes, dec_routes = [], []
+        with _moe_last_token_routes(moe_family, fwd_routes):
+            with torch.inference_mode():
+                full = api.forward(server.params, toks, **extra)[:, -1].float()
+        _, caches = prefill(server.params, {"tokens": toks[:, :prompt], **extra},
+                            n_extra + prompt + 1)
+        with _moe_last_token_routes(moe_family, dec_routes, replay=fwd_routes):
+            step, _ = decode(server.params, caches, toks[:, prompt], n_extra + prompt)
         step = step[:, 0].float()
         rel = ((step - full).norm() / full.norm()).item()
-        emit(teacher_forcing={"arch": arch, "dtype": dtype, "batch": batch,
-                              "tokens": prompt + 1, "rel_l2": rel, "limit": limit,
-                              "max_abs_err": _max_err(step, full)})
+        line = {"arch": arch, "dtype": dtype, "batch": batch, "tokens": prompt + 1,
+                "rel_l2": rel, "limit": limit, "max_abs_err": _max_err(step, full)}
+        if moe_family:
+            # the decode step took the forward's experts in every layer; print
+            # each layer's MoE input of the last token (rel. L2 between the
+            # two runs) and the layers where the step's own top-k set differs
+            # from the forward's (a near-tie of two gates)
+            assert len(fwd_routes) == len(dec_routes) == server.cfg.num_layers
+            moved = [((d[0] - f[0]).norm() / f[0].norm()).item()
+                     for f, d in zip(fwd_routes, dec_routes)]
+            apart = [i for i, (f, d) in enumerate(zip(fwd_routes, dec_routes))
+                     if not torch.equal(f[1].sort(-1).values, d[1].sort(-1).values)]
+            line.update(moe_input_rel_l2=moved, layers_routed_apart=apart)
+        emit(teacher_forcing=line)
         if rel > limit:
             fails.append(f"{dtype}: teacher forcing rel L2 {rel} > {limit}")
         del full, caches, step
@@ -979,11 +1140,13 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def _card_vs_cpu(arch, prompt, steps=4):
-    """The reduced config with the same weights, kernels on the card and
-    plain PyTorch on the CPU: prefill and ``steps`` decode steps, logits
-    within 3e-2. The reduced configs' head dim is 16, so K1 takes the SIMT
-    kernel: launches there, none on the sm90 kernel."""
+def _card_vs_cpu(arch, prompt, steps=4, dtype="bfloat16"):
+    """The reduced config with the same weights and inputs, kernels on the
+    card and plain PyTorch on the CPU, activations in ``dtype``: prefill
+    and ``steps`` decode steps, logits within 3e-2. The reduced configs'
+    head dim is 16, so K1 takes the SIMT kernel: launches there, none on
+    the sm90 kernel (and none at all in the SSM family, which has no
+    attention; K2 launches there)."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -992,32 +1155,36 @@ def _card_vs_cpu(arch, prompt, steps=4):
     from repro_torch.models import build_model
     from repro_torch.train.serve import make_serve_fns
 
-    cfg = get_arch(arch, reduced=True)
+    cfg = get_arch(arch, reduced=True).replace(dtype=dtype)
     api = build_model(cfg)
     p_cpu = api.init(0, device="cpu")
     p_gpu = _to(p_cpu, "cuda")
     pre_c, dec_c = make_serve_fns(api, "cpu")
     pre_g, dec_g = make_serve_fns(api, "cuda")
-    toks = serve.synthetic_prompts(cfg, 2, prompt, seed=1, device="cpu")
+    batch = serve.synthetic_batch(cfg, 2, prompt, seed=1, device="cpu")
+    pos0 = prompt + (cfg.num_patches if "patches" in batch else 0)
     reset_launch_counts()
-    lc, cc = pre_c(p_cpu, {"tokens": toks}, prompt + steps)
-    lg, cg = pre_g(p_gpu, {"tokens": toks}, prompt + steps)
+    lc, cc = pre_c(p_cpu, batch, pos0 + steps)
+    lg, cg = pre_g(p_gpu, batch, pos0 + steps)
     pairs = [(lg, lc)]
     for i in range(steps):
         tok = lc[:, -1].argmax(-1)
-        lc, cc = dec_c(p_cpu, cc, tok, prompt + i)
-        lg, cg = dec_g(p_gpu, cg, tok, prompt + i)
+        lc, cc = dec_c(p_cpu, cc, tok, pos0 + i)
+        lg, cg = dec_g(p_gpu, cg, tok, pos0 + i)
         pairs.append((lg, lc))
     counts = launch_counts()
     errs = [_max_err(g.cpu(), c) for g, c in pairs]
     ok = all(torch.allclose(g.cpu().float(), c.float(), atol=3e-2, rtol=3e-2)
              for g, c in pairs)
-    emit(card_vs_cpu={"arch": f"{arch} reduced", "prompt_len": prompt,
+    emit(card_vs_cpu={"arch": f"{arch} reduced", "dtype": dtype,
+                      "prompt_len": prompt,
                       "steps": ["prefill"] + ["decode"] * steps,
                       "max_abs_err": errs, "tol": 3e-2, "launches": counts})
     assert ok, f"card and CPU logits differ beyond 3e-2: {errs}"
-    assert counts["flash_attention"] > 0 and counts["flash_attention_sm90"] == 0, (
-        f"reduced {arch}: K1 launches {counts}, expected SIMT only")
+    attends = cfg.family != "ssm"
+    assert (counts["flash_attention"] > 0) == attends and counts["rmsnorm"] > 0 \
+        and counts["flash_attention_sm90"] == 0, (
+            f"reduced {arch}: launches {counts}, expected K1 on SIMT only")
 
 
 def phase_card_vs_cpu(state):
@@ -1050,6 +1217,186 @@ def phase_granite_serve(state):
                             layers=GRANITE_LAYERS)
     _teacher_forcing(state, GRANITE, BATCH, {"bfloat16": 3e-2})
     _card_vs_cpu(GRANITE, 24)
+
+
+def _moe_drop_and_weights(state, arch):
+    """The share of (token, slot) assignments that the published capacity
+    factor drops in the served prefill (one more prefill, every layer's
+    routing read; not counted), and the expert weights a decode step reads
+    and casts: every expert's full weights in every layer, whatever the
+    batch (capacity k at S = 1), beside the step's measured time."""
+    import torch
+
+    from repro_torch.models import moe
+
+    run = state[arch]
+    server, cfg = run["server"], run["server"].cfg
+    shares, orig = [], moe.apply_moe
+
+    def record(p, x, c):
+        keep = moe.route(p, x, c)[3]
+        shares.append(1.0 - keep.float().mean().item())
+        return orig(p, x, c)
+
+    moe.apply_moe = record
+    try:
+        server.prefill(server.params, run["batch"], run["prompt"] + GEN)
+    finally:
+        moe.apply_moe = orig
+    elems = cfg.num_layers * 3 * cfg.num_experts * cfg.d_model * cfg.moe_d_ff
+    pbytes = 4 if cfg.param_dtype == "float32" else 2
+    # read the params; an fp32 param is also cast: bf16 written, then read
+    step_bytes = elems * (pbytes + (4 if pbytes == 4 else 0))
+    emit(moe={"arch": arch, "capacity_factor": cfg.capacity_factor,
+              "prefill_tokens": [BATCH, run["prompt"]],
+              "dropped_share_per_layer": shares,
+              "dropped_share_mean": sum(shares) / len(shares),
+              "decode_expert_bytes_per_step": step_bytes,
+              "decode_expert_bytes_per_token": step_bytes / BATCH,
+              "decode_expert_bytes_bound_ms": step_bytes / PEAK_BYTES_PER_S * 1e3,
+              "decode_ms_per_step": run["decode_ms_per_token"],
+              "card": state["card"]})
+    torch.cuda.empty_cache()
+
+
+# MoE teacher forcing: the dense limit on the logits in bf16 and fp32
+# activations, the decode step routed to the forward's experts
+# (_moe_last_token_routes), since at a near-tie of two gates the two runs,
+# which round the hidden state apart (the cache holds bf16 k/v), would
+# otherwise compute different functions
+MOE_TEACHER_LIMITS = {"bfloat16": 3e-2, "float32": 3e-2}
+
+
+def _drop_free(experts, k):
+    """A capacity factor of E/k: capacity int(S k cf / E) = S, so nothing
+    drops; nudged up so that the float product (64/6 is inexact) cannot
+    round the capacity down to S - 1."""
+    return experts / k * (1 + 1e-6)
+
+
+def phase_moe16b_serve(state):
+    """deepseek-moe-16b at its published width and depth (28 layers, d_model
+    2048, 16 heads of 128 on 16 kv heads: a GQA group of 1; 64 routed
+    experts top 6 of width 1408 and 2 shared, capacity factor 1.25; vocab
+    102400; 16.88 B params, 67.5 GB in fp32): serve with launch counts, the
+    dropped share and the decode step's expert bytes, teacher forcing with
+    a capacity factor of E/k (nothing drops) and the decode step routed to
+    the forward's experts, at batch 1 in bf16 and fp32
+    (``MOE_TEACHER_LIMITS``),
+    then the reduced config on the card against the CPU in fp32 (in bf16 a
+    near-tie of two gates may route a token to another expert on another
+    device, ROADMAP §3)."""
+    state[MOE16B] = _serve(state, MOE16B, PROMPT, _dense_launches(MOE16B_D["layers"]))
+    _moe_drop_and_weights(state, MOE16B)
+    _teacher_forcing(state, MOE16B, 1, MOE_TEACHER_LIMITS,
+                     cfg_kw={"capacity_factor": _drop_free(64, 6)})
+    _card_vs_cpu(MOE16B, 24, dtype="float32")
+
+
+def phase_qwen3moe_serve(state):
+    """qwen3-moe-235b-a22b at its published width (d_model 4096, 64 q heads
+    on 4 kv heads of 128: a GQA group of 16; 128 experts top 8 of width
+    1536; vocab 151936; bf16 params, its own param_dtype) cut to 12 of its
+    94 layers (62.2 GB; all 94 take 470 GB): the same checks as
+    deepseek-moe-16b."""
+    state[QWEN3MOE] = _serve(state, QWEN3MOE, PROMPT, _dense_launches(QWEN3MOE_LAYERS),
+                             layers=QWEN3MOE_LAYERS)
+    _moe_drop_and_weights(state, QWEN3MOE)
+    _teacher_forcing(state, QWEN3MOE, 1, MOE_TEACHER_LIMITS,
+                     cfg_kw={"capacity_factor": _drop_free(128, 8)})
+    _card_vs_cpu(QWEN3MOE, 24, dtype="float32")
+
+
+def phase_vlm_serve(state):
+    """internvl2-26b's backbone at its published width (d_model 6144, 48 q
+    heads on 8 kv heads of 128: a GQA group of 6; d_ff 16384; vocab 92553)
+    cut to 36 of its 48 layers (60.7 GB in fp32; all 48 take 79.4 GB), the
+    vision frontend a stub: 256 patch embeddings (bf16 standard normals)
+    in front of 4 x 512 text tokens, decoding at 256 + 512 + i. Launch
+    counts, teacher forcing, and the reduced config card vs CPU in fp32
+    (the patches make the activations some 50 times the token embeddings'
+    scale, and bf16 then rounds apart across devices beyond 3e-2 as it does
+    across frameworks; ``tests/test_torch_vlm.py``)."""
+    state[VLM] = _serve(state, VLM, PROMPT, _dense_launches(VLM_LAYERS),
+                        layers=VLM_LAYERS)
+    _teacher_forcing(state, VLM, BATCH, {"bfloat16": 3e-2})
+    _card_vs_cpu(VLM, 24, dtype="float32")
+
+
+def _count_attention(module):
+    """Wrap ``module.attention`` to tally K1's launches by the call's
+    (causal, S, T); returns (tally, restore)."""
+    from repro_torch.kernels import launch_counts
+
+    tally, orig = {}, module.attention
+
+    def counted(q, k, v, **kw):
+        before = launch_counts()["flash_attention_sm90"]
+        out = orig(q, k, v, **kw)
+        key = (kw.get("causal", True), q.shape[1], k.shape[1])
+        n = launch_counts()["flash_attention_sm90"] - before
+        tally[key] = tally.get(key, 0) + n
+        return out
+
+    module.attention = counted
+    return tally, lambda: setattr(module, "attention", orig)
+
+
+def phase_whisper_serve(state):
+    """whisper-medium at its published width and depth (24 encoder and 24
+    decoder layers, d_model 1024, 16 heads of 64, vocab 51865; 0.81 B
+    params), the mel frontend a stub: 1500 frame embeddings (bf16 standard
+    normals) and 4 x 432 text tokens (with 16 decode steps, the published
+    448-token text context). K1 launches per prefill: 24 non-causal over
+    the 1500 frames, 24 causal self-attentions over the cache, 24
+    non-causal cross-attentions (S 432, T 1500), all sm90; K2 122 per
+    prefill, 73 per decode step. The launches are tallied by shape for
+    the kernel rows. Teacher forcing, and the reduced config (30 frames)
+    on the card against the CPU."""
+    from repro_torch.models import whisper
+
+    n = WHISPER_D["layers"]
+    tally, restore = _count_attention(whisper)
+    try:
+        state[WHISPER] = _serve(state, WHISPER, WH_S, on_reset=tally.clear, expect={
+            "prefill": {"flash_attention": 3 * n, "flash_attention_sm90": 3 * n,
+                        "rmsnorm": 5 * n + 2, "rglru_scan": 0, **NO_BACKWARD},
+            "decode": {"flash_attention": 0, "flash_attention_sm90": 0,
+                       "rmsnorm": 3 * n + 1, "rglru_scan": 0, **NO_BACKWARD}})
+    finally:
+        restore()
+    # the counted run's launches by shape (the tally was cleared with the
+    # counts, after the warm-up)
+    by_shape = {"enc": tally.get((False, WH_F, WH_F), 0),
+                "cross": tally.get((False, WH_S, WH_F), 0),
+                "self": tally.get((True, WH_S, WH_S + GEN), 0)}
+    emit(whisper_k1_launches_by_shape=by_shape, all_shapes=
+         {f"{'causal' if c else 'full'} {s}x{t}": m for (c, s, t), m in tally.items()})
+    assert by_shape == {"enc": n, "cross": n, "self": n}, by_shape
+    assert sum(tally.values()) == 3 * n, tally
+    state[WHISPER]["k1_by_shape"] = by_shape
+    _teacher_forcing(state, WHISPER, BATCH, {"bfloat16": 3e-2})
+    _card_vs_cpu(WHISPER, 24)
+
+
+def phase_xlstm_serve(state):
+    """xlstm-1.3b at its published width and depth (48 blocks: 6 periods of
+    7 mLSTM blocks and one sLSTM block; d_model 2048, 4 heads: mLSTM head
+    dim 1024, sLSTM 512; vocab 50304; 1.94 B params, 7.8 GB in fp32): 4 x
+    2048 tokens (8 chunks of 256 in each mLSTM block, 12,288 sLSTM steps),
+    16 decode steps. No K1 (the family has no attention) and no kernel of
+    its own in the reference: K2 97 per prefill and per decode step.
+    Teacher forcing with bf16 activations at the reference's own 1e-1 and
+    fp32 activations at 3e-2 (as for the hybrid; in bf16 the reduced model
+    is chaotic in the reference itself, ``tests/test_torch_xlstm.py``), and
+    the reduced config card vs CPU in fp32 (for that reason)."""
+    n = XLSTM_D["blocks"]
+    no_k1 = {"flash_attention": 0, "flash_attention_sm90": 0,
+             "rmsnorm": 2 * n + 1, "rglru_scan": 0, **NO_BACKWARD}
+    state[XLSTM] = _serve(state, XLSTM, XLSTM_D["prompt"],
+                          {"prefill": no_k1, "decode": no_k1})
+    _teacher_forcing(state, XLSTM, BATCH, {"bfloat16": 1e-1, "float32": 3e-2})
+    _card_vs_cpu(XLSTM, 300, dtype="float32")
 
 
 # -- phase 5: training ----------------------------------------------------------
@@ -1545,17 +1892,28 @@ def _bound(nbytes, ops, dtype_name):
 
 PATH_NAME = {ARCH: ARCH, HYB_ARCH: HYB_ARCH, "train": f"train {TRAIN_ARCH}",
              "hybrid_train": f"train {HYB_ARCH}", DENSE14B: DENSE14B,
-             GRANITE: f"{GRANITE} ({GRANITE_LAYERS} of 88 layers)"}
+             GRANITE: f"{GRANITE} ({GRANITE_LAYERS} of 88 layers)",
+             MOE16B: MOE16B, QWEN3MOE: f"{QWEN3MOE} ({QWEN3MOE_LAYERS} of 94 layers)",
+             VLM: f"{VLM} ({VLM_LAYERS} of 48 layers)",
+             "whisper_enc": f"{WHISPER} encoder", "whisper_cross": f"{WHISPER} cross",
+             "whisper_self": f"{WHISPER} decoder self", WHISPER: WHISPER,
+             XLSTM: XLSTM}
 ERR_SUFFIX = {ARCH: "", HYB_ARCH: "_hybrid", "train": "_train",
               "hybrid_train": "_hybrid_train", DENSE14B: "_qwen14b",
-              GRANITE: "_granite"}
+              GRANITE: "_granite", MOE16B: "_moe16b", QWEN3MOE: "_qwen3moe",
+              VLM: "_vlm", "whisper_enc": "_whisper_enc",
+              "whisper_cross": "_whisper_cross", "whisper_self": "_whisper_self",
+              WHISPER: "_whisper", XLSTM: "_xlstm"}
 
 
-def _time_flash(state, gen, path, b, s, h, kvh, d, t, window, iters):
-    """K1's row at q (b,s,h,d), k/v (b,t,kvh,d), bf16, causal, ``window``:
-    the sm90 kernel that the serving path runs, and beside it the earlier
-    SIMT kernel at the same shape (``previous_ms``, launched directly
-    through its route; not on the main path)."""
+def _time_flash(state, gen, path, b, s, h, kvh, d, t, window, iters, causal=True,
+                launches=None):
+    """K1's row at q (b,s,h,d), k/v (b,t,kvh,d), bf16, ``causal`` (SDPA then
+    runs with ``is_causal`` alike), ``window``: the sm90 kernel that the
+    serving path runs, and beside it the earlier SIMT kernel at the same
+    shape (``previous_ms``, launched directly through its route; not on
+    the main path). ``launches``: the path's launches at this shape, where
+    the path runs K1 at more than one (else all of the path's)."""
     import torch
     import torch.nn.functional as F
 
@@ -1567,17 +1925,17 @@ def _time_flash(state, gen, path, b, s, h, kvh, d, t, window, iters):
             for _ in range(_n_sets(2 * (b * s * h * d + 2 * b * t * kvh * d)))]
 
     def kern(q, k, v):
-        return fa.flash_attention(q, k, v, causal=True, window=window)
+        return fa.flash_attention(q, k, v, causal=causal, window=window)
 
     def simt(q, k, v):
-        return fa.run_kernel("simt", q, k, v, causal=True, window=window)
+        return fa.run_kernel("simt", q, k, v, causal=causal, window=window)
 
     ms = _time_ms(kern, sets, iters)
     host_ms = _time_ms(kern, sets, iters, queued=False)
     previous_ms = _time_ms(simt, sets, max(5, iters // 4))
     ms_again = _time_ms(kern, sets, iters)
     plain_ms = _time_ms(lambda q, k, v: fa.flash_attention_plain(
-        q, k, v, causal=True, window=window), sets, 5)
+        q, k, v, causal=causal, window=window), sets, 5)
     # SDPA with the KV heads expanded; is_causal has no window, so a window
     # takes an explicit boolean mask (True = attend)
     qpos = torch.arange(s, device="cuda")[:, None]
@@ -1590,14 +1948,15 @@ def _time_flash(state, gen, path, b, s, h, kvh, d, t, window, iters):
 
     def lib(q, k, v):
         if mask is None:
-            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
     lib_ms = _time_ms(lib, lib_sets, iters)
     lib_err = _max_err(lib(*lib_sets[0]).transpose(1, 2), kern(*sets[0])[0])
     prev_err = _max_err(simt(*sets[0])[0], kern(*sets[0])[0])
     w = window or t
-    pairs = sum(min(i + 1, t, w) for i in range(s))       # unmasked (q, k) pairs
+    # unmasked (q, k) pairs
+    pairs = sum(min(i + 1, t, w) for i in range(s)) if causal else s * t
     ops = 4 * d * pairs * b * h
     nbytes = 2 * (2 * b * s * h * d + 2 * b * t * kvh * d) + 4 * b * h * s
     bound_ms, bound_by = _bound(nbytes, ops, "bfloat16")
@@ -1605,7 +1964,8 @@ def _time_flash(state, gen, path, b, s, h, kvh, d, t, window, iters):
     return {"name": "flash_attention", "route": "cuda", "path": PATH_NAME[path],
             "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
             "replaces": "src/repro/kernels/flash_attention.py:76",
-            "launches": run["launches"]["flash_attention_sm90"],
+            "launches": (run["launches"]["flash_attention_sm90"] if launches is None
+                         else launches),
             "max_abs_err": state["serving_err"]["flash_attention" + ERR_SUFFIX[path]],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms, "host_ms": host_ms,
@@ -1616,9 +1976,10 @@ def _time_flash(state, gen, path, b, s, h, kvh, d, t, window, iters):
             "previous_tflops": ops / (previous_ms * 1e-3) / 1e12,
             "bound_fraction": bound_ms / ms,
             "shape": {"q": [b, s, h, d], "kv": [b, t, kvh, d],
-                      "dtype": "bfloat16", "causal": True, "window": window},
+                      "dtype": "bfloat16", "causal": causal, "window": window},
             "library": "F.scaled_dot_product_attention, KV heads expanded"
-                       + (", windowed causal boolean mask" if window else ""),
+                       + (", windowed causal boolean mask" if window else "")
+                       + ("" if causal else ", is_causal=False"),
             "library_max_abs_err": lib_err}
 
 
@@ -3045,6 +3406,32 @@ def phase_times(state):
         _time_rmsnorm(state, gen, DENSE14B, (BATCH, PROMPT, QWEN14B["d_model"])),
         _time_flash(state, gen, GRANITE, *GRANITE_ATTN, iters=50),
         _time_rmsnorm(state, gen, GRANITE, (BATCH, PROMPT, GRANITE_D["d_model"])),
+    ]
+    # the MoE, VLM, audio and SSM prefills, from a generator of their own so
+    # the rows above keep their inputs: K1 at deepseek-moe-16b's q
+    # (4,512,16,128) k/v (4,528,16,128), qwen3-moe's (4,512,64,128) on 4 kv
+    # heads, internvl2-26b's (4,768,48,128) on 8; whisper's three shapes
+    # (the encoder and the cross-attention non-causal, against SDPA with
+    # is_causal=False); K2 at each path's widest norm
+    fam = torch.Generator(device="cuda").manual_seed(29)
+    for key in ("whisper_enc", "whisper_cross", "whisper_self"):
+        state[key] = state[WHISPER]
+    by_shape = state[WHISPER]["k1_by_shape"]
+    kernels += [
+        _time_flash(state, fam, MOE16B, *MOE16B_ATTN, iters=50),
+        _time_rmsnorm(state, fam, MOE16B, MOE16B_X),
+        _time_flash(state, fam, QWEN3MOE, *QWEN3MOE_ATTN, iters=50),
+        _time_rmsnorm(state, fam, QWEN3MOE, QWEN3MOE_X),
+        _time_flash(state, fam, VLM, *VLM_ATTN, iters=50),
+        _time_rmsnorm(state, fam, VLM, VLM_X),
+        _time_flash(state, fam, "whisper_enc", *WHISPER_ENC_ATTN[:-1], 0, iters=20,
+                    causal=False, launches=by_shape["enc"]),
+        _time_flash(state, fam, "whisper_cross", *WHISPER_CROSS_ATTN[:-1], 0,
+                    iters=50, causal=False, launches=by_shape["cross"]),
+        _time_flash(state, fam, "whisper_self", *WHISPER_SELF_ATTN, iters=50,
+                    launches=by_shape["self"]),
+        _time_rmsnorm(state, fam, WHISPER, WHISPER_X),
+        _time_rmsnorm(state, fam, XLSTM, XLSTM_X),
     ]
     emit(rmsnorm_decode_shape=_time_rmsnorm(state, gen, ARCH, (BATCH, 1, 4096)))
     emit(times={"card": state["card"], "peak_bytes_per_s": PEAK_BYTES_PER_S,

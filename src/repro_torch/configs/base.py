@@ -3,8 +3,8 @@ parallelism, training.
 
 The port keeps its own copy of the reference package's config dataclasses
 (``repro/configs/base.py``) so that it imports nothing from that package.
-The fields and defaults are the reference's, field for field; only the
-architectures the port can run are registered (``repro_torch.configs``).
+The fields and defaults are the reference's, field for field, and every
+architecture of the reference is registered (``repro_torch.configs``).
 """
 from __future__ import annotations
 

@@ -5,7 +5,8 @@
         [--layers N] [--device cuda|cpu]
 
 Builds the model from a seed on the device (``cuda`` by default), runs a
-batch of synthetic prompts through prefill and ``--gen`` greedy decode
+batch of synthetic prompts (with the stub frontends' frames or patches for
+the audio and VLM families) through prefill and ``--gen`` greedy decode
 steps, and reports prefill time and per-token decode latency.
 ``--layers`` cuts the depth (0 keeps the config's), for a model whose fp32
 weights exceed the card at full depth (granite-34b: 40 of its 88 layers
@@ -53,11 +54,24 @@ def setup(arch: str, *, reduced: bool = False, kv_quant: bool = False,
     return Server(cfg, api, api.init(seed, dev), prefill, decode, dev)
 
 
-def synthetic_prompts(cfg: ModelConfig, batch: int, prompt_len: int, *,
-                      seed: int = 0, device=None) -> torch.Tensor:
+def synthetic_batch(cfg: ModelConfig, batch: int, prompt_len: int, *,
+                    seed: int = 0, device=None) -> dict:
+    """Seeded prompts: "tokens" (batch, prompt_len), and for the audio family
+    "frames" (batch, num_frames, d_model), for the VLM family "patches"
+    (batch, num_patches, d_model), both bf16 standard normals (the stub
+    frontends' outputs), drawn after the tokens from one numpy generator as
+    the reference's ``launch/serve.py`` draws them."""
+    dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
-    return torch.as_tensor(toks, dtype=torch.int64, device=resolve_device(device))
+    out = {"tokens": torch.as_tensor(toks, dtype=torch.int64, device=dev)}
+    extra = {"audio": ("frames", cfg.num_frames),
+             "vlm": ("patches", cfg.num_patches)}.get(cfg.family)
+    if extra:
+        name, n = extra
+        x = rng.standard_normal((batch, n, cfg.d_model))
+        out[name] = torch.as_tensor(x).to(torch.bfloat16).to(dev)
+    return out
 
 
 class _Timer:
@@ -82,16 +96,21 @@ class _Timer:
         return (time.perf_counter() - self._t0) * 1e3
 
 
-def generate(server: Server, tokens: torch.Tensor, gen: int, *,
+def generate(server: Server, batch: dict, gen: int, *,
              on_step: Callable[[str], None] | None = None) -> dict:
-    """Prefill ``tokens`` (B, P) into a cache of P + gen positions, then run
-    ``gen`` greedy decode steps. ``on_step("prefill" | "decode")`` is called
-    after each step is enqueued. Returns the generated ids (B, gen + 1), the
-    last logits and the times."""
-    b, plen = tokens.shape
+    """Prefill a prompt into a cache with room for ``gen`` more positions,
+    then run ``gen`` greedy decode steps. ``batch``: the tokens (B, S) and
+    the family's "patches" or "frames" (``synthetic_batch``). The VLM's P
+    patches come first in the sequence: its cache holds P + S + gen
+    positions and decoding starts at position P + S. ``on_step("prefill" | "decode")`` is called after each step is
+    enqueued. Returns the generated ids (B, gen + 1), the last logits and
+    the times."""
+    plen = batch["tokens"].shape[1]
+    if "patches" in batch:
+        plen += batch["patches"].shape[1]
     timer = _Timer(server.device)
     timer.start()
-    logits, caches = server.prefill(server.params, {"tokens": tokens}, plen + gen)
+    logits, caches = server.prefill(server.params, batch, plen + gen)
     if on_step:
         on_step("prefill")
     prefill_ms = timer.stop()
@@ -128,9 +147,9 @@ def main(argv=None) -> dict:
     print(f"[serve] {args.arch} layers={server.cfg.num_layers} "
           f"reduced={args.reduced} device={server.device} "
           f"kv_quant={args.kv_quant}")
-    tokens = synthetic_prompts(server.cfg, args.batch, args.prompt_len,
-                               device=server.device)
-    res = generate(server, tokens, args.gen)
+    batch = synthetic_batch(server.cfg, args.batch, args.prompt_len,
+                            device=server.device)
+    res = generate(server, batch, args.gen)
     dt = res["decode_ms_per_token"]
     print(f"[serve] prefill {args.batch}x{args.prompt_len}: "
           f"{res['prefill_ms']:.1f} ms (incl. kernel build on first use)")

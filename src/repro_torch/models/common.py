@@ -81,9 +81,20 @@ def remat_policy(cfg):
 # -- inits ------------------------------------------------------------------
 def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
                dtype=torch.float32, device=None):
-    """Normal with std ``1/sqrt(fan_in)``, as the reference's ``dense_init``."""
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return w.mul_(1.0 / math.sqrt(shape[in_axis])).to(dtype)
+    """Normal with std ``1/sqrt(fan_in)``, as the reference's ``dense_init``:
+    drawn in fp32, scaled, then cast. A stacked weight of another dtype is
+    drawn one leading slice at a time, so the fp32 draw never holds more
+    than one slice (qwen3-moe-235b-a22b's bf16 experts: 3.2 GB a layer
+    where the whole stack would take 38.6 GB in fp32)."""
+    scale = 1.0 / math.sqrt(shape[in_axis])
+    if dtype == torch.float32 or len(shape) < 3:
+        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+        return w.mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        out[i] = torch.randn(shape[1:], generator=gen, dtype=torch.float32,
+                             device=device).mul_(scale)
+    return out
 
 
 def embed_init(gen: torch.Generator, shape, dtype=torch.float32, device=None):
@@ -114,6 +125,20 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, dim: int, offset: int = 0, device=None):
+    """(seq, dim) fp32 encodings of positions offset .. offset+seq-1: sin in
+    the even columns, cos in the odd, of the same fp32 ``pos * div``
+    products as the reference."""
+    pos = torch.arange(offset, offset + seq, dtype=torch.float32,
+                       device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / dim))
+    pe = torch.zeros((seq, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 # -- attention ----------------------------------------------------------------

@@ -1,16 +1,24 @@
-"""Uniform model API (port of ``repro/models/registry.py``): the dense and
-hybrid families.
+"""Uniform model API (port of ``repro/models/registry.py``): every family of
+the reference (dense, MoE, VLM, hybrid, SSM, audio).
 
 ``build_model(cfg)`` returns a ``ModelApi`` of plain functions:
 ``init(seed, device=None)``, ``loss_fn(params, batch)``,
 ``prefill(params, batch, max_len=None)``,
-``decode_step(params, caches, token, pos)`` and ``forward(params, tokens)``;
-``param_spec()`` gives the params' shapes and dtypes without allocating
-them (built on the ``meta`` device). ``init`` runs on ``cuda`` unless
-``device`` says otherwise. The hybrid family's caches have a fixed size (a
-ring buffer of ``local_window`` positions and the recurrent states), so its
-``prefill`` ignores ``max_len``, as the reference's does. Both families
-train through ``loss_fn``.
+``decode_step(params, caches, token, pos)`` and
+``forward(params, tokens, *, patches=None, frames=None)``; ``param_spec()``
+gives the params' shapes and dtypes without allocating them (built on the
+``meta`` device). ``init`` runs on ``cuda`` unless ``device`` says
+otherwise. Every family trains through ``loss_fn``.
+
+A batch holds "tokens" (B,S), and "patches" (B,P,D) for the VLM family or
+"frames" (B,F,D) for the audio family. ``max_len`` defaults to what the
+reference's prefill sizes the cache to: the prompt (with the VLM's P patch
+positions in front). A caller that decodes passes room for its steps: for
+the VLM, P + S + steps, and it decodes at positions P+S, P+S+1, ... (the
+reference's ``launch/serve.py`` decodes at S + i, inside the patch positions'
+part of the cache: ROADMAP §3, R8). The hybrid and SSM families' caches
+have a fixed size, so their ``prefill`` ignores ``max_len``, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -22,7 +30,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import recurrent, transformer
+from repro_torch.models import recurrent, transformer, whisper, xlstm
+
+# the module that builds each family's params (``init_lm`` / ``init_model``)
+_INIT = {"dense": transformer.init_lm, "moe": transformer.init_lm,
+         "vlm": transformer.init_lm, "hybrid": recurrent.init_lm,
+         "ssm": xlstm.init_lm, "audio": whisper.init_model}
 
 
 @dataclass
@@ -32,16 +45,15 @@ class ModelApi:
     loss_fn: Callable            # (params, batch) -> scalar
     prefill: Callable            # (params, batch, max_len=None) -> (logits, caches)
     decode_step: Callable        # (params, caches, token, pos) -> (logits, caches)
-    forward: Callable            # (params, tokens) -> logits (B,S,V)
+    forward: Callable            # (params, tokens, *, patches, frames) -> logits (B,S,V)
 
     def param_spec(self):
         """The params as tensors on the ``meta`` device: shapes and dtypes
         only."""
-        mod = recurrent if self.cfg.family == "hybrid" else transformer
         gen = torch.Generator(device="cpu")
-        return mod.init_lm(gen, self.cfg,
-                           dtype=transformer.torch_dtype(self.cfg.param_dtype),
-                           device="meta")
+        return _INIT[self.cfg.family](
+            gen, self.cfg, dtype=transformer.torch_dtype(self.cfg.param_dtype),
+            device="meta")
 
 
 def leaves(tree) -> list:
@@ -59,30 +71,63 @@ def count_params(spec) -> int:
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:
-    transformer.check_family(cfg)
+    fam = cfg.family
+    if fam not in _INIT:
+        raise ValueError(f"unknown family {fam}")
     pdt = transformer.torch_dtype(cfg.param_dtype)
-    mod = recurrent if cfg.family == "hybrid" else transformer
 
     def init(seed: int = 0, device=None):
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return mod.init_lm(gen, cfg, dtype=pdt, device=dev)
+        return _INIT[fam](gen, cfg, dtype=pdt, device=dev)
 
-    def loss(params, batch):
-        return mod.loss_fn(params, batch, cfg)
+    if fam in ("dense", "moe", "vlm"):
+        def loss(params, batch):
+            return transformer.loss_fn(params, batch, cfg)
 
-    def pf(params, batch, max_len: int | None = None):
-        tokens = batch["tokens"]
-        if mod is recurrent:
-            return recurrent.prefill(params, tokens, cfg)
-        return transformer.prefill(params, tokens, cfg,
+        def pf(params, batch, max_len=None):
+            tokens, patches = batch["tokens"], batch.get("patches")
+            if max_len is None:
+                max_len = tokens.shape[1] + (
+                    0 if patches is None else patches.shape[1])
+            return transformer.prefill(params, tokens, cfg, max_len,
+                                       extra_embeds=patches)
+
+        def dec(params, caches, token, pos):
+            return transformer.decode_step(params, caches, token, pos, cfg)
+
+        def fwd(params, tokens, *, patches=None, frames=None):
+            return transformer.forward(params, tokens, cfg, extra_embeds=patches)
+
+    elif fam in ("hybrid", "ssm"):
+        mod = recurrent if fam == "hybrid" else xlstm
+
+        def loss(params, batch):
+            return mod.loss_fn(params, batch, cfg)
+
+        def pf(params, batch, max_len=None):
+            return mod.prefill(params, batch["tokens"], cfg)
+
+        def dec(params, caches, token, pos):
+            return mod.decode_step(params, caches, token, pos, cfg)
+
+        def fwd(params, tokens, *, patches=None, frames=None):
+            return mod.forward(params, tokens, cfg)
+
+    else:  # audio
+        def loss(params, batch):
+            return whisper.loss_fn(params, batch, cfg)
+
+        def pf(params, batch, max_len=None):
+            tokens = batch["tokens"]
+            return whisper.prefill(params, batch["frames"], tokens, cfg,
                                    tokens.shape[1] if max_len is None else max_len)
 
-    def dec(params, caches, token, pos):
-        return mod.decode_step(params, caches, token, pos, cfg)
+        def dec(params, caches, token, pos):
+            return whisper.decode_step(params, caches, token, pos, cfg)
 
-    def fwd(params, tokens):
-        return mod.forward(params, tokens, cfg)
+        def fwd(params, tokens, *, patches=None, frames=None):
+            return whisper.forward(params, tokens, frames, cfg)
 
     return ModelApi(cfg=cfg, init=init, loss_fn=loss, prefill=pf,
                     decode_step=dec, forward=fwd)

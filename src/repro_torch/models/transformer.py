@@ -16,10 +16,11 @@ writes one position of it and returns the same dict. Writing past
 ``max_len`` raises, where the reference's ``dynamic_update_slice`` would
 clamp the position and overwrite the last slot.
 
-``apply_attn`` also serves the hybrid family's local attention
-(``window > 0``, ``models/recurrent.py``) with its ring-buffer cache. The
-dense family is the only one built here: MoE and VLM patches come with
-ROADMAP item M11.
+The same backbone carries the MoE family (``models/moe.py`` in place of
+the MLP) and the VLM family (``extra_embeds``: patch embeddings (B,P,D)
+prepended to the token embeddings, at positions 0 .. P-1). ``apply_attn``
+also serves the hybrid family's local attention (``window > 0``,
+``models/recurrent.py``) with its ring-buffer cache.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (
     NEG_INF,
     _repeat_kv,
@@ -48,13 +50,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
-
-
-def check_family(cfg: ModelConfig):
-    """Raise for a model family the port does not run yet."""
-    if cfg.family not in ("dense", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP M11)")
 
 
 # -- per-layer ---------------------------------------------------------------
@@ -110,23 +105,23 @@ def apply_attn(p, x, cfg: ModelConfig, *, pos0: int, cache: dict | None = None,
         out = _apply_window_cache(q, k, v, cache, cfg, positions, pos0, window)
     else:
         if cache is not None:
-            k, v = _write_cache(k, v, cache, cfg, pos0)
+            k, v = _write_cache(k, v, cache, pos0, cfg.kv_quant)
         out = attention(q, k, v, impl=_impl(cfg), causal=True, window=window,
                         q_offset=pos0)
     out = out.reshape(b, s, cfg.num_heads * hd)
     return out @ p["wo"].to(dt)
 
 
-def _write_cache(k, v, cache, cfg: ModelConfig, pos0: int):
-    """Write k/v at ``pos0`` into the dense cache; return the whole cached
-    k/v in k's dtype."""
+def _write_cache(k, v, cache, pos0: int, kv_quant: bool = False):
+    """Write k/v at ``pos0`` into the dense cache (int8 codes and scales with
+    ``kv_quant``); return the whole cached k/v in k's dtype."""
     s, dt = k.shape[1], k.dtype
     max_len = cache["k"].shape[1]
     if pos0 < 0 or pos0 + s > max_len:
         raise ValueError(f"positions {pos0}..{pos0 + s - 1} do not fit a "
                          f"cache of {max_len}")
     sl = slice(pos0, pos0 + s)
-    if cfg.kv_quant:
+    if kv_quant:
         # int8 KV cache with per-(token, head) max-abs bf16 scales.
         kq, ks = _kv_quantize(k)
         vq, vs = _kv_quantize(v)
@@ -183,13 +178,17 @@ def _window_cache_attention(q, k, v, kpos, cur_pos: int, window: int):
 
 def init_block(gen, cfg: ModelConfig, dtype=torch.float32, device=None,
                lead: tuple = ()):
-    return {
+    p = {
         "ln1": torch.ones((*lead, cfg.d_model), dtype=dtype, device=device),
         "attn": init_attn(gen, cfg, dtype, device, lead),
         "ln2": torch.ones((*lead, cfg.d_model), dtype=dtype, device=device),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype,
-                        device, lead),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe_mod.init_moe(gen, cfg, dtype, device, lead)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype,
+                            device, lead)
+    return p
 
 
 def apply_block(p, x, cfg: ModelConfig, *, pos0: int, cache=None):
@@ -197,6 +196,8 @@ def apply_block(p, x, cfg: ModelConfig, *, pos0: int, cache=None):
                    cfg, pos0=pos0, cache=cache)
     x = x + h
     h = rms_norm(x, p["ln2"].to(x.dtype), cfg.norm_eps)
+    if cfg.family == "moe":
+        return x + moe_mod.apply_moe(p["moe"], h, cfg)
     return x + apply_mlp(p["mlp"], h, gated=cfg.gated_mlp)
 
 
@@ -262,18 +263,30 @@ def _logits(params, x, cfg: ModelConfig):
     return x @ w.to(x.dtype)
 
 
-def forward(params, tokens, cfg: ModelConfig):
-    """tokens (B,S) -> logits (B,S,V)."""
+def _embed_with_extra(params, tokens, cfg: ModelConfig, extra_embeds):
+    """Token embeddings, with ``extra_embeds`` (B,P,D) in front of them."""
     dt = torch_dtype(cfg.dtype)
     x = _embed(params, tokens, cfg, dt)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(dt), x], dim=1)
+    return x
+
+
+def forward(params, tokens, cfg: ModelConfig, *, extra_embeds=None):
+    """tokens (B,S) -> logits (B,S,V). ``extra_embeds`` (B,P,D) are
+    prepended (VLM patches); logits come for the token positions only."""
+    x = _embed_with_extra(params, tokens, cfg, extra_embeds)
     x = _run_blocks(params, x, cfg, pos0=0)
+    if extra_embeds is not None:
+        x = x[:, extra_embeds.shape[1]:]
     return _logits(params, x, cfg)
 
 
 def loss_fn(params, batch, cfg: ModelConfig):
     """Mean next-token cross entropy of ``batch`` ({"tokens", "labels"} of
-    (B,S), optional "mask")."""
-    logits = forward(params, batch["tokens"], cfg)
+    (B,S), optional "mask" and, for the VLM family, "patches" (B,P,D))."""
+    logits = forward(params, batch["tokens"], cfg,
+                     extra_embeds=batch.get("patches"))
     return cross_entropy(logits, batch["labels"], batch.get("mask"))
 
 
@@ -302,10 +315,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
 
 
-def prefill(params, tokens, cfg: ModelConfig, max_len: int):
-    """Run the prompt, fill a new cache; returns (last_logits (B,1,V), cache)."""
-    dt = torch_dtype(cfg.dtype)
-    x = _embed(params, tokens, cfg, dt)
+def prefill(params, tokens, cfg: ModelConfig, max_len: int, *,
+            extra_embeds=None):
+    """Run the prompt, fill a new cache; returns (last_logits (B,1,V), cache).
+    With ``extra_embeds`` (B,P,D) the prompt is the P embeddings and then the
+    tokens, at positions 0 .. P+S-1: ``max_len`` counts both, and decoding
+    goes on at position P+S."""
+    x = _embed_with_extra(params, tokens, cfg, extra_embeds)
     b = x.shape[0]
     caches = init_cache(cfg, b, max_len, device=x.device)
     x = _run_blocks(params, x, cfg, pos0=0, caches=caches)

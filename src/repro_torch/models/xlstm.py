@@ -1,0 +1,350 @@
+"""xLSTM: mLSTM (matrix-memory) + sLSTM blocks, xLSTM[7:1] layout (port of
+``repro/models/xlstm.py``).
+
+mLSTM uses the chunkwise-parallel linear-recurrence form: within a chunk an
+attention-like quadratic (L_c x L_c) with multiplicative gate decays; across
+chunks a carried matrix state C (NH, dh, dh) and normalizer n (NH, dh):
+
+    C_t = f_t C_{t-1} + i_t v_t k_t^T
+    n_t = f_t n_{t-1} + i_t k_t
+    h_t = (C_t q_t) / max(|n_t . q_t|, 1)
+
+with sigmoid input and forget gates, as in the reference. sLSTM is a
+per-head recurrent cell, a loop over time here (``jax.lax.scan`` in the
+reference), with an O(1) decode state. The layers of each period (7 mLSTM
+blocks stacked, then one sLSTM block) are stacked again over the periods
+under ``"periods"``, in the reference's layout.
+
+No kernel of the reference is in this family: on a CUDA tensor it runs K2
+(``rms_norm``), twice per block and once before the head; the rest is
+plain PyTorch.
+
+Unlike the reference, the states are updated in place: ``prefill``
+allocates them and ``decode_step`` writes them and returns the same dict.
+``prefill`` runs the head on the last position only.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, noop_context_fn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tr
+from repro_torch.models.common import (
+    cross_entropy,
+    dense_init,
+    embed_init,
+    remat_policy,
+    rms_norm,
+)
+from repro_torch.models.recurrent import causal_conv1d, conv1d_step
+
+CHUNK = 256
+
+
+def _dims(cfg: ModelConfig):
+    di = int(cfg.proj_factor * cfg.d_model)
+    nh = cfg.num_heads
+    return di, nh, di // nh
+
+
+# -- mLSTM --------------------------------------------------------------------
+def init_mlstm(gen, cfg: ModelConfig, dtype=torch.float32, device=None,
+               lead: tuple = ()):
+    d = cfg.d_model
+    di, nh, dh = _dims(cfg)
+    n = len(lead)
+    return {
+        "ln": torch.ones((*lead, d), dtype=dtype, device=device),
+        "w_up": dense_init(gen, (*lead, d, 2 * di), n, dtype, device),
+        "conv_w": dense_init(gen, (*lead, cfg.conv_width, di), n, dtype, device),
+        "wq": dense_init(gen, (*lead, nh, dh, dh), n + 1, dtype, device),
+        "wk": dense_init(gen, (*lead, nh, dh, dh), n + 1, dtype, device),
+        "wv": dense_init(gen, (*lead, nh, dh, dh), n + 1, dtype, device),
+        "w_i": dense_init(gen, (*lead, di, nh), n, dtype, device),
+        "w_f": dense_init(gen, (*lead, di, nh), n, dtype, device),
+        "f_bias": torch.full((*lead, nh), 3.0, dtype=dtype, device=device),
+        "gn": torch.ones((*lead, di), dtype=dtype, device=device),
+        "w_down": dense_init(gen, (*lead, di, d), n, dtype, device),
+    }
+
+
+def _mlstm_chunk_scan(q, k, v, i, logf, C0, n0):
+    """Chunkwise mLSTM. q,k,v: (B,S,NH,dh); i,logf: (B,S,NH) fp32.
+    C0: (B,NH,dh,dh), n0: (B,NH,dh) fp32. Returns (h (B,S,NH,dh), C, n).
+    The last chunk is zero-padded to CHUNK positions, as in the reference."""
+    b, s, nh, dh = q.shape
+    L = min(CHUNK, s)
+    nc = -(-s // L)
+    pad = nc * L - s
+    if pad:
+        q, k, v = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (q, k, v))
+        i, logf = (F.pad(x, (0, 0, 0, pad)) for x in (i, logf))
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))
+    C, n = C0, n0
+    hs = []
+    for ci in range(nc):
+        sl = slice(ci * L, (ci + 1) * L)
+        qc, kc, vc, ic, lfc = q[:, sl], k[:, sl], v[:, sl], i[:, sl], logf[:, sl]
+        cl = torch.cumsum(lfc, dim=1)                  # (B,L,NH) log cumulative decay
+        qk = torch.einsum("blhd,bmhd->bhlm", qc, kc).float()
+        clt = cl.transpose(1, 2)                       # (B,NH,L)
+        # above the diagonal the decay may overflow to inf; the mask picks
+        # zero there (a multiply by the mask would make inf * 0 = nan)
+        decay = torch.exp(clt[:, :, :, None] - clt[:, :, None, :])
+        A = qk * decay * ic.transpose(1, 2)[:, :, None, :].float()
+        A = torch.where(mask[None, None], A, 0.0)
+        h_intra = torch.einsum("bhlm,bmhd->blhd", A.to(qc.dtype), vc)
+        d_intra = A.sum(-1).transpose(1, 2)                        # (B,L,NH)
+        ecl = torch.exp(cl)                                        # (B,L,NH)
+        h_inter = torch.einsum("blhd,bhde->blhe", qc, C.to(qc.dtype)) * \
+            ecl[..., None].to(qc.dtype)
+        d_inter = torch.einsum("blhd,bhd->blh", qc.float(), n) * ecl
+        denom = torch.clamp_min(torch.abs(d_intra + d_inter), 1.0)
+        h = (h_intra.float() + h_inter.float()) / denom[..., None]
+        e_end = torch.exp(cl[:, -1])                               # (B,NH)
+        w_end = torch.exp(cl[:, -1][:, None] - cl) * ic.float()
+        C = e_end[:, :, None, None] * C + torch.einsum(
+            "blh,blhd,blhe->bhde", w_end, kc.float(), vc.float())
+        n = e_end[:, :, None] * n + torch.einsum(
+            "blh,blhd->bhd", w_end, kc.float())
+        hs.append(h.to(qc.dtype))
+    h = torch.cat(hs, dim=1)
+    return h[:, :s], C, n
+
+
+def apply_mlstm(p, x, cfg: ModelConfig, *, state=None):
+    """x: (B,S,D) -> x + the block's output. ``state`` ({"C", "n"} fp32,
+    "conv" bf16) is read and written in place: one step for S == 1, the
+    prompt scanned from the carried state otherwise."""
+    dt = x.dtype
+    b, s, d = x.shape
+    di, nh, dh = _dims(cfg)
+    h0 = rms_norm(x, p["ln"].to(dt), cfg.norm_eps)
+    up = h0 @ p["w_up"].to(dt)
+    xm, z = torch.chunk(up, 2, dim=-1)
+
+    if state is None:
+        xc = F.silu(causal_conv1d(p["conv_w"], xm))
+    elif s == 1:
+        c_out, conv_state = conv1d_step(p["conv_w"], xm, state["conv"].to(dt))
+        xc = F.silu(c_out)
+        new_conv = conv_state
+    else:  # prefill from the carried conv state
+        cw = cfg.conv_width
+        hist = torch.cat([state["conv"].to(dt), xm], dim=1)
+        xc = F.silu(causal_conv1d(p["conv_w"], hist)[:, cw - 1:])
+        new_conv = hist[:, -(cw - 1):]
+
+    def headwise(w, src):
+        return torch.einsum("blhd,hde->blhe", src.reshape(b, s, nh, dh), w.to(dt))
+
+    q = headwise(p["wq"], xc)
+    k = headwise(p["wk"], xc) / torch.tensor(math.sqrt(dh), dtype=torch.float32
+                                             ).to(dt)
+    v = headwise(p["wv"], xm)
+    gate_i = torch.sigmoid((xm @ p["w_i"].to(dt)).float())
+    logf = F.logsigmoid((xm @ p["w_f"].to(dt)).float() + p["f_bias"].float())
+
+    if state is None:
+        C0 = torch.zeros((b, nh, dh, dh), dtype=torch.float32, device=x.device)
+        n0 = torch.zeros((b, nh, dh), dtype=torch.float32, device=x.device)
+    else:
+        C0, n0 = state["C"], state["n"]
+
+    if s == 1 and state is not None:
+        f = torch.exp(logf[:, 0])                                  # (B,NH)
+        kf, vf, qf = k[:, 0].float(), v[:, 0].float(), q[:, 0].float()
+        C = f[:, :, None, None] * C0 + gate_i[:, 0][:, :, None, None] * \
+            torch.einsum("bhd,bhe->bhde", kf, vf)
+        n = f[:, :, None] * n0 + gate_i[:, 0][:, :, None] * kf
+        num = torch.einsum("bhd,bhde->bhe", qf, C)
+        den = torch.clamp_min(torch.abs(torch.einsum("bhd,bhd->bh", qf, n)), 1.0)
+        h = (num / den[..., None]).to(dt)[:, None]
+    else:
+        h, C, n = _mlstm_chunk_scan(q, k, v, gate_i, logf, C0, n0)
+
+    h = rms_norm(h.reshape(b, s, di), p["gn"].to(dt), cfg.norm_eps)
+    out = (h * F.silu(z)) @ p["w_down"].to(dt)
+    if state is not None:
+        state["C"].copy_(C)
+        state["n"].copy_(n)
+        state["conv"].copy_(new_conv)
+    return x + out
+
+
+def init_mlstm_state(cfg: ModelConfig, batch: int, device=None, lead: tuple = ()):
+    di, nh, dh = _dims(cfg)
+    return {
+        "C": torch.zeros((*lead, batch, nh, dh, dh), dtype=torch.float32,
+                         device=device),
+        "n": torch.zeros((*lead, batch, nh, dh), dtype=torch.float32,
+                         device=device),
+        "conv": torch.zeros((*lead, batch, cfg.conv_width - 1, di),
+                            dtype=torch.bfloat16, device=device),
+    }
+
+
+# -- sLSTM --------------------------------------------------------------------
+def init_slstm(gen, cfg: ModelConfig, dtype=torch.float32, device=None,
+               lead: tuple = ()):
+    d = cfg.d_model
+    nh = cfg.num_heads
+    dh = d // nh
+    n = len(lead)
+    return {
+        "ln": torch.ones((*lead, d), dtype=dtype, device=device),
+        "w_gates": dense_init(gen, (*lead, d, 4 * d), n, dtype, device),
+        "r_gates": dense_init(gen, (*lead, nh, dh, 4 * dh), n + 1, dtype, device),
+        "gn": torch.ones((*lead, d), dtype=dtype, device=device),
+        "w_out": dense_init(gen, (*lead, d, d), n, dtype, device),
+    }
+
+
+def _slstm_cell(gx, h_prev, c_prev, r_gates, nh, dh):
+    """gx: (B,4D) precomputed input gates; h_prev (B,D) and r_gates in the
+    activations' dtype, c_prev (B,D) fp32. Returns (h, c)."""
+    b = gx.shape[0]
+    gr = torch.einsum("bhd,hde->bhe", h_prev.reshape(b, nh, dh), r_gates)
+    g = gx + gr.reshape(b, -1)
+    i, f, z, o = torch.chunk(g, 4, dim=-1)
+    c = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(z)
+    h = torch.sigmoid(o) * torch.tanh(c)
+    return h, c
+
+
+def apply_slstm(p, x, cfg: ModelConfig, *, state=None):
+    """x: (B,S,D) -> x + the block's output; the cell runs step by step over
+    S. ``state`` ({"h", "c" fp32}) is read and written in place."""
+    dt = x.dtype
+    b, s, d = x.shape
+    nh = cfg.num_heads
+    dh = d // nh
+    xn = rms_norm(x, p["ln"].to(dt), cfg.norm_eps)
+    gx = xn @ p["w_gates"].to(dt)                                  # (B,S,4D)
+    if state is None:
+        h = torch.zeros((b, d), dtype=dt, device=x.device)
+        c = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+    else:
+        h, c = state["h"].to(dt), state["c"]
+    r_gates = p["r_gates"].to(dt)          # cast once, not on every step
+    hs = []
+    for t in range(s):
+        h2, c = _slstm_cell(gx[:, t], h, c.float(), r_gates, nh, dh)
+        h = h2.to(dt)
+        hs.append(h)
+    hseq = torch.stack(hs, dim=1)
+    out = rms_norm(hseq, p["gn"].to(dt), cfg.norm_eps) @ p["w_out"].to(dt)
+    if state is not None:
+        state["h"].copy_(h)
+        state["c"].copy_(c)
+    return x + out
+
+
+def init_slstm_state(cfg: ModelConfig, batch: int, device=None, lead: tuple = ()):
+    """h in the activations' dtype, c in fp32. The reference allocates h in
+    bf16, but its prefill returns h in the activations' dtype (the scan's
+    carry), and decode reads that: so with fp32 activations h is fp32."""
+    return {
+        "h": torch.zeros((*lead, batch, cfg.d_model),
+                         dtype=tr.torch_dtype(cfg.dtype), device=device),
+        "c": torch.zeros((*lead, batch, cfg.d_model), dtype=torch.float32,
+                         device=device),
+    }
+
+
+# -- model ----------------------------------------------------------------------
+def _shape(cfg: ModelConfig) -> tuple[int, int]:
+    """(periods, mLSTM blocks per period)."""
+    per = cfg.slstm_every
+    return cfg.num_layers // per, per - 1
+
+
+def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
+            device=None):
+    """The reference's init distributions, drawn from ``gen`` on ``device``
+    directly into the stacked tensors: (periods, 7, ...) for the mLSTM
+    blocks, (periods, ...) for the sLSTM blocks."""
+    n_p, n_m = _shape(cfg)
+    return {
+        "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype, device),
+        "periods": {"mlstm": init_mlstm(gen, cfg, dtype, device, lead=(n_p, n_m)),
+                    "slstm": init_slstm(gen, cfg, dtype, device, lead=(n_p,))},
+        "ln_f": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "lm_head": dense_init(gen, (cfg.d_model, cfg.vocab_size), 0, dtype,
+                              device),
+    }
+
+
+def _apply_period(p_slot, x, cfg, caches=None):
+    for j, p_l in enumerate(tr._unbind(p_slot["mlstm"])):
+        x = apply_mlstm(p_l, x, cfg,
+                        state=None if caches is None else tr._layer(caches["mlstm"], j))
+    return apply_slstm(p_slot["slstm"], x, cfg,
+                       state=None if caches is None else caches["slstm"])
+
+
+def _run_periods(params, x, cfg: ModelConfig, caches=None):
+    """With ``cfg.remat`` and autograd recording (no caches), each period
+    runs under ``torch.utils.checkpoint``, as the reference wraps
+    ``_apply_period`` in ``jax.checkpoint``."""
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    context_fn = remat_policy(cfg) or noop_context_fn
+    for i, p_i in enumerate(tr._unbind(params["periods"])):
+        if remat:
+            x = checkpoint(_apply_period, p_i, x, cfg, use_reentrant=False,
+                           context_fn=context_fn)
+        else:
+            x = _apply_period(p_i, x, cfg,
+                              None if caches is None else tr._layer(caches, i))
+    return x
+
+
+def _head(params, x, cfg: ModelConfig):
+    dt = x.dtype
+    x = rms_norm(x, params["ln_f"].to(dt), cfg.norm_eps)
+    return x @ params["lm_head"].to(dt)
+
+
+def forward(params, tokens, cfg: ModelConfig):
+    """tokens (B,S) -> logits (B,S,V)."""
+    dt = tr.torch_dtype(cfg.dtype)
+    x = _run_periods(params, tr._embed(params, tokens, cfg, dt), cfg)
+    return _head(params, x, cfg)
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Mean next-token cross entropy of ``batch`` ({"tokens", "labels"} of
+    (B,S), optional "mask")."""
+    logits = forward(params, batch["tokens"], cfg)
+    return cross_entropy(logits, batch["labels"], batch.get("mask"))
+
+
+def init_caches(cfg: ModelConfig, batch: int, device=None):
+    """The recurrent states, stacked as the params: (periods, 7, B, ...) for
+    the mLSTM blocks, (periods, B, ...) for the sLSTM blocks."""
+    n_p, n_m = _shape(cfg)
+    return {"mlstm": init_mlstm_state(cfg, batch, device, lead=(n_p, n_m)),
+            "slstm": init_slstm_state(cfg, batch, device, lead=(n_p,))}
+
+
+def prefill(params, tokens, cfg: ModelConfig):
+    """Run the prompt through new states; returns (last_logits (B,1,V),
+    caches). The states have a fixed size, so there is no ``max_len``."""
+    dt = tr.torch_dtype(cfg.dtype)
+    x = tr._embed(params, tokens, cfg, dt)
+    caches = init_caches(cfg, x.shape[0], device=x.device)
+    x = _run_periods(params, x, cfg, caches)
+    return _head(params, x[:, -1:].contiguous(), cfg), caches
+
+
+def decode_step(params, caches, token, pos: int, cfg: ModelConfig):
+    """One decode step (``pos`` is not needed: the states carry the
+    position); updates ``caches`` in place."""
+    dt = tr.torch_dtype(cfg.dtype)
+    x = _run_periods(params, tr._embed(params, token[:, None], cfg, dt), cfg,
+                     caches)
+    return _head(params, x, cfg), caches

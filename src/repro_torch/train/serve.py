@@ -20,7 +20,9 @@ def make_serve_fns(api: ModelApi, device=None,
                    parallel: ParallelConfig = ParallelConfig()):
     """Returns (prefill, decode) on ``device`` (``cuda`` unless given).
 
-    ``prefill(params, batch, max_len=None) -> (last_logits, caches)`` and
+    ``prefill(params, batch, max_len=None) -> (last_logits, caches)`` (the
+    batch's "tokens", and "patches" or "frames" where the family takes
+    them) and
     ``decode(params, caches, token, pos) -> (logits, caches)``; decode
     writes ``caches`` in place."""
     if math.prod(parallel.mesh_shape) != 1:
@@ -36,9 +38,10 @@ def make_serve_fns(api: ModelApi, device=None,
 
     def prefill(params, batch, max_len: int | None = None):
         _check(params)
+        inputs = {k: batch[k].to(dev) for k in ("tokens", "patches", "frames")
+                  if k in batch}
         with torch.inference_mode():
-            return api.prefill(params, {"tokens": batch["tokens"].to(dev)},
-                               max_len)
+            return api.prefill(params, inputs, max_len)
 
     def decode(params, caches, token, pos: int):
         _check(params)

@@ -29,8 +29,9 @@ PORT_SHAPES = [("train", 1024, 4, "train"), ("train", 4096, 2, "train"),
 MESHES = [{"data": 1, "model": 1}, {"data": 8, "model": 1},
           {"data": 4, "model": 2}, {"pod": 2, "data": 2, "model": 2}]
 PARALLEL = [dict(), dict(model=2), dict(model=2, fsdp=True)]
-ARCHS = ["granite-34b", "llama3-8b", "qwen2.5-14b", "qwen2.5-3b",
-         "recurrentgemma-2b"]
+ARCHS = ["deepseek-moe-16b", "granite-34b", "internvl2-26b", "llama3-8b",
+         "qwen2.5-14b", "qwen2.5-3b", "qwen3-moe-235b-a22b", "recurrentgemma-2b",
+         "whisper-medium", "xlstm-1.3b"]
 
 
 def test_constants_are_the_h100s():

@@ -50,16 +50,20 @@ def _np(x):
 
 
 def test_configs_match_reference():
-    """Field for field, and only the families the port runs are registered
-    (deepseek-moe-16b, an MoE config of the reference, is not)."""
-    for arch in DENSE_ARCHS:
+    """Field for field, for all ten architectures of the reference, which
+    the port registers, and no other name."""
+    from repro.configs import list_archs as jax_list_archs
+    from repro_torch.configs import list_archs
+
+    assert list_archs() == jax_list_archs() and len(list_archs()) == 10
+    for arch in list_archs():
         for reduced in (False, True):
             j = jax_get_arch(arch, reduced=reduced)
             t = get_arch(arch, reduced=reduced)
             assert {f: getattr(t, f) for f in t.__dataclass_fields__} == \
                 {f: getattr(j, f) for f in j.__dataclass_fields__}
     with pytest.raises(KeyError):
-        get_arch("deepseek-moe-16b")
+        get_arch("deepseek-moe-17b")
 
 
 @pytest.mark.parametrize("arch", DENSE_ARCHS)
@@ -196,10 +200,32 @@ def test_decode_past_cache_raises():
         ttr.decode_step(tparams, caches, toks[:, -1], 8, tcfg)
 
 
-def test_moe_and_sharded_serving_raise():
+@pytest.mark.parametrize("arch,path", [
+    ("deepseek-moe-16b", ("blocks", "moe", "shared", "wg")),
+    ("whisper-medium", ("dec_blocks", "cross_attn", "wk")),
+    ("xlstm-1.3b", ("periods", "mlstm", "wq"))])
+def test_bridge_carries_every_family_tree(arch, path):
+    """``bridge.params_from_jax`` keeps any nesting: "moe" (and its "shared"
+    MLP) inside "blocks", "enc_blocks" and "dec_blocks", "periods" with
+    "mlstm" stacked twice; every leaf equal to the bit."""
+    jp = jax.tree.map(np.asarray, jax_build_model(
+        jax_get_arch(arch, reduced=True)).init(jax.random.key(0)))
+    tp = bridge.params_from_jax(jp, device="cpu")
+    jl = jax.tree_util.tree_leaves_with_path(jp)
+    tl = dict(jax.tree_util.tree_leaves_with_path(
+        tp, is_leaf=lambda x: isinstance(x, torch.Tensor)))
+    assert [jax.tree_util.keystr(k) for k, _ in jl] == \
+        [jax.tree_util.keystr(k) for k in tl]
+    for (k, v), t in zip(jl, tl.values()):
+        np.testing.assert_array_equal(bridge.to_numpy(t), np.asarray(v, np.float32))
+    leaf_j, leaf_t = jp, tp
+    for key in path:
+        leaf_j, leaf_t = leaf_j[key], leaf_t[key]
+    assert tuple(leaf_t.shape) == leaf_j.shape
+
+
+def test_sharded_serving_raises():
     cfg = get_arch("llama3-8b", reduced=True)
-    with pytest.raises(NotImplementedError, match="M11"):
-        build_model(cfg.replace(family="moe"))
     with pytest.raises(NotImplementedError, match="M12"):
         make_serve_fns(build_model(cfg), device="cpu",
                        parallel=ParallelConfig(data=2, model=4))
