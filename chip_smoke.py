@@ -67,6 +67,17 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    activations, the reference's own bound, and <= 3e-2 with fp32
    activations); the reduced config (40-token prompt, window 32) on the
    card against the CPU;
+   the sharded runtime on the card (``phase_sharded_serve``,
+   ``phase_hybrid_sharded_serve``, each right after its model's profile):
+   a one-rank NCCL group (a ``file://`` store) and a (data 1, model 1)
+   ``Mesh`` with its ``DeviceMesh``; the served weights wrapped as DTensors
+   on ``param_pspec``'s placements with no copy, the same batch through the
+   sharded ``make_serve_fns`` (caches on ``cache_pspec``), a warm-up at the
+   counted shapes (its prefill ms printed: DTensor's first propagation),
+   then 16 greedy steps: launch counts per step equal the single-device
+   run's, prefill and last logits within 2e-2 of it (0.0 on an H100) and
+   the same ids, prefill and decode ms beside the single-device path's;
+   the group is destroyed after, so later phases run as before;
    then qwen2.5-14b at its published width and depth (48 layers, d_model
    5120, 40 q heads on 8 kv heads: a GQA group of 5, QKV bias; 14.77 B
    params, 59.1 GB in fp32) and granite-34b at its published width (48 q
@@ -116,7 +127,14 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    the same weights and batch as the GSPMD step: losses and gnorms within 1e-5
    relative, params per leaf within 1e-4 of the update's L2 and 1e-2 lr per
    element (set from that phase's own readings on an H100, 2.0e-6 and
-   4e-4, with room on both sides); the reduced qwen2.5-3b (head dim 16,
+   4e-4, with room on both sides); the sharded GSPMD step at the same
+   size (``phase_sharded_train``): 3 single-device steps through
+   ``launch/train.py``, then the same command on a one-rank (data 1,
+   model 1) NCCL mesh (DTensor params and ZeRO-1 m/v, the batch on
+   ``batch_pspec``): losses and gnorms within 1e-5 relative, params within
+   the Themis phase's limits, equal launch counts, the step ms of both;
+   and the GPipe loss of one "pipe" stage at n_micro 4 within 1e-3 of
+   ``loss_fn`` (bf16); the reduced qwen2.5-3b (head dim 16,
    the SIMT routes) on
    the card against the CPU with the same weights and batch, loss and
    per-leaf grads within 1e-4 relative L2 with fp32 activations, and within
@@ -205,6 +223,7 @@ repository, or when any phase fails.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -233,6 +252,7 @@ HYB_TRAIN_ATTN = (HYB_TRAIN_BATCH, HYB_TRAIN_SEQ, HYB["h"], HYB["kv"], HYB["d"],
 HYB_TRAIN_X = (HYB_TRAIN_BATCH, HYB_TRAIN_SEQ, HYB["d_model"])
 QWEN = dict(h=16, kv=2, d=128, d_model=2048, layers=36)
 THEMIS_LAYERS, THEMIS_STEPS = 18, 2
+SHARDED_STEPS = 3
 # the two dense configs served at full width: qwen2.5-14b (a GQA group of 5)
 # at its published depth, granite-34b (MQA: 48 q heads on one kv head) cut
 # to 40 of its 88 layers, whose fp32 weights then take 63.1 GB of the card
@@ -381,16 +401,17 @@ def main() -> int:
     emit(settings={"cuda.matmul.allow_tf32": False, "cudnn.allow_tf32": False,
                    "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    state: dict = {"card": card}
+    state: dict = {"card": card, "kernels": []}
     failed = []
-    phases = (phase_kernels, phase_serve, phase_profile, phase_teacher_forcing,
-              phase_card_vs_cpu, phase_hybrid_serve, phase_hybrid_profile,
+    phases = (phase_kernels, phase_serve, phase_profile, phase_sharded_serve,
+              phase_teacher_forcing, phase_card_vs_cpu, phase_hybrid_serve,
+              phase_hybrid_profile, phase_hybrid_sharded_serve,
               phase_hybrid_teacher_forcing, phase_hybrid_card_vs_cpu,
               phase_dense14b_serve, phase_granite_serve, phase_moe16b_serve,
               phase_qwen3moe_serve, phase_vlm_serve, phase_whisper_serve,
               phase_xlstm_serve,
               phase_train, phase_train_profile, phase_train_dots,
-              phase_train_dots_profile, phase_themis_train,
+              phase_train_dots_profile, phase_themis_train, phase_sharded_train,
               phase_train_card_vs_cpu, phase_ckpt_resume, phase_hybrid_train,
               phase_hybrid_train_profile, phase_hybrid_train_dots,
               phase_hybrid_train_dots_profile, phase_hybrid_train_card_vs_cpu,
@@ -932,7 +953,10 @@ def _serve(state, arch, prompt, expect, layers=0, on_reset=None):
         assert c == expect[kind], f"{kind}: launches {c}, expected {expect[kind]}"
     return {"server": server, "tokens": batch["tokens"], "batch": batch,
             "ids": res["ids"], "launches": total, "prompt": prompt,
-            "decode_ms_per_token": res["decode_ms_per_token"]}
+            "decode_ms_per_token": res["decode_ms_per_token"],
+            "prefill_ms": res["prefill_ms"], "expect": expect,
+            "prefill_logits": res["prefill_logits"].float(),
+            "last_logits": res["last_logits"].float()}
 
 
 NO_BACKWARD = {"flash_attention_bwd": 0, "flash_attention_bwd_sm90": 0,
@@ -960,6 +984,103 @@ def phase_hybrid_serve(state):
                     "rmsnorm": 2 * n + 1, "rglru_scan": rec, **NO_BACKWARD},
         "decode": {"flash_attention": 0, "flash_attention_sm90": 0,
                    "rmsnorm": 2 * n + 1, "rglru_scan": 0, **NO_BACKWARD}})
+
+
+@contextlib.contextmanager
+def _one_rank_mesh(names=("data", "model")):
+    """A one-rank NCCL process group (a ``file://`` store in a temporary
+    directory) and a ``Mesh`` of 1 x ... x 1 over it, with its
+    ``DeviceMesh``: the sharded runtime's path on one card. The group is
+    destroyed on the way out, so later phases run as before. The DTensor
+    API must import; nothing falls back to the single-device path."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor  # noqa: F401
+    from torch.distributed.tensor.experimental import (  # noqa: F401
+        implicit_replication,
+        local_map,
+    )
+
+    from repro_torch.launch.mesh import Mesh
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = Mesh((1,) * len(names), names, "cuda")
+        assert mesh.device_mesh is not None
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _sharded_serve(state, arch):
+    """``arch``'s served weights (``_serve``'s, still on the card) through
+    the sharded ``make_serve_fns`` on a one-rank (data 1, model 1) mesh:
+    the param DTensors wrap the same storage (no second copy), the same
+    batch and GEN greedy steps. Launch counts per step equal the
+    single-device run's; the prefill and last logits within 2e-2 of it
+    (bit-equal expected; the max abs differences are printed) and the same
+    ids; prefill ms and decode ms per token beside the single-device
+    path's (the difference is DTensor's host cost)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import leaves
+
+    run = state[arch]
+    single = run["server"]
+    with _one_rank_mesh() as mesh:
+        server = serve.setup(arch, device="cuda", mesh=mesh,
+                             params=single.params)
+        same = all(a.to_local().data_ptr() == b.data_ptr()
+                   for a, b in zip(leaves(server.params), leaves(single.params)))
+        batch = run["batch"]
+        # the warm-up at the counted run's shapes: DTensor propagates each
+        # op's placements once per new shape (its cost is printed)
+        first = serve.generate(server, batch, 2)
+        torch.cuda.synchronize()
+        snaps = []
+        reset_launch_counts()
+        res = serve.generate(server, batch, GEN,
+                             on_step=lambda kind: snaps.append((kind, launch_counts())))
+        per_step, prev = [], {k: 0 for k in launch_counts()}
+        for kind, c in snaps:
+            per_step.append((kind, {k: c[k] - prev[k] for k in c}))
+            prev = c
+        err = {"prefill": _max_err(res["prefill_logits"].float(), run["prefill_logits"]),
+               "last": _max_err(res["last_logits"].float(), run["last_logits"])}
+        same_ids = bool(torch.equal(res["ids"], run["ids"]))
+        emit(sharded_serve={
+            "arch": arch, "mesh": "1x1", "same_storage": same,
+            "max_abs_err": err, "same_ids": same_ids,
+            "prefill_ms": res["prefill_ms"],
+            "first_prefill_ms": first["prefill_ms"],
+            "single_device_prefill_ms": run["prefill_ms"],
+            "decode_ms_per_token": res["decode_ms_per_token"],
+            "single_device_decode_ms_per_token": run["decode_ms_per_token"],
+            "launches_prefill": per_step[0][1],
+            "launches_per_decode_step": per_step[1][1], "card": state["card"]})
+        del server, res, first
+    torch.cuda.empty_cache()
+    assert same, "the sharded params copied the weights"
+    assert err["prefill"] <= 2e-2 and err["last"] <= 2e-2, err
+    assert same_ids, "the sharded path generated other ids"
+    assert len(per_step) == GEN + 1
+    for kind, c in per_step:
+        assert c == run["expect"][kind], (
+            f"{kind}: launches {c}, expected {run['expect'][kind]}")
+
+
+def phase_sharded_serve(state):
+    _sharded_serve(state, ARCH)
+
+
+def phase_hybrid_sharded_serve(state):
+    _sharded_serve(state, HYB_ARCH)
 
 
 def _is_kernel(e, device_type):
@@ -1699,6 +1820,88 @@ def phase_themis_train(state):
     assert rel["losses"] <= 1e-5 and rel["gnorms"] <= 1e-5, rel
     assert diff_over_update <= 1e-4 and max_abs_over_lr <= 1e-2, (
         diff_over_update, max_abs_over_lr)
+
+
+def phase_sharded_train(state):
+    """qwen2.5-3b at full width cut to THEMIS_LAYERS layers, TRAIN_BATCH x
+    TRAIN_SEQ: SHARDED_STEPS single-device GSPMD steps through
+    ``launch/train.py``, freed, then the same command on a one-rank
+    (data 1, model 1) mesh over an NCCL group, which runs the sharded step
+    (DTensor params, m and v, the batch on ``batch_pspec``) from the same
+    seed and batch. Losses and gnorms within 1e-5 relative, params per leaf
+    within ``phase_themis_train``'s limits (1e-4 of the update's L2, 1e-2 lr
+    per element), the launch counts equal; the step ms of both printed.
+    Then the GPipe loss (``train/pipeline.py``) of one "pipe" stage at
+    n_micro=4 on the same weights and batch, held to ``loss_fn`` within 1e-3
+    relative (bf16 activations)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.sharding.specs import gather
+    from repro_torch.train.pipeline import make_pipeline_loss, stage_split_params
+
+    argv = _train_argv("--steps", str(SHARDED_STEPS), "--layers",
+                       str(THEMIS_LAYERS), "--dp-sync", "gspmd")
+    runs, final = {}, {}
+
+    def run(name):
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        res = train.main(argv)
+        runs[name] = {"losses": res["losses"], "gnorms": res["gnorms"],
+                      "lrs": res["lrs"], "step_ms": res["step_ms"],
+                      "peak_mem_gib": res["peak_mem_bytes"] / 2**30,
+                      "launches": launch_counts()}
+        final[name] = [p.detach().cpu() for p in _leaves(gather(res["params"]))]
+
+    run("single_device")
+    with _one_rank_mesh():
+        run("sharded")
+    torch.cuda.empty_cache()
+    cfg = get_arch(TRAIN_ARCH).replace(num_layers=THEMIS_LAYERS)
+    api = build_model(cfg)
+    params = api.init(0, "cuda")
+    init = [p.detach().cpu() for p in _leaves(params)]
+    lr_max = max(runs["single_device"]["lrs"])
+    diff_over_update, max_abs_over_lr = 0.0, 0.0
+    for a, b, c in zip(final["sharded"], final["single_device"], init):
+        diff_over_update = max(diff_over_update,
+                               ((a - b).norm() / (b - c).norm()).item())
+        max_abs_over_lr = max(max_abs_over_lr, (a - b).abs().max().item() / lr_max)
+    del init, final
+    rel = {k: max(abs(x - y) / abs(y) for x, y in zip(runs["sharded"][k],
+                                                       runs["single_device"][k]))
+           for k in ("losses", "gnorms")}
+    # the one-stage pipeline on the initial weights and the run's batch
+    b = SyntheticLM(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0).batch_at(0)
+    batch = {k: torch.as_tensor(v, dtype=torch.int64, device="cuda")
+             for k, v in b.items()}
+    with _one_rank_mesh(("pipe",)) as mesh, torch.no_grad():
+        sp = stage_split_params(params, 1, 0)
+        pipe = float(make_pipeline_loss(cfg, mesh, 4)(sp, batch["tokens"],
+                                                      batch["labels"]))
+        plain = float(api.loss_fn(params, batch))
+    del params, sp
+    torch.cuda.empty_cache()
+    pipe_rel = abs(pipe - plain) / abs(plain)
+    emit(sharded_train={"arch": TRAIN_ARCH, "layers": THEMIS_LAYERS,
+                        "d_model": cfg.d_model, "batch": TRAIN_BATCH,
+                        "seq": TRAIN_SEQ, "mesh": "1x1", **runs,
+                        "rel_diff": rel,
+                        "params_diff_over_update": diff_over_update,
+                        "params_max_abs_over_lr": max_abs_over_lr,
+                        "pipeline": {"n_micro": 4, "stages": 1, "loss": pipe,
+                                     "loss_fn": plain, "rel_diff": pipe_rel},
+                        "card": state["card"]})
+    assert rel["losses"] <= 1e-5 and rel["gnorms"] <= 1e-5, rel
+    assert diff_over_update <= 1e-4 and max_abs_over_lr <= 1e-2, (
+        diff_over_update, max_abs_over_lr)
+    assert runs["sharded"]["launches"] == runs["single_device"]["launches"], runs
+    assert pipe_rel <= 1e-3, (pipe, plain)
 
 
 def phase_ckpt_resume(state):

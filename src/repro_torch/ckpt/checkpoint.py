@@ -24,8 +24,23 @@ before its rename. Unlike the reference:
   has no bfloat16 of its own), and cast back on restore;
 * ``restore`` copies into the tensors of ``state_like`` in place, on their
   devices and in their dtypes: a second copy of a 3B model's params, m and
-  v would not fit the card beside the first. There is no resharding: each
-  process holds its whole state on one device.
+  v would not fit the card beside the first.
+
+A multi-rank run saves global arrays, as the reference does:
+
+* the sharded GSPMD state's DTensor leaves are gathered whole (a
+  collective: every rank calls ``save``, or ``save_async``) and rank 0
+  writes; ``restore`` copies each rank's block of every array into a
+  DTensor target, whatever its placements, so a checkpoint from one mesh
+  restores onto another (or onto plain tensors on one rank);
+* the Themis state's master, m and v, each rank's (C, shard_len) shard, go
+  to the reference's global (C, per_chunk) layout, the shards side by side
+  in block order of the step's axes ("model", "data", "pod"), and the int8
+  error feedback to (world, n_params) (``themis_global``); ``extra`` then
+  records the world size and the chunk orders (``themis_record``), since
+  the layout depends on them, and ``check_themis`` refuses a run of
+  another world size or other orders. ``themis_local`` cuts a restored
+  global state back to this rank's shards.
 """
 from __future__ import annotations
 
@@ -38,8 +53,18 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.registry import leaves
+
+
+def _multi_rank() -> bool:
+    return dist.is_initialized() and dist.get_world_size() > 1
+
+
+def _lead() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _paths(tree: Any, prefix: tuple = ()) -> list[str]:
@@ -56,6 +81,8 @@ def _to_host(x) -> np.ndarray:
     """A leaf as a numpy array of its own (a copy, complete on return)."""
     if isinstance(x, np.ndarray):
         return x
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         x = x.detach()
         if x.dtype == torch.bfloat16:
@@ -75,7 +102,20 @@ def _write(path: str, write) -> None:
 
 def save(ckpt_dir: str, step: int, state, *, extra: dict | None = None,
          keep: int = 3) -> str:
-    """Write ``state`` as checkpoint ``step``; returns its directory."""
+    """Write ``state`` as checkpoint ``step``; returns its directory. In a
+    multi-rank run every rank calls it (DTensor leaves are gathered), rank 0
+    writes, and every rank returns once the checkpoint is complete."""
+    host = _fill(state, iter([_to_host(x) for x in leaves(state)]))
+    final = os.path.join(ckpt_dir, f"step-{step:08d}")
+    if _lead():
+        _save_host(ckpt_dir, step, host, extra=extra, keep=keep)
+    if _multi_rank():
+        dist.barrier()
+    return final
+
+
+def _save_host(ckpt_dir: str, step: int, state, *, extra: dict | None = None,
+               keep: int = 3) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f"tmp-{step}")
     final = os.path.join(ckpt_dir, f"step-{step:08d}")
@@ -123,6 +163,14 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
+def read_extra(ckpt_dir: str, step: int | None = None) -> dict:
+    """The ``extra`` of checkpoint ``step`` (default: the latest)."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+    with open(os.path.join(ckpt_dir, f"step-{step:08d}", "meta.json")) as f:
+        return json.load(f)["extra"]
+
+
 def _fill(tree, values):
     """``tree`` rebuilt with its leaves taken from the iterator ``values``."""
     if isinstance(tree, dict):
@@ -157,7 +205,13 @@ def restore(ckpt_dir: str, state_like, *, step: int | None = None):
                     raise ValueError(f"leaf {i} ({meta['paths'][i]}): shape "
                                      f"{a.shape} in the checkpoint, "
                                      f"{tuple(ref.shape)} expected")
-                ref.copy_(torch.from_numpy(a))
+                if isinstance(ref, DTensor):
+                    from repro_torch.sharding.specs import local_block
+
+                    ref.to_local().copy_(local_block(
+                        torch.from_numpy(a), ref.placements, ref.device_mesh))
+                else:
+                    ref.copy_(torch.from_numpy(a))
                 out.append(ref)
             else:
                 out.append(int(a))
@@ -181,14 +235,20 @@ class AsyncCheckpointer:
         self._error: Exception | None = None
 
     def wait(self) -> None:
+        """Block until the last checkpoint is written; in a multi-rank run
+        every rank calls it and returns once rank 0's write is done."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if _multi_rank():
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("checkpoint write failed") from err
 
     def save_async(self, step: int, state, extra: dict | None = None) -> None:
+        """Every rank of a multi-rank run calls it (the host copy gathers
+        DTensor leaves); rank 0 writes."""
         t0 = time.perf_counter()
         self.wait()
         t1 = time.perf_counter()
@@ -196,14 +256,94 @@ class AsyncCheckpointer:
         record = {"step": step, "bytes": sum(a.nbytes for a in leaves(host)),
                   "wait_s": t1 - t0, "snapshot_s": time.perf_counter() - t1}
         self.saves.append(record)
+        if not _lead():
+            record["write_s"] = 0.0
+            return
 
         def work():
             t = time.perf_counter()
             try:
-                save(self.ckpt_dir, step, host, extra=extra, keep=self.keep)
+                _save_host(self.ckpt_dir, step, host, extra=extra,
+                           keep=self.keep)
             except Exception as e:      # handed to the next wait()
                 self._error = e
             record["write_s"] = time.perf_counter() - t
 
         self._thread = threading.Thread(target=work, daemon=True)
         self._thread.start()
+
+
+# -- the Themis state's global layout ---------------------------------------
+_THEMIS_AXES = ("model", "data", "pod")
+
+
+def _blocks_by_rank(mesh) -> list[int]:
+    """Each global rank's block index over the Themis step's axes (ranks
+    lie on the mesh in row-major order)."""
+    out = []
+    for r in range(mesh.size):
+        coords, rest = {}, r
+        for name in reversed(mesh.names):
+            coords[name] = rest % mesh.shape[name]
+            rest //= mesh.shape[name]
+        idx = 0
+        for a in _THEMIS_AXES:
+            idx = idx * mesh.axis_size(a) + coords.get(a, 0)
+        out.append(idx)
+    return out
+
+
+def themis_record(mesh, orders) -> dict:
+    """What a Themis checkpoint's layout depends on, for its ``extra``."""
+    return {"world": mesh.size, "orders": ["->".join(o) for o in orders]}
+
+
+def check_themis(extra: dict, mesh, orders) -> None:
+    """Raise ``ValueError`` unless the checkpoint's ``extra`` records a
+    Themis state of this run's world size and chunk orders."""
+    want = themis_record(mesh, orders)
+    got = extra.get("themis")
+    if got != want:
+        raise ValueError(f"the checkpoint's Themis layout {got} is not this "
+                         f"run's {want}: a Themis state restores onto its own "
+                         "mesh and chunk orders only")
+
+
+def themis_global(opt: dict, mesh) -> dict:
+    """This rank's Themis optimizer state in the reference's global layout
+    (a collective on a multi-rank mesh): master, m and v (C, per_chunk),
+    the ranks' shards side by side in block order; ``err`` (world,
+    n_params) for int8 (else as it is); ``count`` as it is."""
+    if mesh.size == 1:
+        return dict(opt)
+    order = _blocks_by_rank(mesh)
+    inv = sorted(range(mesh.size), key=lambda r: order[r])
+
+    def gathered(t):
+        parts = [torch.empty_like(t) for _ in range(mesh.size)]
+        dist.all_gather(parts, t.contiguous())
+        return [parts[r] for r in inv]
+
+    out = dict(opt)
+    for k in ("master", "m", "v"):
+        out[k] = torch.cat(gathered(opt[k]), dim=1)
+    if opt["err"].dim() == 1:
+        out["err"] = torch.stack(gathered(opt["err"]))
+    return out
+
+
+@torch.no_grad()
+def themis_local(global_opt: dict, opt: dict, mesh) -> dict:
+    """Copy this rank's shards of a global Themis state (``themis_global``'s
+    layout) into ``opt`` in place; returns ``opt``."""
+    i, n = mesh.block_index(tuple(a for a in _THEMIS_AXES
+                                  if mesh.axis_size(a) > 1)), mesh.size
+    for k in ("master", "m", "v"):
+        w = global_opt[k].shape[1] // n
+        opt[k].copy_(global_opt[k][:, i * w:(i + 1) * w])
+    if n > 1 and opt["err"].dim() == 1:
+        opt["err"].copy_(global_opt["err"][i])
+    elif opt["err"].dim() == 1:
+        opt["err"].copy_(global_opt["err"].reshape(-1))
+    opt["count"] = global_opt["count"]
+    return opt

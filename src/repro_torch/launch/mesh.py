@@ -9,6 +9,12 @@ names)``, and
 ``group(axis)`` lists its members in that order. A mesh whose axes are all
 of size 1 needs no process group.
 
+The mesh builds its ``DeviceMesh`` (``device_mesh``) whenever a process
+group is up, a one-rank group included: that is what DTensor placements
+(``sharding/specs.py``) and the sharded runtime run on. With no group and
+size 1, ``device_mesh`` is None and every caller takes its single-device
+path. Any axis names work (``"pipe"`` for ``train/pipeline.py``).
+
 The backend follows the device: NCCL for ``cuda``, gloo for ``cpu``. When
 the default process group is not up yet, ``Mesh`` starts it from the
 environment that ``torchrun`` sets; tests start it themselves (a
@@ -39,7 +45,7 @@ class Mesh:
         self.device = torch.device(device)
         self.size = math.prod(shape)
         self._dm = None
-        if self.size > 1:
+        if self.size > 1 or dist.is_initialized():
             from torch.distributed.device_mesh import init_device_mesh
 
             if not dist.is_initialized():
@@ -49,6 +55,11 @@ class Mesh:
                                  f"process group has {dist.get_world_size()}")
             self._dm = init_device_mesh(self.device.type, tuple(shape),
                                         mesh_dim_names=tuple(names))
+
+    @property
+    def device_mesh(self):
+        """The ``DeviceMesh`` (None on a group-less one-rank mesh)."""
+        return self._dm
 
     def axis_size(self, axis: str) -> int:
         return self.shape.get(axis, 1)

@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --batch 4 --prompt-len 512 --gen 16 [--reduced] [--kv-quant] \
         [--layers N] [--device cuda|cpu]
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 8 \
+        -m repro_torch.launch.serve --reduced --device cpu --mesh 2x4
 
 Builds the model from a seed on the device (``cuda`` by default), runs a
 batch of synthetic prompts (with the stub frontends' frames or patches for
@@ -13,22 +15,29 @@ weights exceed the card at full depth (granite-34b: 40 of its 88 layers
 fit one H100). On the card
 both are timed with CUDA events; the first prefill includes building the
 kernels. On the CPU the host clock times the plain PyTorch path.
+``--mesh DATAxMODEL`` serves sharded (``train/serve.py``), one process per
+rank under ``torchrun`` (ranks of a CUDA run take the card of their
+``LOCAL_RANK``); rank 0 prints.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import ParallelConfig, get_arch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import ModelApi, build_model
-from repro_torch.train.serve import make_serve_fns
+from repro_torch.train.serve import make_serve_fns, place_params
+from repro_torch.train.step import sharded
 
 
 @dataclass
@@ -42,7 +51,12 @@ class Server:
 
 
 def setup(arch: str, *, reduced: bool = False, kv_quant: bool = False,
-          layers: int = 0, device=None, seed: int = 0) -> Server:
+          layers: int = 0, device=None, seed: int = 0, mesh=None,
+          params=None) -> Server:
+    """The model from ``seed`` (or the given whole ``params``) and its
+    serving functions; on a sharded ``mesh`` (a ``launch.mesh.Mesh`` over a
+    process group of ("data", "model")) the params are placed as DTensors
+    once, here."""
     dev = resolve_device(device)
     cfg = get_arch(arch, reduced=reduced)
     if layers:
@@ -50,8 +64,16 @@ def setup(arch: str, *, reduced: bool = False, kv_quant: bool = False,
     if kv_quant:
         cfg = cfg.replace(kv_quant=True)
     api = build_model(cfg)
-    prefill, decode = make_serve_fns(api, dev)
-    return Server(cfg, api, api.init(seed, dev), prefill, decode, dev)
+    if params is None:
+        params = api.init(seed, dev)
+    if not sharded(mesh):
+        prefill, decode = make_serve_fns(api, dev)
+        return Server(cfg, api, params, prefill, decode, dev)
+    parallel = ParallelConfig(data=mesh.axis_size("data"),
+                              model=mesh.axis_size("model"))
+    prefill, decode = make_serve_fns(api, dev, parallel, mesh=mesh)
+    return Server(cfg, api, place_params(params, mesh, parallel), prefill,
+                  decode, dev)
 
 
 def synthetic_batch(cfg: ModelConfig, batch: int, prompt_len: int, *,
@@ -140,22 +162,39 @@ def main(argv=None) -> dict:
     ap.add_argument("--kv-quant", action="store_true")
     ap.add_argument("--layers", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default="1x1", help="DATAxMODEL")
     args = ap.parse_args(argv)
 
-    server = setup(args.arch, reduced=args.reduced, kv_quant=args.kv_quant,
-                   layers=args.layers, device=args.device)
-    print(f"[serve] {args.arch} layers={server.cfg.num_layers} "
-          f"reduced={args.reduced} device={server.device} "
-          f"kv_quant={args.kv_quant}")
-    batch = synthetic_batch(server.cfg, args.batch, args.prompt_len,
-                            device=server.device)
-    res = generate(server, batch, args.gen)
+    dev = resolve_device(args.device)
+    data, model = (int(x) for x in args.mesh.split("x"))
+    mesh, owns_group = None, False
+    if data * model > 1:
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(dev)
+        owns_group = not dist.is_initialized()
+        mesh = Mesh((data, model), ("data", "model"), dev)
+    log = print if not dist.is_initialized() or dist.get_rank() == 0 else (
+        lambda *a, **k: None)
+    try:
+        server = setup(args.arch, reduced=args.reduced,
+                       kv_quant=args.kv_quant, layers=args.layers, device=dev,
+                       mesh=mesh)
+        log(f"[serve] {args.arch} layers={server.cfg.num_layers} "
+            f"reduced={args.reduced} device={server.device} "
+            f"kv_quant={args.kv_quant} mesh={args.mesh}")
+        batch = synthetic_batch(server.cfg, args.batch, args.prompt_len,
+                                device=server.device)
+        res = generate(server, batch, args.gen)
+    finally:
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
     dt = res["decode_ms_per_token"]
-    print(f"[serve] prefill {args.batch}x{args.prompt_len}: "
-          f"{res['prefill_ms']:.1f} ms (incl. kernel build on first use)")
-    print(f"[serve] decode: {dt:.2f} ms/token "
-          f"({args.batch / (dt / 1e3):.1f} tok/s aggregate)")
-    print(f"[serve] sample output ids: {res['ids'][0, :10].tolist()}")
+    log(f"[serve] prefill {args.batch}x{args.prompt_len}: "
+        f"{res['prefill_ms']:.1f} ms (incl. kernel build on first use)")
+    log(f"[serve] decode: {dt:.2f} ms/token "
+        f"({args.batch / (dt / 1e3):.1f} tok/s aggregate)")
+    log(f"[serve] sample output ids: {res['ids'][0, :10].tolist()}")
     return res
 
 

@@ -5,6 +5,9 @@
         [--device cuda] [--ckpt-dir runs/ckpt --ckpt-every 50]
     PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
         --reduced --device cpu --mesh 2x2x2 --dp-sync themis
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --reduced --device cpu --mesh 2x2 \
+        --dp-sync gspmd --ckpt-dir runs/ckpt --ckpt-every 2
 
 Port of ``repro/launch/train.py``: the synthetic data pipeline with host
 prefetch, AdamW with a cosine learning rate, gradient clipping, gradient
@@ -15,9 +18,13 @@ the reference's format). With ``--ckpt-dir``, a rerun of the same command
 resumes from the newest valid checkpoint, with the data cursor where it
 stopped. It runs in one process on a 1x1 mesh, or under ``torchrun`` with
 one process per rank of ``--mesh DATAxMODEL[xPOD]``; ranks of a CUDA run
-take the card of their ``LOCAL_RANK``. ``--dp-sync gspmd`` runs on a 1x1
-mesh only, and checkpoints are written by one-rank runs only: each rank of
-a Themis run holds its own optimizer shard (ROADMAP M12).
+take the card of their ``LOCAL_RANK``. ``--dp-sync gspmd`` on a process
+group runs the sharded step (DTensors; ``train/step.py``), each rank fed
+the rows of ``batch_pspec``. On a mesh, every rank takes part in a
+checkpoint and rank 0 writes it: the GSPMD state as global arrays (a
+checkpoint restores onto any mesh), the Themis state in the reference's
+global layout, which restores onto the same world size and chunk orders
+only (``ckpt/checkpoint.py``).
 
 Beyond the reference's flags: ``--device`` (``cuda`` by default),
 ``--layers`` (cut the depth; 0 keeps the config's), ``--remat-policy``
@@ -29,7 +36,6 @@ a synchronisation.
 from __future__ import annotations
 
 import argparse
-import math
 import os
 import statistics
 import time
@@ -38,9 +44,18 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
-from repro_torch.ckpt import AsyncCheckpointer, latest_step, restore
+from repro_torch.ckpt import (
+    AsyncCheckpointer,
+    check_themis,
+    latest_step,
+    read_extra,
+    restore,
+    themis_global,
+    themis_local,
+    themis_record,
+)
 from repro_torch.configs import ParallelConfig, TrainConfig, get_arch
-from repro_torch.data.pipeline import Prefetcher, SyntheticLM
+from repro_torch.data.pipeline import Prefetcher, SyntheticLM, rows_to_dtensor
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import Mesh, parse_mesh
 from repro_torch.models import build_model
@@ -48,6 +63,7 @@ from repro_torch.train.step import (
     gspmd_init_state,
     make_gspmd_train_step,
     make_themis_train_step,
+    sharded,
 )
 
 
@@ -93,10 +109,6 @@ def main(argv=None, on_step: Callable | None = None) -> dict:
     args = _parser().parse_args(argv)
     dev = _device(args.device)
     shape, names = parse_mesh(args.mesh)
-    if args.ckpt_dir and math.prod(shape) > 1:
-        raise NotImplementedError(
-            f"--ckpt-dir on mesh {args.mesh}: checkpoints of a multi-rank run "
-            "are not ported yet (ROADMAP M12)")
     sizes = dict(zip(names, shape))
     owns_group = not dist.is_initialized()
     mesh = Mesh(shape, names, dev)
@@ -142,13 +154,25 @@ def _train(args, dev, mesh, sizes, lead: bool, on_step) -> dict:
         f"device={dev} mesh={args.mesh} dp_sync={args.dp_sync} "
         f"remat={cfg.remat_policy if cfg.remat else 'off'} "
         f"batch={args.batch}x{args.seq}")
+    themis = orders is not None
+
+    def ckpt_state():
+        return (params, themis_global(opt, mesh) if themis else opt)
+
     start_step, ckpt, restored = 0, None, None
     if args.ckpt_dir:
         ckpt = AsyncCheckpointer(args.ckpt_dir, keep=tcfg.keep_checkpoints)
         last = latest_step(args.ckpt_dir)
         if last is not None:
             t0 = time.perf_counter()
-            (params, opt), extra = restore(args.ckpt_dir, (params, opt))
+            if themis:
+                check_themis(read_extra(args.ckpt_dir, last), mesh, orders)
+            (params, state), extra = restore(args.ckpt_dir, ckpt_state(),
+                                             step=last)
+            if themis:
+                themis_local(state, opt, mesh)
+            else:
+                opt = state
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             restored = {"step": last, "seconds": time.perf_counter() - t0}
@@ -160,7 +184,9 @@ def _train(args, dev, mesh, sizes, lead: bool, on_step) -> dict:
 
     ds = SyntheticLM(cfg.vocab_size, args.batch, args.seq, seed=tcfg.seed)
     pf = Prefetcher(ds, mesh, dev, start_step=start_step,
-                    fixed_step=0 if args.fixed_batch else None)
+                    fixed_step=0 if args.fixed_batch else None,
+                    dp_sync=args.dp_sync)
+    on_mesh = args.dp_sync == "gspmd" and sharded(mesh)
     losses, gnorms, lrs, step_ms = [], [], [], []
     batch = None
     try:
@@ -168,6 +194,8 @@ def _train(args, dev, mesh, sizes, lead: bool, on_step) -> dict:
             if step >= args.steps:
                 break
             t0 = time.perf_counter()
+            if on_mesh:
+                batch = rows_to_dtensor(batch, mesh, args.batch)
             params, opt, metrics = step_fn(params, opt, batch)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -182,8 +210,10 @@ def _train(args, dev, mesh, sizes, lead: bool, on_step) -> dict:
                     f"gnorm={gnorms[-1]:.3f} lr={lrs[-1]:.2e} "
                     f"{step_ms[-1]:.1f} ms/step")
             if ckpt and (step + 1) % tcfg.checkpoint_every == 0:
-                ckpt.save_async(step + 1, (params, opt),
-                                extra={"next_step": step + 1, "seed": tcfg.seed})
+                extra = {"next_step": step + 1, "seed": tcfg.seed}
+                if themis:
+                    extra["themis"] = themis_record(mesh, orders)
+                ckpt.save_async(step + 1, ckpt_state(), extra=extra)
     finally:
         pf.close()
         t0 = time.perf_counter()

@@ -3,9 +3,25 @@ inits, the loss and the remat policy.
 
 Port of ``repro/models/common.py``. Functions take tensors in the reference's
 layouts (q ``(B,S,H,hd)``, k/v ``(B,T,KV,hd)``) so tests compare like with
-like. Sharding constraints and the mesh context have no counterpart here:
-the model runs on one device, and data parallelism lives in
-``train/step.py``.
+like.
+
+Sharding, as in the reference, goes through ``constrain(x, *axes)`` inside a
+``mesh_context``: on a DTensor it redistributes to the placements that the
+axes name ("dp": batch over the context's dp axes, "tp": the model axis,
+"sp": the model axis when ``sp`` is on), dropping an axis whose size does not
+divide the dim; with no mesh context or on a plain tensor it does nothing,
+so the single-device path is unchanged. A mesh context with a
+``DeviceMesh`` also treats plain tensors met beside DTensors (rope tables,
+positions, masks) as replicated (``implicit_replication``).
+
+The kernels' wrappers take pointers, not DTensors, so on a DTensor the
+calls below run them on local shards (``to_local`` / ``from_local``) with
+stated placements: attention with batch on "dp" and q/k/v heads on "tp"
+(k/v sliced to the kv heads of this rank's q heads when the kv heads do not
+divide, ``_heads_local``), RMSNorm on local rows with the normalised dim
+whole, the cross entropy with the vocab split on "tp" and reduced across
+it (``_CrossEntropy`` given its groups). A replicated weight's gradient
+comes back partial over the mesh dims that split the rows.
 
 Dispatch to the hand-written kernels:
 
@@ -26,10 +42,13 @@ from __future__ import annotations
 
 import functools
 import math
+from contextlib import contextmanager
 from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     create_selective_checkpoint_contexts,
@@ -39,6 +58,113 @@ from repro_torch.kernels import ops
 
 Params = Any
 NEG_INF = -1e30
+
+# -- mesh context -----------------------------------------------------------
+_CTX: dict = {"mesh": None, "dp_axes": ("data",), "tp_axis": "model",
+              "sp": False}
+
+
+@contextmanager
+def mesh_context(mesh, dp_axes=("data",), tp_axis="model", sp: bool = False):
+    """``sp=True`` enables sequence parallelism: the residual stream's seq
+    dim ("sp" in constraint vocabulary) shards over the model axis between
+    blocks. ``mesh``: the port's ``launch.mesh.Mesh``; with a
+    ``DeviceMesh`` the context also turns on DTensor's implicit replication
+    of plain tensors."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    old = dict(_CTX)
+    _CTX.update(mesh=mesh, dp_axes=tuple(dp_axes), tp_axis=tp_axis, sp=sp)
+    implicit = (mesh is not None and mesh.device_mesh is not None
+                and not DTensor._op_dispatcher._allow_implicit_replication)
+    try:
+        if implicit:
+            with implicit_replication():
+                yield
+        else:
+            yield
+    finally:
+        _CTX.update(old)
+
+
+def _resolve(axis: str | None):
+    if axis == "dp":
+        a = _CTX["dp_axes"]
+        return a if len(a) > 1 else a[0]
+    if axis == "tp":
+        return _CTX["tp_axis"]
+    if axis == "sp":
+        return _CTX["tp_axis"] if _CTX["sp"] else None
+    return None
+
+
+def _constraint_spec(shape, axes) -> tuple:
+    """The reference's ``constrain`` spec: an axis whose mesh size does not
+    divide the dim, or that an earlier dim took, is dropped."""
+    mesh = _CTX["mesh"]
+    names = []
+    used: set = set()
+    for i, a in enumerate(axes):
+        r = _resolve(a)
+        if r is not None:
+            sizes = [r] if isinstance(r, str) else list(r)
+            need = 1
+            for s in sizes:
+                need *= mesh.shape.get(s, 1)
+            if shape[i] % need != 0 or any(s in used for s in sizes):
+                r = None
+            else:
+                used.update(sizes)
+        names.append(r)
+    return tuple(names) + (None,) * (len(shape) - len(names))
+
+
+def _placements_for(x, *axes) -> tuple:
+    from repro_torch.sharding.specs import placements
+
+    return placements(_constraint_spec(x.shape, axes), _CTX["mesh"])
+
+
+def constrain(x, *axes: str | None):
+    """Redistribute a DTensor to the placements that ``axes`` name (one
+    entry per dim); a no-op with no mesh context or on a plain tensor."""
+    if _CTX["mesh"] is None or not isinstance(x, DTensor):
+        return x
+    pls = _placements_for(x, *axes)
+    if tuple(x.placements) == pls:
+        return x
+    return x.redistribute(x.device_mesh, pls)
+
+
+def _whole(x, *dims):
+    """``x`` with ``dims`` unsplit and nothing partial (a DTensor)."""
+    nd = x.ndim
+    pls = tuple(Replicate() if p.is_partial()
+                or (p.is_shard() and p.dim % nd in [d % nd for d in dims])
+                else p for p in x.placements)
+    return x if pls == tuple(x.placements) else x.redistribute(
+        x.device_mesh, pls)
+
+
+def _replicated_local(w, row_pls):
+    """The local tensor of a replicated operand ``w`` (a weight), whose
+    gradient comes back partial over the mesh dims that split the rows
+    (``row_pls``, the placements of the other operand)."""
+    if not isinstance(w, DTensor):
+        return w
+    n = len(row_pls)
+    w = w.redistribute(w.device_mesh, (Replicate(),) * n)
+    grad = tuple(Partial() if p.is_shard() else Replicate() for p in row_pls)
+    return w.to_local(grad_placements=grad)
+
+
+def _block(mesh, dims) -> int:
+    """This rank's block of a dim split over the mesh dims ``dims`` (the
+    first major)."""
+    idx = 0
+    for j in dims:
+        idx = idx * mesh.size(j) + mesh.get_local_rank(j)
+    return idx
 
 
 # The matmuls that remat "dots" saves: ``x @ W`` of a 3-D activation and a
@@ -104,6 +230,12 @@ def embed_init(gen: torch.Generator, shape, dtype=torch.float32, device=None):
 
 # -- norms --------------------------------------------------------------------
 def rms_norm(x, weight, eps: float = 1e-6):
+    if isinstance(x, DTensor):
+        # local rows, the normalised dim whole (K2 on a CUDA shard)
+        x = _whole(x, -1)
+        y = rms_norm(x.to_local(), _replicated_local(weight, x.placements), eps)
+        return DTensor.from_local(y, x.device_mesh, x.placements,
+                                  run_check=False)
     if x.is_cuda:
         return ops.rmsnorm(x, weight, eps)
     dt = x.dtype
@@ -325,8 +457,53 @@ def flash_attention_xla(q, k, v, *, causal: bool = True, window: int = 0,
                                     block_q, block_k)
 
 
+def _heads_local(fn, q, k, v, *extra):
+    """``fn(q, k, v, *extra)`` on local shards: q, k, v with batch on "dp"
+    and heads on "tp" where they divide (``extra``: (B, ...) tensors, batch
+    as q's); the output takes q's placements. When q's heads split over
+    "tp" and k/v's do not, k and v stay whole over "tp" and each rank slices
+    the kv heads its q heads read (q head h reads kv head h // (H/KV)), so
+    their gradients come back partial over "tp". A cache split over
+    head_dim (``cache_pspec`` when KV does not divide tp) is thus gathered
+    whole over "tp" on every call (ROADMAP §3)."""
+    mesh = q.device_mesh
+    h, kvh = q.shape[2], k.shape[2]
+    q = q.redistribute(mesh, _placements_for(q, "dp", None, "tp", None))
+    q_split = [j for j, p in enumerate(q.placements) if p.is_shard() and p.dim == 2]
+    kv_pls = _placements_for(k, "dp", None, "tp" if q_split else None, None)
+    k = k.redistribute(mesh, kv_pls)
+    v = v.redistribute(mesh, kv_pls)
+    ql = q.to_local()
+    if q_split and not any(p.is_shard() and p.dim == 2 for p in kv_pls):
+        grad = tuple(Partial() if j in q_split else p
+                     for j, p in enumerate(kv_pls))
+        kl = k.to_local(grad_placements=grad)
+        vl = v.to_local(grad_placements=grad)
+        hq = ql.shape[2]
+        r = _block(mesh, q_split)
+        want = [(r * hq + i) // (h // kvh) for i in range(hq)]
+        lo, n_kv = want[0], want[-1] - want[0] + 1
+        if hq % n_kv == 0 and want == [lo + i // (hq // n_kv) for i in range(hq)]:
+            kl, vl = kl[:, :, lo:lo + n_kv], vl[:, :, lo:lo + n_kv]
+        else:
+            idx = torch.tensor(want, device=kl.device)
+            kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+    else:
+        kl, vl = k.to_local(), v.to_local()
+    batch_pls = tuple(p if p.is_shard() and p.dim == 0 else Replicate()
+                      for p in q.placements)
+    xs = [e.redistribute(mesh, batch_pls).to_local()
+          if isinstance(e, DTensor) else e for e in extra]
+    out = fn(ql, kl, vl, *xs)
+    return DTensor.from_local(out, mesh, q.placements, run_check=False)
+
+
 def attention(q, k, v, *, impl: str = "xla_flash", causal=True, window=0,
               q_offset=0):
+    if isinstance(q, DTensor):
+        return _heads_local(functools.partial(
+            attention, impl=impl, causal=causal, window=window,
+            q_offset=q_offset), q, k, v)
     if impl == "naive" or q.shape[1] == 1:
         return naive_attention(q, k, v, causal=causal, window=window,
                                q_offset=q_offset)
@@ -353,53 +530,106 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, gated: bool,
 
 def apply_mlp(p: Params, x, gated: bool):
     h = x @ p["wi"].to(x.dtype)
+    h = constrain(h, "dp", None, "tp")
     if gated:
         h = F.silu(x @ p["wg"].to(x.dtype)) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ p["wo"].to(x.dtype)
+    out = h @ p["wo"].to(x.dtype)
+    return constrain(out, "dp", "sp", None)
 
 
 # -- losses -------------------------------------------------------------------
-def _ce_fwd_impl(logits, labels):
-    lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-    return lse - gold, lse
-
-
 class _CrossEntropy(torch.autograd.Function):
     """Token-weighted cross entropy with the reference's memory-lean
     backward (``_ce_from_logits``): saves only the logits in their dtype and
     the per-token LSE, and recomputes the softmax in the backward. Profiler
-    ranges ``repro_torch.cross_entropy`` and ``..._backward``."""
+    ranges ``repro_torch.cross_entropy`` and ``..._backward``.
+
+    The logits may be one rank's block of a vocab split over
+    ``vocab_groups`` (the block from ``v0``) and of rows split over
+    ``row_groups``: the max, the sum of exponentials and the gold logit are
+    reduced across the vocab groups, the weighted sum across the row
+    groups, so every rank returns the global loss, and the backward is
+    local (this rank's block of ``weights * (softmax - onehot)``). With
+    ``v0`` 0 and no groups the logits are whole."""
 
     @staticmethod
-    def forward(ctx, logits, labels, weights):
+    def forward(ctx, logits, labels, weights, v0, vocab_groups, row_groups):
         with torch.profiler.record_function("repro_torch.cross_entropy"):
-            nll, lse = _ce_fwd_impl(logits, labels)
-            ctx.save_for_backward(logits, labels, weights, lse)
-            return (nll * weights).sum()
+            lf = logits.float()
+            vl = lf.shape[-1]
+            m = lf.amax(-1)
+            for g in vocab_groups:
+                dist.all_reduce(m, dist.ReduceOp.MAX, group=g)
+            se = torch.sub(lf, m[..., None]).exp_().sum(-1)
+            for g in vocab_groups:
+                dist.all_reduce(se, group=g)
+            lse = m + torch.log(se)
+            lab = labels.long() - v0
+            inside = (lab >= 0) & (lab < vl)
+            lab = lab.clamp(0, vl - 1)
+            gold = torch.where(inside, torch.gather(lf, -1, lab[..., None])[..., 0],
+                               0.0)
+            for g in vocab_groups:
+                dist.all_reduce(gold, group=g)
+            loss = ((lse - gold) * weights).sum()
+            for g in row_groups:
+                dist.all_reduce(loss, group=g)
+            ctx.save_for_backward(logits, lab, inside, weights, lse)
+            return loss
 
     @staticmethod
     def backward(ctx, g):
-        logits, labels, weights, lse = ctx.saved_tensors
+        logits, lab, inside, weights, lse = ctx.saved_tensors
         with torch.profiler.record_function("repro_torch.cross_entropy_backward"):
             p = torch.sub(logits.float(), lse[..., None]).exp_()
-            # p - onehot: subtract 1 at each label instead of materialising a
-            # (tokens x vocab) one-hot; the same values
-            p.scatter_add_(-1, labels[..., None].long(),
-                           p.new_full((*labels.shape, 1), -1.0))
+            # p - onehot: subtract 1 at each label inside this block instead
+            # of materialising a (tokens x vocab) one-hot; the same values
+            p.scatter_add_(-1, lab[..., None], -inside.float()[..., None])
             p.mul_((g * weights)[..., None])
-            return p.to(logits.dtype), None, None
+            return p.to(logits.dtype), None, None, None, None, None
+
+
+def _sharded_cross_entropy(logits, labels, mask):
+    """``cross_entropy`` of DTensor logits: the vocab stays split where it
+    is (on "tp" after the head's constraint), the rows stay where they are,
+    and the loss comes back as a plain tensor equal on every rank."""
+    mesh = logits.device_mesh
+    logits = _whole(logits)             # nothing partial
+    pls = tuple(logits.placements)
+    row_pls = tuple(p if p.is_shard() and p.dim % 3 < 2 else Replicate()
+                    for p in pls)
+    n = labels.numel()
+    if mask is None:
+        weights = torch.full(labels.shape, 1.0 / n, dtype=torch.float32,
+                             device=logits.device)
+    else:
+        m = mask.float()
+        weights = m / m.sum().clamp_min(1.0)
+
+    def rows(t):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, (Replicate(),) * len(pls),
+                                   run_check=False)
+        return t.redistribute(mesh, row_pls).to_local()
+
+    vdims = [j for j, p in enumerate(pls) if p.is_shard() and p.dim % 3 == 2]
+    rdims = [j for j, p in enumerate(pls) if p.is_shard() and p.dim % 3 < 2]
+    lg = logits.to_local()
+    return _CrossEntropy.apply(
+        lg, rows(labels), rows(weights), _block(mesh, vdims) * lg.shape[-1],
+        [mesh.get_group(j) for j in vdims], [mesh.get_group(j) for j in rdims])
 
 
 def cross_entropy(logits, labels, mask=None):
     """logits (B,S,V); labels (B,S) int; mean over valid tokens."""
+    if isinstance(logits, DTensor):
+        return _sharded_cross_entropy(logits, labels, mask)
     if mask is None:
         weights = torch.full(labels.shape, 1.0 / labels.numel(),
                              dtype=torch.float32, device=logits.device)
     else:
         m = mask.float()
         weights = m / m.sum().clamp_min(1.0)
-    return _CrossEntropy.apply(logits, labels, weights)
+    return _CrossEntropy.apply(logits, labels, weights, 0, (), ())

@@ -24,18 +24,29 @@ stacked tensors, so each stacked gradient comes from one backward op.
 
 Unlike the reference, the caches are updated in place: ``prefill``
 allocates them and ``decode_step`` writes them and returns the same dict.
+
+Under a ``mesh_context`` with a ``DeviceMesh`` the reference's constraint
+points apply (the recurrence's channels on "tp", the block outputs and the
+embeddings on "dp", the logits' vocab on "tp"); the scan runs on local
+channels (K3 on a CUDA shard), and the states are DTensors on
+``cache_pspec``'s placements, written in their local shards.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as tr
 from repro_torch.models.common import (
+    _block,
+    _placements_for,
+    _replicated_local,
     apply_mlp,
+    constrain,
     cross_entropy,
     dense_init,
     embed_init,
@@ -80,15 +91,41 @@ def rglru_scan(p, x, h0=None):
     """Linear recurrence over time.  x: (B,S,R); h0: (B,R) fp32.
     Returns (h in x's dtype, the last h in fp32)."""
     a, b = _rglru_coeffs(p, x)
-    h = ops.rglru_scan(a, b, h0)
+    h = _scan(a, b, h0)
     return h.to(x.dtype), h[:, -1]
+
+
+def _scan(a, b, h0):
+    """``ops.rglru_scan``; on DTensors, on local shards: batch on "dp",
+    channels on "tp", time whole."""
+    if not isinstance(a, DTensor):
+        return ops.rglru_scan(a, b, h0)
+    mesh = a.device_mesh
+    pls = _placements_for(a, "dp", None, "tp")
+    a, b = a.redistribute(mesh, pls), b.redistribute(mesh, pls)
+    if h0 is not None:
+        h0 = h0.redistribute(mesh, _placements_for(h0, "dp", "tp")).to_local()
+    h = ops.rglru_scan(a.to_local(), b.to_local(), h0)
+    return DTensor.from_local(h, mesh, pls, run_check=False)
 
 
 def rglru_step(p, x, h_prev):
     """Single decode step.  x: (B,1,R); h_prev: (B,R) fp32."""
     a, b = _rglru_coeffs(p, x)
-    h = a[:, 0] * h_prev + b[:, 0]
+    h = _step(a, b, h_prev)
     return h.to(x.dtype)[:, None], h
+
+
+def _step(a, b, h_prev):
+    """One step of the recurrence; on DTensors, on local channels."""
+    if not isinstance(a, DTensor):
+        return a[:, 0] * h_prev + b[:, 0]
+    mesh = a.device_mesh
+    pls = _placements_for(a, "dp", None, "tp")
+    h_pls = _placements_for(h_prev, "dp", "tp")
+    a, b = a.redistribute(mesh, pls).to_local(), b.redistribute(mesh, pls).to_local()
+    h = a[:, 0] * h_prev.redistribute(mesh, h_pls).to_local() + b[:, 0]
+    return DTensor.from_local(h, mesh, h_pls, run_check=False)
 
 
 def causal_conv1d(w, x):
@@ -105,6 +142,40 @@ def conv1d_step(w, x, conv_state):
     return out, hist[:, 1:]
 
 
+def _conv(w, xr, conv_state, cw: int):
+    """The causal conv of xr (B,S,R), after the carried history
+    ``conv_state`` (B,CW-1,R) where there is one: returns (xc, the new
+    history, None without a state). On DTensors it runs on local channels:
+    xr and the history with batch on "dp" and channels on "tp", and this
+    rank's channels of w."""
+    if isinstance(xr, DTensor):
+        return _channels_local(_conv, w, xr, conv_state, cw)
+    if conv_state is None:
+        return causal_conv1d(w, xr), None
+    if xr.shape[1] == 1:
+        return conv1d_step(w, xr, conv_state)
+    hist = torch.cat([conv_state.to(xr.dtype), xr], dim=1)
+    return causal_conv1d(w, hist)[:, cw - 1:], hist[:, -(cw - 1):]
+
+
+def _channels_local(fn, w, x, state, *args):
+    """``fn(w, x, state, *args)`` on local shards of DTensors x and state
+    (batch on "dp", channels on "tp") and this rank's channels of the
+    replicated w (its gradient partial over the mesh dims that split x);
+    the outputs take x's placements."""
+    mesh = x.device_mesh
+    pls = _placements_for(x, "dp", None, "tp")
+    xl = x.redistribute(mesh, pls).to_local()
+    sl = None if state is None else state.redistribute(mesh, pls).to_local()
+    blk = _block(mesh, [j for j, p in enumerate(pls)
+                        if p.is_shard() and p.dim == 2])
+    n = xl.shape[-1]
+    wl = _replicated_local(w, pls)[..., blk * n:(blk + 1) * n]
+    return tuple(None if t is None else
+                 DTensor.from_local(t, mesh, pls, run_check=False)
+                 for t in fn(wl, xl, sl, *args))
+
+
 def apply_rec(p, x, cfg: ModelConfig, *, state=None):
     """Recurrent module.  x: (B,S,D) -> (out (B,S,D), state). ``state``
     (h fp32, conv bf16) is written in place: one step for S == 1, the
@@ -112,22 +183,28 @@ def apply_rec(p, x, cfg: ModelConfig, *, state=None):
     dt = x.dtype
     s = x.shape[1]
     y = F.gelu(x @ p["linear_y"].to(dt), approximate="tanh")
-    xr = x @ p["linear_x"].to(dt)
+    xr = constrain(x @ p["linear_x"].to(dt), "dp", None, "tp")
+    xc, hist = _conv(p["conv_w"], xr, None if state is None else state["conv"],
+                     cfg.conv_width)
     if state is None:
-        h, _ = rglru_scan(p, causal_conv1d(p["conv_w"], xr))
-    elif s == 1:
-        xc, conv_state = conv1d_step(p["conv_w"], xr, state["conv"])
-        h, h_raw = rglru_step(p, xc, state["h"])
-        state["h"].copy_(h_raw)
-        state["conv"].copy_(conv_state)
+        h, _ = rglru_scan(p, xc)
     else:
-        cw = cfg.conv_width
-        hist = torch.cat([state["conv"].to(dt), xr], dim=1)
-        xc = causal_conv1d(p["conv_w"], hist)[:, cw - 1:]
-        h, h_final = rglru_scan(p, xc, h0=state["h"])
-        state["h"].copy_(h_final)
-        state["conv"].copy_(hist[:, -(cw - 1):])
-    return (h * y) @ p["linear_out"].to(dt), state
+        if s == 1:
+            h, h_last = rglru_step(p, xc, state["h"])
+        else:
+            h, h_last = rglru_scan(p, xc, h0=state["h"])
+        _store(state["h"], h_last)
+        _store(state["conv"], hist)
+    return constrain((h * y) @ p["linear_out"].to(dt), "dp", None, None), state
+
+
+def _store(dst, src):
+    """``dst.copy_(src)``; a DTensor state takes ``src`` brought to its
+    placements, written into its local shard."""
+    if isinstance(dst, DTensor):
+        src = src.to(dst.dtype).redistribute(dst.device_mesh, dst.placements)
+        dst, src = dst.to_local(), src.to_local()
+    dst.copy_(src)
 
 
 def init_rec_state(cfg: ModelConfig, batch: int, device=None, lead: tuple = ()):
@@ -235,8 +312,9 @@ def _run_layers(params, x, cfg: ModelConfig, *, pos0: int, caches=None):
 def forward(params, tokens, cfg: ModelConfig):
     """tokens (B,S) -> logits (B,S,V) (tied embeddings)."""
     dt = tr.torch_dtype(cfg.dtype)
-    x = _run_layers(params, tr._embed(params, tokens, cfg, dt), cfg, pos0=0)
-    return tr._logits(params, x, cfg)
+    x = _run_layers(params, tr._embed(params, tokens, cfg, dt, None), cfg,
+                    pos0=0)
+    return tr._logits(params, x, cfg, None)
 
 
 def loss_fn(params, batch, cfg: ModelConfig):
@@ -273,15 +351,18 @@ def prefill(params, tokens, cfg: ModelConfig):
     window caches fill with its last ``window`` positions. Returns
     (last_logits (B,1,V), caches); the head runs on the last position only."""
     dt = tr.torch_dtype(cfg.dtype)
-    x = tr._embed(params, tokens, cfg, dt)
-    caches = init_caches(cfg, x.shape[0], device=x.device)
+    x = tr._embed(params, tokens, cfg, dt, None)
+    b = x.shape[0]
+    caches = init_caches(cfg, b, device=x.device)
+    caches = {"periods": tr.place_cache(caches["periods"], b),
+              "tail": tr.place_cache(caches["tail"], b, stacked=False)}
     x = _run_layers(params, x, cfg, pos0=0, caches=caches)
-    return tr._logits(params, x[:, -1:].contiguous(), cfg), caches
+    return tr._logits(params, x[:, -1:].contiguous(), cfg, None), caches
 
 
 def decode_step(params, caches, token, pos: int, cfg: ModelConfig):
     """One decode step. token (B,) int, pos int; updates ``caches`` in place."""
     dt = tr.torch_dtype(cfg.dtype)
-    x = tr._embed(params, token[:, None], cfg, dt)
+    x = tr._embed(params, token[:, None], cfg, dt, None)
     x = _run_layers(params, x, cfg, pos0=int(pos), caches=caches)
-    return tr._logits(params, x, cfg), caches
+    return tr._logits(params, x, cfg, None), caches

@@ -16,6 +16,17 @@ writes one position of it and returns the same dict. Writing past
 ``max_len`` raises, where the reference's ``dynamic_update_slice`` would
 clamp the position and overwrite the last slot.
 
+Under a ``mesh_context`` with a ``DeviceMesh`` the params are DTensors and
+the reference's ``constrain`` points apply (q/k/v heads on "tp", the
+attention and MLP outputs and the embeddings on ("dp", "sp"), the logits'
+vocab on "tp"). A projection whose heads do not divide the model axis is
+gathered over it before its reshape to heads. The caches are DTensors on
+``cache_pspec``'s placements: new k/v are brought to the cache's
+placements and written into its local shard (``_write``), and attention
+gathers the cache to what it needs (``common._heads_local``). The
+stacked caches keep their layer dim whole, also where the reference's rule
+would split it (a layer count equal to the batch).
+
 The same backbone carries the MoE family (``models/moe.py`` in place of
 the MLP) and the VLM family (``extra_embeds``: patch embeddings (B,P,D)
 prepended to the token embeddings, at positions 0 .. P-1). ``apply_attn``
@@ -27,16 +38,22 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (
+    _CTX,
     NEG_INF,
+    _heads_local,
     _repeat_kv,
+    _whole,
     apply_mlp,
     apply_rope,
     attention,
+    constrain,
     cross_entropy,
     dense_init,
     embed_init,
@@ -92,11 +109,14 @@ def apply_attn(p, x, cfg: ModelConfig, *, pos0: int, cache: dict | None = None,
         y = x @ p[w].to(dt)
         if bias in p:
             y = y + p[bias].to(dt)
-        return y.reshape(b, s, nh, hd)
+        return _heads_divide(y, nh).reshape(b, s, nh, hd)
 
     q = proj("wq", "bq", cfg.num_heads)
     k = proj("wk", "bk", cfg.num_kv_heads)
     v = proj("wv", "bv", cfg.num_kv_heads)
+    q = constrain(q, "dp", None, "tp", None)
+    k = constrain(k, "dp", None, "tp", None)
+    v = constrain(v, "dp", None, "tp", None)
     positions = torch.arange(s, device=x.device) + pos0
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -109,7 +129,48 @@ def apply_attn(p, x, cfg: ModelConfig, *, pos0: int, cache: dict | None = None,
         out = attention(q, k, v, impl=_impl(cfg), causal=True, window=window,
                         q_offset=pos0)
     out = out.reshape(b, s, cfg.num_heads * hd)
-    return out @ p["wo"].to(dt)
+    return constrain(out @ p["wo"].to(dt), "dp", "sp", None)
+
+
+def _heads_divide(y, nh: int):
+    """A DTensor projection (B,S,nh*hd) whose last dim is split over a mesh
+    dim that does not divide ``nh``, gathered over that dim: DTensor cannot
+    unflatten an uneven split into heads."""
+    if not isinstance(y, DTensor):
+        return y
+    mesh = y.device_mesh
+    pls = tuple(Replicate() if p.is_shard() and p.dim % y.ndim == y.ndim - 1
+                and nh % mesh.size(j) else p
+                for j, p in enumerate(y.placements))
+    return y if pls == tuple(y.placements) else y.redistribute(mesh, pls)
+
+
+def _write(dst, idx, src):
+    """``dst[:, idx] = src`` in place. A DTensor ``dst`` (a cache leaf) takes
+    ``src`` brought to its placements, written into its local shard; a
+    plain ``src`` (positions) is the same on every rank."""
+    if isinstance(dst, DTensor):
+        if isinstance(src, DTensor):
+            src = src.to(dst.dtype).redistribute(dst.device_mesh,
+                                                  dst.placements).to_local()
+        dst = dst.to_local()
+    dst[:, idx] = src.to(dst.dtype) if isinstance(src, torch.Tensor) else src
+
+
+def place_cache(caches, batch: int, stacked: bool = True):
+    """Under a mesh context with a ``DeviceMesh``, the new ``caches`` as
+    DTensors on ``cache_pspec``'s placements for a global batch of
+    ``batch`` (each rank keeps its block); else ``caches`` as they are.
+    ``stacked``: each leaf's leading layer dim stays whole
+    (``specs.cache_specs``), so ``_layer`` takes views of this rank's
+    shard."""
+    mesh = _CTX["mesh"]
+    if mesh is None or mesh.device_mesh is None:
+        return caches
+    from repro_torch.sharding.specs import cache_placements, distribute
+
+    return distribute(caches, mesh,
+                      cache_placements(caches, mesh, batch, stacked))
 
 
 def _write_cache(k, v, cache, pos0: int, kv_quant: bool = False):
@@ -125,14 +186,14 @@ def _write_cache(k, v, cache, pos0: int, kv_quant: bool = False):
         # int8 KV cache with per-(token, head) max-abs bf16 scales.
         kq, ks = _kv_quantize(k)
         vq, vs = _kv_quantize(v)
-        cache["k"][:, sl] = kq
-        cache["v"][:, sl] = vq
-        cache["k_scale"][:, sl] = ks
-        cache["v_scale"][:, sl] = vs
+        _write(cache["k"], sl, kq)
+        _write(cache["v"], sl, vq)
+        _write(cache["k_scale"], sl, ks)
+        _write(cache["v_scale"], sl, vs)
         return (cache["k"].to(dt) * cache["k_scale"].to(dt)[..., None],
                 cache["v"].to(dt) * cache["v_scale"].to(dt)[..., None])
-    cache["k"][:, sl] = k.to(cache["k"].dtype)
-    cache["v"][:, sl] = v.to(cache["v"].dtype)
+    _write(cache["k"], sl, k)
+    _write(cache["v"], sl, v)
     return cache["k"].to(dt), cache["v"].to(dt)
 
 
@@ -146,18 +207,18 @@ def _apply_window_cache(q, k, v, cache, cfg: ModelConfig, positions, pos0: int,
     s, dt = q.shape[1], q.dtype
     if s == 1:
         slot = pos0 % window
-        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
-        cache["pos"][:, slot] = pos0
+        _write(cache["k"], slice(slot, slot + 1), k)
+        _write(cache["v"], slice(slot, slot + 1), v)
+        _write(cache["pos"], slot, pos0)
         return _window_cache_attention(q, cache["k"].to(dt), cache["v"].to(dt),
                                        cache["pos"], pos0, window)
     out = attention(q, k, v, impl=_impl(cfg), causal=True, window=window,
                     q_offset=pos0)
     wlen = min(s, window)
     slots = positions[-wlen:] % window
-    cache["k"][:, slots] = k[:, -wlen:].to(cache["k"].dtype)
-    cache["v"][:, slots] = v[:, -wlen:].to(cache["v"].dtype)
-    cache["pos"][:, slots] = positions[-wlen:].to(cache["pos"].dtype)
+    _write(cache["k"], slots, k[:, -wlen:])
+    _write(cache["v"], slots, v[:, -wlen:])
+    _write(cache["pos"], slots, positions[-wlen:])
     return out
 
 
@@ -165,6 +226,10 @@ def _window_cache_attention(q, k, v, kpos, cur_pos: int, window: int):
     """Attention over a ring-buffer cache with absolute-position masking.
     q: (B,S,H,hd); k, v: (B,W,KV,hd); kpos: (B,W). Scores in q's dtype,
     then fp32; probabilities rounded to q's dtype, as the reference."""
+    if isinstance(q, DTensor):
+        return _heads_local(
+            lambda q, k, v, kp: _window_cache_attention(q, k, v, kp, cur_pos,
+                                                        window), q, k, v, kpos)
     h, hd = q.shape[2], q.shape[3]
     k = _repeat_kv(k, h // k.shape[2])
     v = _repeat_kv(v, h // v.shape[2])
@@ -251,16 +316,23 @@ def _run_blocks(params, x, cfg: ModelConfig, *, pos0: int, caches=None):
     return x
 
 
-def _embed(params, tokens, cfg, dt):
+def _embed(params, tokens, cfg, dt, seq_axis="sp"):
     # Gather, then cast: the same values as casting the table first, without
-    # a copy of the whole table.
+    # a copy of the whole table. A vocab-split DTensor table goes through
+    # F.embedding, which DTensor runs vocab-parallel, after its FSDP split
+    # of d_model is gathered (DTensor's rule takes the vocab split alone).
+    table = params["embed"]
+    if isinstance(table, DTensor):
+        table = _whole(table, 1)
+        return constrain(F.embedding(tokens, table).to(dt), "dp", seq_axis,
+                         None)
     return params["embed"][tokens].to(dt)
 
 
-def _logits(params, x, cfg: ModelConfig):
+def _logits(params, x, cfg: ModelConfig, seq_axis="sp"):
     x = rms_norm(x, params["ln_f"].to(x.dtype), cfg.norm_eps)
     w = params["lm_head"] if "lm_head" in params else params["embed"].T
-    return x @ w.to(x.dtype)
+    return constrain(x @ w.to(x.dtype), "dp", seq_axis, "tp")
 
 
 def _embed_with_extra(params, tokens, cfg: ModelConfig, extra_embeds):
@@ -323,7 +395,7 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int, *,
     goes on at position P+S."""
     x = _embed_with_extra(params, tokens, cfg, extra_embeds)
     b = x.shape[0]
-    caches = init_cache(cfg, b, max_len, device=x.device)
+    caches = place_cache(init_cache(cfg, b, max_len, device=x.device), b)
     x = _run_blocks(params, x, cfg, pos0=0, caches=caches)
     return _logits(params, x[:, -1:].contiguous(), cfg), caches
 

@@ -7,6 +7,13 @@ returns new trees, ``clip_by_global_norm`` and ``adamw_update`` update their
 arguments in place: a second copy of the params, m and v does not fit the
 card for a 3B model. They compute the same values.
 
+On DTensor leaves (the sharded GSPMD step) the global norm is the full
+sum over every element, and the update runs on m/v's placements: under
+ZeRO-1 m and v carry a "data" split that the param lacks, so the param and
+its gradient are cut to m's blocks, updated there, and the new param is
+gathered back to its own placements (what XLA does for the reference
+implicitly).
+
 Profiler ranges ``repro_torch.clip`` and ``repro_torch.adamw`` mark the
 two updates. The step count lives on the host as a Python int, and the
 learning rate and bias corrections are computed there in float32
@@ -18,6 +25,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models.registry import leaves
@@ -43,22 +51,36 @@ def bias_corrections(cfg: TrainConfig, count: int) -> tuple[float, float]:
             float(_f32(1.0) - _f32(cfg.beta2) ** c))
 
 
-def adamw_init(params) -> dict:
+def adamw_init(params, pls=None) -> dict:
     """Zero fp32 m and v shaped like ``params`` (nested dicts and lists, as
-    the hybrid family's tail), and a step count of 0."""
-    def zeros(tree):
+    the hybrid family's tail), and a step count of 0. DTensor params take
+    zero DTensors on the placements of the tree ``pls`` (their own where
+    None)."""
+    def zeros(tree, pl):
         if isinstance(tree, dict):
-            return {k: zeros(v) for k, v in tree.items()}
+            return {k: zeros(v, None if pl is None else pl[k])
+                    for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
-            return [zeros(v) for v in tree]
+            return [zeros(v, None if pl is None else pl[i])
+                    for i, v in enumerate(tree)]
+        if isinstance(tree, DTensor):
+            import torch.distributed.tensor as dt
+
+            return dt.zeros(tree.shape, dtype=torch.float32,
+                            device_mesh=tree.device_mesh,
+                            placements=pl or tree.placements)
         return torch.zeros(tree.shape, dtype=torch.float32, device=tree.device)
 
-    return {"m": zeros(params), "v": zeros(params), "count": 0}
+    return {"m": zeros(params, pls), "v": zeros(params, pls), "count": 0}
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32 (a 0-d tensor)."""
-    return torch.sqrt(sum(x.float().square().sum() for x in leaves(tree)))
+    """sqrt of the sum of squares of every leaf, in fp32 (a 0-d tensor; a
+    plain one, equal on every rank, for DTensor leaves)."""
+    sq = sum(x.float().square().sum() for x in leaves(tree))
+    if isinstance(sq, DTensor):
+        sq = sq.full_tensor()
+    return torch.sqrt(sq)
 
 
 def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -72,6 +94,8 @@ def clip_by_global_norm(tree, max_norm: float) -> torch.Tensor:
         norm = global_norm(tree)
         scale = clip_scale(norm, max_norm)
         for x in leaves(tree):
+            if isinstance(x, DTensor):
+                x = x.to_local()
             x.mul_(scale.to(x.dtype))
     return norm
 
@@ -107,6 +131,24 @@ def adamw_update(grads, state: dict, params, cfg: TrainConfig) -> float:
     with torch.profiler.record_function("repro_torch.adamw"):
         for g, m, v, p in zip(leaves(grads), leaves(state["m"]),
                               leaves(state["v"]), leaves(params)):
-            adamw_step_(p, g, m, v, lr=lr, c1=c1, c2=c2, cfg=cfg)
+            if isinstance(p, DTensor):
+                _adamw_step_sharded(p, g, m, v, lr=lr, c1=c1, c2=c2, cfg=cfg)
+            else:
+                adamw_step_(p, g, m, v, lr=lr, c1=c1, c2=c2, cfg=cfg)
     state["count"] = count
     return lr
+
+
+@torch.no_grad()
+def _adamw_step_sharded(p, g, m, v, **kw) -> None:
+    """``adamw_step_`` of DTensors on m's placements: the param and its
+    gradient cut to m's blocks, the new param gathered back to its own."""
+    mesh, pls = m.device_mesh, m.placements
+    same = tuple(p.placements) == tuple(pls)
+    pm = p if same else p.redistribute(mesh, pls)
+    gm = g if tuple(g.placements) == tuple(pls) else g.redistribute(mesh, pls)
+    pl = p.to_local() if same else pm.to_local().clone()
+    adamw_step_(pl, gm.to_local(), m.to_local(), v.to_local(), **kw)
+    if not same:
+        new = DTensor.from_local(pl, mesh, pls, run_check=False)
+        p.to_local().copy_(new.redistribute(mesh, p.placements).to_local())

@@ -3,9 +3,17 @@
 Two data-parallel gradient-sync modes:
 
 * ``gspmd``: the production default of the reference, one GSPMD program
-  with every collective inserted by XLA. The port runs it on a 1x1 mesh
-  only, as the single-device step (with microbatch accumulation); a larger
-  mesh raises until the sharded runtime is ported (ROADMAP M12).
+  with every collective inserted by XLA. The port runs it over DTensors on
+  a mesh with a ``DeviceMesh`` (any process group, one rank included):
+  params on ``param_pspec``'s placements (tensor parallelism on "model",
+  FSDP on "data" with ``parallel.fsdp``), m and v on ``opt_state_pspec``'s
+  (ZeRO-1), the batch split on ``batch_pspec``, the model's ``constrain``
+  points inside a ``mesh_context`` (``seq_sharding`` too), and the
+  collectives that DTensor's redistributions make. With no mesh, or a
+  group-less 1x1 one, it is the single-device step. Both accumulate
+  gradients over ``tcfg.microbatch`` slices of the batch. The MoE, VLM,
+  audio and SSM families raise on a sharded mesh: their constraint points
+  are not ported (ROADMAP M14).
 * ``themis`` / ``hier_baseline``: the paper's technique. Every mesh axis is
   a data-parallel axis (pure-DP ZeRO-2). Gradients are flattened, chunked
   and reduce-scattered over ``torch.distributed`` with per-chunk axis orders
@@ -28,9 +36,11 @@ collective at all (every order is ``()``), where the reference's
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.comms.hierarchical import (
     _quantize,
@@ -41,7 +51,16 @@ from repro_torch.comms.hierarchical import (
 )
 from repro_torch.comms.schedule_bridge import themis_axis_orders
 from repro_torch.configs.base import ParallelConfig, TrainConfig
+from repro_torch.models.common import mesh_context
 from repro_torch.models.registry import ModelApi, count_params, leaves
+from repro_torch.sharding.specs import (
+    batch_pspec,
+    distribute,
+    distribute_leaf,
+    opt_placements,
+    param_placements,
+    placements,
+)
 from repro_torch.train.optimizer import (
     adamw_init,
     adamw_step_,
@@ -62,30 +81,81 @@ def trainable(params):
 
 
 # --------------------------------------------------------------------------
-# GSPMD mode (one device)
+# GSPMD mode
 # --------------------------------------------------------------------------
+# the families whose constraint points the port has (the others raise on a
+# sharded mesh)
+SHARDED_FAMILIES = ("dense", "hybrid")
+
+
+def sharded(mesh) -> bool:
+    """Whether ``mesh`` runs the sharded (DTensor) path: it has a
+    ``DeviceMesh``, that is a process group is up."""
+    return mesh is not None and mesh.device_mesh is not None
+
+
+def check_family(api: ModelApi, mesh) -> None:
+    """Raise for a family with no sharded path on a sharded mesh (one rank
+    included: its DTensor path is untested, and nothing falls back)."""
+    if sharded(mesh) and api.cfg.family not in SHARDED_FAMILIES:
+        raise NotImplementedError(
+            f"{api.cfg.name} ({api.cfg.family} family) on a sharded mesh of "
+            f"{mesh.size} ranks: the family's constraint points are not "
+            "ported yet (ROADMAP M14)")
+
+
+def shard_batch(batch: dict, mesh) -> dict:
+    """Each array of ``batch`` as a DTensor split on ``batch_pspec``: a
+    DTensor passes as it is, a plain tensor is the whole global batch (the
+    same on every rank), of which this rank keeps its block."""
+    out = {}
+    for k, v in batch.items():
+        if not isinstance(v, DTensor):
+            v = torch.as_tensor(v)
+            v = distribute_leaf(v, placements(
+                batch_pspec(tuple(v.shape), mesh, v.shape[0]), mesh), mesh)
+        out[k] = v
+    return out
+
+
+def _micro(batch: dict, n_micro: int, mesh) -> list[dict]:
+    """The batch's ``n_micro`` slices of rows (slice i: rows i*B/n ..
+    (i+1)*B/n - 1, as the reference reshapes them), each placed on the
+    mesh by ``batch_pspec`` of its own rows."""
+    if n_micro == 1:
+        return [batch]
+    if mesh is None:
+        micro = {k: v.chunk(n_micro) for k, v in batch.items()}
+        return [{k: v[i] for k, v in micro.items()} for i in range(n_micro)]
+    whole = {k: v.full_tensor() for k, v in batch.items()}
+    micro = {k: v.chunk(n_micro) for k, v in whole.items()}
+    return [shard_batch({k: v[i] for k, v in micro.items()}, mesh)
+            for i in range(n_micro)]
+
+
 def make_gspmd_train_step(api: ModelApi, mesh, parallel: ParallelConfig,
                           tcfg: TrainConfig):
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``, which updates params and opt_state in place.
+    metrics)``, which updates params and opt_state in place; metrics hold
+    the loss and gnorm as plain tensors, equal on every rank, and the lr.
 
+    On a sharded mesh (``sharded(mesh)``) params and m/v are DTensors from
+    ``gspmd_init_state`` and ``batch`` is placed by ``shard_batch``.
     ``tcfg.microbatch`` > 1 accumulates gradients over that many slices of
     the batch's rows, so live activations are O(batch / microbatch)."""
-    if math.prod(parallel.mesh_shape) != 1 or (mesh is not None and mesh.size != 1):
-        raise NotImplementedError(
-            f"mesh {parallel.mesh_shape}: the multi-rank GSPMD step is not "
-            "ported yet (ROADMAP M12); use dp_sync='themis' on a mesh")
+    dmesh = mesh if sharded(mesh) else None
+    if dmesh is None and (math.prod(parallel.mesh_shape) != 1
+                          or (mesh is not None and mesh.size != 1)):
+        raise ValueError(f"mesh {parallel.mesh_shape}: the sharded GSPMD step "
+                         "needs a Mesh over a process group")
+    check_family(api, mesh)
     n_micro = max(tcfg.microbatch, 1)
 
     def grads_of(params, batch):
         ps = leaves(trainable(params))
-        if n_micro == 1:
-            loss = api.loss_fn(params, batch)
-            return loss.detach(), list(torch.autograd.grad(loss, ps))
-        micro = {k: v.chunk(n_micro) for k, v in batch.items()}
         loss_sum, g_sum = None, None
-        for i in range(n_micro):
-            loss_i = api.loss_fn(params, {k: v[i] for k, v in micro.items()})
+        for mb in _micro(batch, n_micro, dmesh):
+            loss_i = api.loss_fn(params, mb)
             g_i = torch.autograd.grad(loss_i, ps)
             loss_i = loss_i.detach()
             if g_sum is None:
@@ -94,27 +164,58 @@ def make_gspmd_train_step(api: ModelApi, mesh, parallel: ParallelConfig,
                 loss_sum = loss_sum + loss_i
                 for a, b in zip(g_sum, g_i):
                     a.add_(b)
-        inv = 1.0 / n_micro
-        for g in g_sum:
-            g.mul_(inv)
-        return loss_sum * inv, g_sum
+        if n_micro > 1:
+            inv = 1.0 / n_micro
+            for g in g_sum:
+                g.mul_(inv)
+            loss_sum = loss_sum * inv
+        if dmesh is not None:
+            # a gradient on its param's placements (reduce-scattered from a
+            # partial sum where DTensor left one)
+            g_sum = [g if g.placements == p.placements
+                     else g.redistribute(p.device_mesh, p.placements)
+                     for g, p in zip(g_sum, ps)]
+        return loss_sum, g_sum
 
     def step(params, opt_state, batch):
-        loss, grads = grads_of(params, batch)
-        with torch.no_grad():
-            gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
-            lr = adamw_update(grads, opt_state, params, tcfg)
+        with (nullcontext() if dmesh is None
+              else mesh_context(dmesh, sp=parallel.seq_sharding)):
+            if dmesh is not None:
+                batch = shard_batch(batch, dmesh)
+            loss, grads = grads_of(params, batch)
+            with torch.no_grad():
+                gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+                lr = adamw_update(grads, opt_state, params, tcfg)
         return params, opt_state, {"loss": loss, "gnorm": gnorm, "lr": lr}
 
     return step
 
 
 def gspmd_init_state(api: ModelApi, mesh, parallel: ParallelConfig,
-                     seed: int = 0, device=None):
-    """Params from ``seed`` on ``device`` (``cuda`` unless given) and a
-    fresh optimizer state."""
-    params = trainable(api.init(seed, device))
-    return params, adamw_init(params)
+                     seed: int = 0, device=None, params=None):
+    """Params from ``seed`` on ``device`` (``cuda`` unless given), or the
+    given whole ``params``, and a fresh optimizer state. On a sharded mesh
+    each rank makes the whole params from the seed and keeps its blocks as
+    DTensors on ``param_placements``; m and v are zero DTensors on
+    ``opt_placements``."""
+    check_family(api, mesh)
+    if params is None:
+        params = api.init(seed, device)
+    if not sharded(mesh):
+        params = trainable(params)
+        return params, adamw_init(params)
+    params = trainable(distribute(params, mesh,
+                                  param_placements(params, mesh, parallel)))
+    return params, adamw_init(params, opt_placements(params, mesh, parallel))
+
+
+def make_train_step(api: ModelApi, mesh, parallel: ParallelConfig,
+                    tcfg: TrainConfig):
+    """The reference's dispatcher: ``make_gspmd_train_step`` for
+    ``dp_sync="gspmd"``, else ``make_themis_train_step``."""
+    if parallel.dp_sync == "gspmd":
+        return make_gspmd_train_step(api, mesh, parallel, tcfg)
+    return make_themis_train_step(api, mesh, parallel, tcfg)
 
 
 # --------------------------------------------------------------------------

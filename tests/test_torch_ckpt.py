@@ -310,9 +310,3 @@ def test_launch_train_ckpt_dir_resumes_with_the_exact_data_cursor(dp_sync, tmp_p
     assert [c["step"] for c in res["checkpoints"]] == [4]
     for a, b in zip(leaves(res["params"]), leaves(whole["params"])):
         assert torch.equal(a, b)
-
-
-def test_launch_train_refuses_checkpoints_of_a_multi_rank_run(tmp_path):
-    with pytest.raises(NotImplementedError, match="M12"):
-        ttrain.main(["--reduced", "--device", "cpu", "--mesh", "2x1",
-                     "--ckpt-dir", str(tmp_path)])

@@ -50,7 +50,8 @@ def test_checked_files_cover_every_kernel_and_model_module():
             "tenancy/elastic.py", "tenancy/metrics.py", "tenancy/fabric.py",
             "fleet/arrivals.py", "fleet/admission.py", "verify/smt.py", "verify/encode.py",
             "verify/properties.py", "verify/harness.py", "models/moe.py",
-            "models/whisper.py", "models/xlstm.py"} <= names
+            "models/whisper.py", "models/xlstm.py", "sharding/__init__.py",
+            "sharding/specs.py", "train/pipeline.py"} <= names
 
 
 def test_chip_smoke_builds_every_kernel_source():

@@ -224,13 +224,6 @@ def test_bridge_carries_every_family_tree(arch, path):
     assert tuple(leaf_t.shape) == leaf_j.shape
 
 
-def test_sharded_serving_raises():
-    cfg = get_arch("llama3-8b", reduced=True)
-    with pytest.raises(NotImplementedError, match="M12"):
-        make_serve_fns(build_model(cfg), device="cpu",
-                       parallel=ParallelConfig(data=2, model=4))
-
-
 @pytest.mark.parametrize("extra", [[], ["--kv-quant"], ["--arch", "qwen2.5-3b"],
                                    ["--arch", "granite-34b", "--layers", "1"]])
 def test_launch_serve_end_to_end_on_cpu(extra, capsys):

@@ -463,12 +463,6 @@ def test_gspmd_step_matches_reference(microbatch):
     _params_close(tparams, jax.tree.leaves(jparams), init, 1e-3)
 
 
-def test_gspmd_step_on_a_mesh_raises():
-    api = build_model(get_arch("qwen2.5-3b", reduced=True))
-    with pytest.raises(NotImplementedError, match="M12"):
-        make_gspmd_train_step(api, None, ParallelConfig(data=2), TrainConfig())
-
-
 def test_themis_step_on_one_rank_matches_gspmd_step():
     """The reference's Themis step raises on a one-device mesh; the port's
     issues no collective there and computes what the GSPMD step computes."""
