@@ -105,7 +105,19 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    1500, 24 causal self-attention; all sm90, tallied by shape), K2 122 per
    prefill and 73 per decode step; xlstm-1.3b whole (48 blocks, 4 x 2048
    tokens: 8 mLSTM chunks and 12,288 sLSTM steps), no K1, K2 97 per step,
-   checked against teacher forcing in bf16 (1e-1) and fp32 (3e-2);
+   checked against teacher forcing in bf16 (1e-1) and fp32 (3e-2); each of
+   these five also served on the one-rank NCCL mesh right after its
+   single-device run, on the same weights with no copy
+   (``phase_*_sharded_serve``): launches per step, prefill and last logits
+   (within 2e-2; 0.0 expected) and ids equal to the single-device run's,
+   for the MoE also every layer's expert ids of the prefill; then a
+   training step of deepseek-moe-16b at full width cut to 4 of its 28
+   layers (2.77 B params; fp32 params, grads, m and v 44 GB) at 4 x 1024,
+   3 steps on one device, then 3 on the one-rank mesh from the same seed
+   (``phase_moe_train``): the first loss equal to the bit, later losses
+   and gnorms within 1e-5 relative (the dispatch's gathers add with
+   atomics in the backward), equal launches, step ms, busy share and peak
+   memory of both;
 5. train qwen2.5-3b at its published width and depth (36 layers, d_model
    2048, vocab 151936, tied embeddings, 3.09 B params in fp32, bf16
    activations, remat "full"; random weights from a seed) through
@@ -212,9 +224,21 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    prefills of qwen2.5-14b, granite-34b, deepseek-moe-16b, qwen3-moe,
    internvl2-26b and whisper-medium (its three attention shapes, the two
    non-causal ones against SDPA with ``is_causal=False``), K2 at
-   xlstm-1.3b's (4, 2048, 4096); and each training step's floor
+   xlstm-1.3b's (4, 2048, 4096); K1, K2 and their backwards at
+   deepseek-moe-16b's training shape (q, k/v (4, 1024, 16, 128); x (4,
+   1024, 2048)); and each training step's floor
    (its FLOPs at the bf16 peak) and ``model_flops_6nd`` share beside the
-   measured step time.
+   measured step time;
+9. the dry run (``python -m repro_torch.launch.dryrun``, meta tensors on a
+   fake process group, host only; ``phase_dryrun``), one subprocess per
+   cell, all at once, on the 16x16 production mesh: llama3-8b train_4k,
+   qwen2.5-3b train_4k with ``--dp-sync themis``, deepseek-moe-16b
+   train_4k, internvl2-26b prefill_32k, whisper-medium decode_32k,
+   xlstm-1.3b long_500k, recurrentgemma-2b decode_32k, and llama3-8b
+   train_4k on the 2x16x16 multi-pod mesh: every cell ``status: ok`` with
+   the reference's keys, every train cell counting an all-reduce, an
+   all-gather and a reduce-scatter; per-device GiB against the card's 80,
+   FLOPs, bytes by kind and seconds per cell printed.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` last. Exits non-zero, without that last
@@ -277,6 +301,13 @@ QWEN3MOE_D = dict(h=64, kv=4, d=128, d_model=4096)
 VLM_D = dict(h=48, kv=8, d=128, d_model=6144, patches=256)
 WHISPER_D = dict(h=16, kv=16, d=64, d_model=1024, frames=1500, prompt=432, layers=24)
 XLSTM_D = dict(d_model=2048, inner=4096, prompt=2048, blocks=48)
+# deepseek-moe-16b's training step: full width cut to 4 of its 28 layers
+# (2.77 B params: fp32 params, grads, m and v 44 GB), 4 x 1024, 3 steps;
+# K1 at q, k/v (4, 1024, 16, 128) (a GQA group of 1), K2 at (4, 1024, 2048)
+MOE_TRAIN = dict(layers=4, batch=4, seq=1024, steps=3)
+MOE16B_TRAIN_ATTN = (MOE_TRAIN["batch"], MOE_TRAIN["seq"], MOE16B_D["h"],
+                     MOE16B_D["kv"], MOE16B_D["d"], MOE_TRAIN["seq"], 0)
+MOE16B_TRAIN_X = (MOE_TRAIN["batch"], MOE_TRAIN["seq"], MOE16B_D["d_model"])
 # K1's (b, s, h, kv, d, t, window) on the new paths; window None: non-causal
 MOE16B_ATTN = (BATCH, PROMPT, MOE16B_D["h"], MOE16B_D["kv"], 128, PROMPT + GEN, 0)
 QWEN3MOE_ATTN = (BATCH, PROMPT, QWEN3MOE_D["h"], QWEN3MOE_D["kv"], 128,
@@ -299,10 +330,11 @@ FAMILY_ATTN = {MOE16B_ATTN: "flash_attention_moe16b",
                VLM_ATTN: "flash_attention_vlm",
                WHISPER_ENC_ATTN: "flash_attention_whisper_enc",
                WHISPER_CROSS_ATTN: "flash_attention_whisper_cross",
-               WHISPER_SELF_ATTN: "flash_attention_whisper_self"}
+               WHISPER_SELF_ATTN: "flash_attention_whisper_self",
+               MOE16B_TRAIN_ATTN: "flash_attention_moe16b_train"}
 FAMILY_NORM = {MOE16B_X: "rmsnorm_moe16b", QWEN3MOE_X: "rmsnorm_qwen3moe",
                VLM_X: "rmsnorm_vlm", WHISPER_X: "rmsnorm_whisper",
-               XLSTM_X: "rmsnorm_xlstm"}
+               XLSTM_X: "rmsnorm_xlstm", MOE16B_TRAIN_X: "rmsnorm_moe16b_train"}
 # the checkpoint phase: qwen2.5-3b at full width cut to 2 layers
 CKPT_LAYERS, CKPT_BATCH, CKPT_STEPS = 2, 2, 4
 GRAD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": 2e-2}
@@ -407,16 +439,20 @@ def main() -> int:
               phase_teacher_forcing, phase_card_vs_cpu, phase_hybrid_serve,
               phase_hybrid_profile, phase_hybrid_sharded_serve,
               phase_hybrid_teacher_forcing, phase_hybrid_card_vs_cpu,
-              phase_dense14b_serve, phase_granite_serve, phase_moe16b_serve,
-              phase_qwen3moe_serve, phase_vlm_serve, phase_whisper_serve,
-              phase_xlstm_serve,
+              phase_dense14b_serve, phase_granite_serve,
+              phase_moe16b_serve, phase_moe16b_sharded_serve, phase_moe16b_checks,
+              phase_qwen3moe_serve, phase_qwen3moe_sharded_serve,
+              phase_qwen3moe_checks, phase_vlm_serve, phase_vlm_sharded_serve,
+              phase_vlm_checks, phase_whisper_serve, phase_whisper_sharded_serve,
+              phase_whisper_checks, phase_xlstm_serve, phase_xlstm_sharded_serve,
+              phase_xlstm_checks, phase_moe_train,
               phase_train, phase_train_profile, phase_train_dots,
               phase_train_dots_profile, phase_themis_train, phase_sharded_train,
               phase_train_card_vs_cpu, phase_ckpt_resume, phase_hybrid_train,
               phase_hybrid_train_profile, phase_hybrid_train_dots,
               phase_hybrid_train_dots_profile, phase_hybrid_train_card_vs_cpu,
               phase_simulator, phase_faults, phase_tenancy, phase_traffic,
-              phase_fleet, phase_verify, phase_wave, phase_times)
+              phase_fleet, phase_verify, phase_wave, phase_dryrun, phase_times)
     for phase in phases:
         t0 = time.perf_counter()
         try:
@@ -700,6 +736,73 @@ def _grad_close(name, got, want, dn, errs):
         raise AssertionError(f"{name}: max abs err {err} beyond {tol}")
 
 
+def _flash_grad_check(gen, shape, dn):
+    """K1's gradients through ``ops.flash_attention`` at ``shape`` (b, s, h,
+    kv, d, t, window), causal, in ``dn``: against autograd through the plain
+    version, against ``flash_attention_bwd`` fed with the kernel's out and
+    LSE, and in bf16 against autograd through the plain version on fp32
+    copies. Returns the check's line and its largest error against the
+    first two."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import flash_attention_bwd
+
+    b, s, h, kv, d, t, win = shape
+    dt = _dtype(dn)
+    q = _randn(gen, (b, s, h, d), dt).requires_grad_(True)
+    k = _randn(gen, (b, t, kv, d), dt).requires_grad_(True)
+    v = _randn(gen, (b, t, kv, d), dt).requires_grad_(True)
+    dout = _randn(gen, (b, s, h, d), dt)
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, True, win),
+                              (q, k, v), dout)
+    p_out, _ = fa.flash_attention_plain(q, k, v, causal=True, window=win)
+    want = torch.autograd.grad(p_out, (q, k, v), dout)
+    with torch.no_grad():
+        out, lse = fa.flash_attention(q, k, v, causal=True, window=win)
+        plain = flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
+                                    window=win)
+    readings = fp32_errs = None
+    if dn == "bfloat16":
+        # the gate against fp32: the kernel's gradients against
+        # autograd through the plain version on fp32 copies of the
+        # same inputs; beside it, how far each bf16 gradient lies
+        # from that reference (the plain bf16 backward carries most
+        # of the error of the two bf16 gates below)
+        q32, k32, v32 = (x.detach().float().requires_grad_(True)
+                         for x in (q, k, v))
+        ref = torch.autograd.grad(fa.flash_attention_plain(
+            q32, k32, v32, causal=True, window=win)[0], (q32, k32, v32),
+            dout.float())
+        readings = {label: {n: _max_err(a, r) for n, a, r in
+                            zip(("dq", "dk", "dv"), grads, ref)}
+                    for label, grads in (("kernel", got), ("autograd_plain", want),
+                                         ("flash_attention_bwd", plain))}
+        fp32_errs = []
+        for n, a, r in zip(("dq", "dk", "dv"), got, ref):
+            _grad_close(f"flash_attention{(b, s, h, kv, d, t, win)} {dn} {n} "
+                        "vs fp32 autograd", a, r, dn, fp32_errs)
+        del q32, k32, v32, ref
+    torch.cuda.synchronize()
+    errs, plain_errs = [], []
+    for n, a, w, pl in zip(("dq", "dk", "dv"), got, want, plain):
+        name = f"flash_attention{(b, s, h, kv, d, t, win)} {dn} {n}"
+        _grad_close(name, a, w, dn, errs)
+        _grad_close(name + " vs flash_attention_bwd", a, pl, dn, plain_errs)
+    worst = max(e["max_abs_err"] for e in errs + plain_errs)
+    check = {"kernel": "flash_attention", "route": fa.route(dt, d),
+             "backward_route": fa.bwd_route(dt, d),
+             "shape": [b, s, h, kv, d, t], "window": win,
+             "dtype": dn, "grads": errs,
+             "vs_plain_backward": plain_errs, "tol": GRAD_TOL[dn],
+             "vs_fp32_autograd": fp32_errs,
+             "bf16_max_abs_err_vs_fp32_autograd": readings}
+    del q, k, v, dout, got, p_out, want, out, lse, plain
+    torch.cuda.empty_cache()
+    return check, worst
+
+
 def _grad_checks(gen):
     """K1's and K2's gradients on the card: each autograd path that the
     training step runs (``ops.flash_attention``, ``ops.rmsnorm``, whose
@@ -717,7 +820,8 @@ def _grad_checks(gen):
 
     checks = []
     worst = {"flash_attention_backward": 0.0, "rmsnorm_backward": 0.0,
-             "flash_attention_backward_hybrid": 0.0, "rmsnorm_backward_hybrid": 0.0}
+             "flash_attention_backward_hybrid": 0.0, "rmsnorm_backward_hybrid": 0.0,
+             "flash_attention_backward_moe16b_train": 0.0}
     train = (TRAIN_BATCH, TRAIN_SEQ, QWEN["h"], QWEN["kv"], QWEN["d"], TRAIN_SEQ,
              0)
     train_window = (2, TRAIN_SEQ, QWEN["h"], QWEN["kv"], QWEN["d"], TRAIN_SEQ, 300)
@@ -727,61 +831,22 @@ def _grad_checks(gen):
     shapes = (FA_TEST_SHAPES + [(b, s, h, kv, d, t, 16)
                                 for b, s, h, kv, d, t, _ in FA_TEST_SHAPES]
               + [train, train_window] + d256)
-    for b, s, h, kv, d, t, win in shapes:
+    for shape in shapes:
         for dn in ("float32", "bfloat16"):
-            dt = _dtype(dn)
-            q = _randn(gen, (b, s, h, d), dt).requires_grad_(True)
-            k = _randn(gen, (b, t, kv, d), dt).requires_grad_(True)
-            v = _randn(gen, (b, t, kv, d), dt).requires_grad_(True)
-            dout = _randn(gen, (b, s, h, d), dt)
-            got = torch.autograd.grad(ops.flash_attention(q, k, v, True, win),
-                                      (q, k, v), dout)
-            p_out, _ = fa.flash_attention_plain(q, k, v, causal=True, window=win)
-            want = torch.autograd.grad(p_out, (q, k, v), dout)
-            with torch.no_grad():
-                out, lse = fa.flash_attention(q, k, v, causal=True, window=win)
-                plain = flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
-                                            window=win)
-            readings = fp32_errs = None
-            if dn == "bfloat16":
-                # the gate against fp32: the kernel's gradients against
-                # autograd through the plain version on fp32 copies of the
-                # same inputs; beside it, how far each bf16 gradient lies
-                # from that reference (the plain bf16 backward carries most
-                # of the error of the two bf16 gates below)
-                q32, k32, v32 = (x.detach().float().requires_grad_(True)
-                                 for x in (q, k, v))
-                ref = torch.autograd.grad(fa.flash_attention_plain(
-                    q32, k32, v32, causal=True, window=win)[0], (q32, k32, v32),
-                    dout.float())
-                readings = {label: {n: _max_err(a, r) for n, a, r in
-                                    zip(("dq", "dk", "dv"), grads, ref)}
-                            for label, grads in (("kernel", got), ("autograd_plain", want),
-                                                 ("flash_attention_bwd", plain))}
-                fp32_errs = []
-                for n, a, r in zip(("dq", "dk", "dv"), got, ref):
-                    _grad_close(f"flash_attention{(b, s, h, kv, d, t, win)} {dn} {n} "
-                                "vs fp32 autograd", a, r, dn, fp32_errs)
-                del q32, k32, v32, ref
-            torch.cuda.synchronize()
-            errs, plain_errs = [], []
-            for n, a, w, pl in zip(("dq", "dk", "dv"), got, want, plain):
-                name = f"flash_attention{(b, s, h, kv, d, t, win)} {dn} {n}"
-                _grad_close(name, a, w, dn, errs)
-                _grad_close(name + " vs flash_attention_bwd", a, pl, dn, plain_errs)
+            check, err = _flash_grad_check(gen, shape, dn)
             key = {train: "flash_attention_backward",
-                   HYB_TRAIN_ATTN: "flash_attention_backward_hybrid"}.get((b, s, h, kv, d, t, win))
+                   HYB_TRAIN_ATTN: "flash_attention_backward_hybrid"}.get(shape)
             if dn == "bfloat16" and key:
-                worst[key] = max(e["max_abs_err"] for e in errs + plain_errs)
-            checks.append({"kernel": "flash_attention", "route": fa.route(dt, d),
-                           "backward_route": fa.bwd_route(dt, d),
-                           "shape": [b, s, h, kv, d, t], "window": win,
-                           "dtype": dn, "grads": errs,
-                           "vs_plain_backward": plain_errs, "tol": GRAD_TOL[dn],
-                           "vs_fp32_autograd": fp32_errs,
-                           "bf16_max_abs_err_vs_fp32_autograd": readings})
-            del q, k, v, dout, got, p_out, want, out, lse, plain
-            torch.cuda.empty_cache()
+                worst[key] = err
+            checks.append(check)
+    # deepseek-moe-16b's training shape (MHA), from a generator of its own so
+    # every check here keeps its inputs
+    moe_gen = torch.Generator(device="cuda").manual_seed(31)
+    for dn in ("float32", "bfloat16"):
+        check, err = _flash_grad_check(moe_gen, MOE16B_TRAIN_ATTN, dn)
+        if dn == "bfloat16":
+            worst["flash_attention_backward_moe16b_train"] = err
+        checks.append(check)
     # the sm90 backward at d 256 gives the same bits from run to run
     b, s, h, kv, d, t, win = HYB_TRAIN_ATTN
     bf = torch.bfloat16
@@ -1023,30 +1088,57 @@ def _sharded_serve(state, arch):
     batch and GEN greedy steps. Launch counts per step equal the
     single-device run's; the prefill and last logits within 2e-2 of it
     (bit-equal expected; the max abs differences are printed) and the same
-    ids; prefill ms and decode ms per token beside the single-device
-    path's (the difference is DTensor's host cost)."""
+    ids; for the MoE family also each layer's expert ids in the prefill
+    (one more single-device prefill, not counted, records them); prefill
+    ms and decode ms per token beside the single-device path's (the
+    difference is DTensor's host cost)."""
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
+    from repro_torch.models import moe
     from repro_torch.models.registry import leaves
 
     run = state[arch]
     single = run["server"]
+    batch = run["batch"]
+    plen = batch["tokens"].shape[1] + (batch["patches"].shape[1]
+                                       if "patches" in batch else 0)
+    is_moe = single.cfg.family == "moe"
+    routes, route = {"single": [], "sharded": []}, moe.route
+
+    def recording(key):
+        def fn(p, x, cfg):
+            out = route(p, x, cfg)
+            routes[key].append(out[1].detach().clone())
+            return out
+        return fn
+
+    if is_moe:
+        moe.route = recording("single")
+        try:
+            single.prefill(single.params, batch, plen + GEN)
+        finally:
+            moe.route = route
+        torch.cuda.synchronize()
     with _one_rank_mesh() as mesh:
-        server = serve.setup(arch, device="cuda", mesh=mesh,
-                             params=single.params)
+        server = serve.setup(arch, device="cuda", mesh=mesh, params=single.params,
+                             layers=single.cfg.num_layers)
         same = all(a.to_local().data_ptr() == b.data_ptr()
                    for a, b in zip(leaves(server.params), leaves(single.params)))
-        batch = run["batch"]
         # the warm-up at the counted run's shapes: DTensor propagates each
         # op's placements once per new shape (its cost is printed)
         first = serve.generate(server, batch, 2)
         torch.cuda.synchronize()
         snaps = []
         reset_launch_counts()
-        res = serve.generate(server, batch, GEN,
-                             on_step=lambda kind: snaps.append((kind, launch_counts())))
+        if is_moe:
+            moe.route = recording("sharded")
+        try:
+            res = serve.generate(server, batch, GEN,
+                                 on_step=lambda kind: snaps.append((kind, launch_counts())))
+        finally:
+            moe.route = route
         per_step, prev = [], {k: 0 for k in launch_counts()}
         for kind, c in snaps:
             per_step.append((kind, {k: c[k] - prev[k] for k in c}))
@@ -1054,9 +1146,13 @@ def _sharded_serve(state, arch):
         err = {"prefill": _max_err(res["prefill_logits"].float(), run["prefill_logits"]),
                "last": _max_err(res["last_logits"].float(), run["last_logits"])}
         same_ids = bool(torch.equal(res["ids"], run["ids"]))
+        n_layers = single.cfg.num_layers
+        same_experts = [bool(torch.equal(a, b)) for a, b in
+                        zip(routes["single"], routes["sharded"][:n_layers])]
         emit(sharded_serve={
-            "arch": arch, "mesh": "1x1", "same_storage": same,
+            "arch": arch, "layers": n_layers, "mesh": "1x1", "same_storage": same,
             "max_abs_err": err, "same_ids": same_ids,
+            **({"same_expert_ids_per_layer": same_experts} if is_moe else {}),
             "prefill_ms": res["prefill_ms"],
             "first_prefill_ms": first["prefill_ms"],
             "single_device_prefill_ms": run["prefill_ms"],
@@ -1069,6 +1165,9 @@ def _sharded_serve(state, arch):
     assert same, "the sharded params copied the weights"
     assert err["prefill"] <= 2e-2 and err["last"] <= 2e-2, err
     assert same_ids, "the sharded path generated other ids"
+    if is_moe:
+        assert len(routes["single"]) == n_layers and all(same_experts), (
+            f"expert ids per layer differ: {same_experts}")
     assert len(per_step) == GEN + 1
     for kind, c in per_step:
         assert c == run["expect"][kind], (
@@ -1400,15 +1499,22 @@ def phase_moe16b_serve(state):
     2048, 16 heads of 128 on 16 kv heads: a GQA group of 1; 64 routed
     experts top 6 of width 1408 and 2 shared, capacity factor 1.25; vocab
     102400; 16.88 B params, 67.5 GB in fp32): serve with launch counts, the
-    dropped share and the decode step's expert bytes, teacher forcing with
-    a capacity factor of E/k (nothing drops) and the decode step routed to
-    the forward's experts, at batch 1 in bf16 and fp32
-    (``MOE_TEACHER_LIMITS``),
-    then the reduced config on the card against the CPU in fp32 (in bf16 a
-    near-tie of two gates may route a token to another expert on another
-    device, ROADMAP §3)."""
+    dropped share and the decode step's expert bytes."""
     state[MOE16B] = _serve(state, MOE16B, PROMPT, _dense_launches(MOE16B_D["layers"]))
     _moe_drop_and_weights(state, MOE16B)
+
+
+def phase_moe16b_sharded_serve(state):
+    _sharded_serve(state, MOE16B)
+
+
+def phase_moe16b_checks(state):
+    """Teacher forcing with a capacity factor of E/k (nothing drops) and
+    the decode step routed to the forward's experts, at batch 1 in bf16 and
+    fp32 (``MOE_TEACHER_LIMITS``), then the reduced config on the card
+    against the CPU in fp32 (in bf16 a near-tie of two gates may route a
+    token to another expert on another device, ROADMAP §3). Frees the
+    served model."""
     _teacher_forcing(state, MOE16B, 1, MOE_TEACHER_LIMITS,
                      cfg_kw={"capacity_factor": _drop_free(64, 6)})
     _card_vs_cpu(MOE16B, 24, dtype="float32")
@@ -1423,6 +1529,13 @@ def phase_qwen3moe_serve(state):
     state[QWEN3MOE] = _serve(state, QWEN3MOE, PROMPT, _dense_launches(QWEN3MOE_LAYERS),
                              layers=QWEN3MOE_LAYERS)
     _moe_drop_and_weights(state, QWEN3MOE)
+
+
+def phase_qwen3moe_sharded_serve(state):
+    _sharded_serve(state, QWEN3MOE)
+
+
+def phase_qwen3moe_checks(state):
     _teacher_forcing(state, QWEN3MOE, 1, MOE_TEACHER_LIMITS,
                      cfg_kw={"capacity_factor": _drop_free(128, 8)})
     _card_vs_cpu(QWEN3MOE, 24, dtype="float32")
@@ -1433,13 +1546,21 @@ def phase_vlm_serve(state):
     heads on 8 kv heads of 128: a GQA group of 6; d_ff 16384; vocab 92553)
     cut to 36 of its 48 layers (60.7 GB in fp32; all 48 take 79.4 GB), the
     vision frontend a stub: 256 patch embeddings (bf16 standard normals)
-    in front of 4 x 512 text tokens, decoding at 256 + 512 + i. Launch
-    counts, teacher forcing, and the reduced config card vs CPU in fp32
-    (the patches make the activations some 50 times the token embeddings'
-    scale, and bf16 then rounds apart across devices beyond 3e-2 as it does
-    across frameworks; ``tests/test_torch_vlm.py``)."""
+    in front of 4 x 512 text tokens, decoding at 256 + 512 + i, with launch
+    counts."""
     state[VLM] = _serve(state, VLM, PROMPT, _dense_launches(VLM_LAYERS),
                         layers=VLM_LAYERS)
+
+
+def phase_vlm_sharded_serve(state):
+    _sharded_serve(state, VLM)
+
+
+def phase_vlm_checks(state):
+    """Teacher forcing, and the reduced config card vs CPU in fp32 (the
+    patches make the activations some 50 times the token embeddings'
+    scale, and bf16 then rounds apart across devices beyond 3e-2 as it does
+    across frameworks; ``tests/test_torch_vlm.py``)."""
     _teacher_forcing(state, VLM, BATCH, {"bfloat16": 3e-2})
     _card_vs_cpu(VLM, 24, dtype="float32")
 
@@ -1496,6 +1617,15 @@ def phase_whisper_serve(state):
     assert by_shape == {"enc": n, "cross": n, "self": n}, by_shape
     assert sum(tally.values()) == 3 * n, tally
     state[WHISPER]["k1_by_shape"] = by_shape
+
+
+def phase_whisper_sharded_serve(state):
+    _sharded_serve(state, WHISPER)
+
+
+def phase_whisper_checks(state):
+    """Teacher forcing, and the reduced config (30 frames) on the card
+    against the CPU."""
     _teacher_forcing(state, WHISPER, BATCH, {"bfloat16": 3e-2})
     _card_vs_cpu(WHISPER, 24)
 
@@ -1506,18 +1636,95 @@ def phase_xlstm_serve(state):
     dim 1024, sLSTM 512; vocab 50304; 1.94 B params, 7.8 GB in fp32): 4 x
     2048 tokens (8 chunks of 256 in each mLSTM block, 12,288 sLSTM steps),
     16 decode steps. No K1 (the family has no attention) and no kernel of
-    its own in the reference: K2 97 per prefill and per decode step.
-    Teacher forcing with bf16 activations at the reference's own 1e-1 and
-    fp32 activations at 3e-2 (as for the hybrid; in bf16 the reduced model
-    is chaotic in the reference itself, ``tests/test_torch_xlstm.py``), and
-    the reduced config card vs CPU in fp32 (for that reason)."""
+    its own in the reference: K2 97 per prefill and per decode step."""
     n = XLSTM_D["blocks"]
     no_k1 = {"flash_attention": 0, "flash_attention_sm90": 0,
              "rmsnorm": 2 * n + 1, "rglru_scan": 0, **NO_BACKWARD}
     state[XLSTM] = _serve(state, XLSTM, XLSTM_D["prompt"],
                           {"prefill": no_k1, "decode": no_k1})
+
+
+def phase_xlstm_sharded_serve(state):
+    _sharded_serve(state, XLSTM)
+
+
+def phase_xlstm_checks(state):
+    """Teacher forcing with bf16 activations at the reference's own 1e-1
+    and fp32 activations at 3e-2 (as for the hybrid; in bf16 the reduced
+    model is chaotic in the reference itself, ``tests/test_torch_xlstm.py``),
+    and the reduced config card vs CPU in fp32 (for that reason)."""
     _teacher_forcing(state, XLSTM, BATCH, {"bfloat16": 1e-1, "float32": 3e-2})
     _card_vs_cpu(XLSTM, 300, dtype="float32")
+
+
+def phase_moe_train(state):
+    """deepseek-moe-16b at full width cut to MOE_TRAIN["layers"] of its 28
+    layers through ``launch/train.py --dp-sync gspmd``, MOE_TRAIN["steps"]
+    steps on one fixed batch of 4 x 1024: on one device, freed, then the
+    same command on a one-rank (data 1, model 1) NCCL mesh from the same
+    seed (DTensor params, m and v; the experts on "model"). The first loss
+    equal to the bit; later losses and gnorms within 1e-5 relative (the
+    backward of the dispatch's gathers adds with atomics); launch counts
+    equal; step ms, the card's busy share over one more profiled step, and
+    peak GiB of both. The single-device run's launches give the kernel
+    rows at this shape (``phase_times``)."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+
+    argv = _train_argv("--steps", str(MOE_TRAIN["steps"]), "--layers",
+                       str(MOE_TRAIN["layers"]), "--dp-sync", "gspmd",
+                       arch=MOE16B, batch=MOE_TRAIN["batch"], seq=MOE_TRAIN["seq"])
+    runs = {}
+
+    def run(name):
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        res = train.main(argv)
+        launches = launch_counts()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res["step_fn"](res["params"], res["opt"], res["batch"])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        table = _kernel_table(prof, wall, 1)
+        runs[name] = {"losses": res["losses"], "gnorms": res["gnorms"],
+                      "step_ms": res["step_ms"],
+                      "step_ms_median_2_3": statistics.median(res["step_ms"][1:]),
+                      "profiled_step_wall_ms": wall,
+                      "device_busy_ms": table["device_busy_ms_per_step"],
+                      "busy_share": 1.0 - table["idle_share"],
+                      "peak_mem_gib": res["peak_mem_bytes"] / 2**30,
+                      "params": sum(p.numel() for p in _leaves(res["params"])),
+                      "launches": launches}
+        del res, prof
+        torch.cuda.empty_cache()
+
+    run("single_device")
+    with _one_rank_mesh():
+        run("sharded")
+    a, b = runs["sharded"], runs["single_device"]
+    rel = {k: max(abs(x - y) / abs(y) for x, y in zip(a[k][1:], b[k][1:]))
+           for k in ("losses", "gnorms")}
+    first_equal = a["losses"][0] == b["losses"][0]
+    emit(moe_train={"arch": MOE16B, "layers": MOE_TRAIN["layers"],
+                    "published_layers": MOE16B_D["layers"], "batch": MOE_TRAIN["batch"],
+                    "seq": MOE_TRAIN["seq"], "mesh": "1x1", **runs,
+                    "first_loss_equal": first_equal, "rel_diff_later_steps": rel,
+                    "card": state["card"]})
+    state["moe16b_train"] = {"launches": b["launches"]}
+    assert all(math.isfinite(x) for x in b["losses"] + a["losses"]), runs
+    assert first_equal, (a["losses"][0], b["losses"][0])
+    assert rel["losses"] <= 1e-5 and rel["gnorms"] <= 1e-5, rel
+    assert a["launches"] == b["launches"], (a["launches"], b["launches"])
+    for k in ("flash_attention_sm90", "flash_attention_bwd_sm90", "rmsnorm",
+              "rmsnorm_bwd"):
+        assert b["launches"][k] > 0, b["launches"]
 
 
 # -- phase 5: training ----------------------------------------------------------
@@ -2100,13 +2307,14 @@ PATH_NAME = {ARCH: ARCH, HYB_ARCH: HYB_ARCH, "train": f"train {TRAIN_ARCH}",
              VLM: f"{VLM} ({VLM_LAYERS} of 48 layers)",
              "whisper_enc": f"{WHISPER} encoder", "whisper_cross": f"{WHISPER} cross",
              "whisper_self": f"{WHISPER} decoder self", WHISPER: WHISPER,
-             XLSTM: XLSTM}
+             XLSTM: XLSTM,
+             "moe16b_train": f"train {MOE16B} ({MOE_TRAIN['layers']} of 28 layers)"}
 ERR_SUFFIX = {ARCH: "", HYB_ARCH: "_hybrid", "train": "_train",
               "hybrid_train": "_hybrid_train", DENSE14B: "_qwen14b",
               GRANITE: "_granite", MOE16B: "_moe16b", QWEN3MOE: "_qwen3moe",
               VLM: "_vlm", "whisper_enc": "_whisper_enc",
               "whisper_cross": "_whisper_cross", "whisper_self": "_whisper_self",
-              WHISPER: "_whisper", XLSTM: "_xlstm"}
+              WHISPER: "_whisper", XLSTM: "_xlstm", "moe16b_train": "_moe16b_train"}
 
 
 def _time_flash(state, gen, path, b, s, h, kvh, d, t, window, iters, causal=True,
@@ -2372,7 +2580,8 @@ def _time_attention_backward(state, gen, path, b, s, h, kvh, d, window, iters):
     nbytes = per_set + 2 * (b * s * h * d + 2 * b * s * kvh * d)
     bound_ms, bound_by = _bound(nbytes, ops, "bfloat16")
     err_key = {"train": "flash_attention_backward",
-               "hybrid_train": "flash_attention_backward_hybrid"}[path]
+               "hybrid_train": "flash_attention_backward_hybrid",
+               "moe16b_train": "flash_attention_backward_moe16b_train"}[path]
     return {"name": "flash_attention_backward", "route": "cuda",
             "path": PATH_NAME[path],
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
@@ -2384,7 +2593,8 @@ def _time_attention_backward(state, gen, path, b, s, h, kvh, d, window, iters):
             "bound_by": bound_by, "library_ms": lib_ms, "host_ms": host_ms,
             "ms_second_pass": ms_again, **row,
             "tflops": ops / (ms * 1e-3) / 1e12, "bound_fraction": bound_ms / ms,
-            "calls_per_step": {"train": QWEN["layers"], "hybrid_train": 8}[path],
+            "calls_per_step": {"train": QWEN["layers"], "hybrid_train": 8,
+                               "moe16b_train": MOE_TRAIN["layers"]}[path],
             "shape": {"q": [b, s, h, d], "kv": [b, s, kvh, d], "dtype": "bfloat16",
                       "causal": True, "window": window},
             "library": "F.scaled_dot_product_attention forward+backward minus "
@@ -2435,7 +2645,9 @@ def _time_rmsnorm_backward(state, gen, path, shape, calls_per_step):
             "launches": state[path]["launches"]["rmsnorm_bwd"],
             "max_abs_err": state["grad_err"][
                 {"train": "rmsnorm_backward",
-                 "hybrid_train": "rmsnorm_backward_hybrid"}[path]],
+                 "hybrid_train": "rmsnorm_backward_hybrid",
+                 # the same shape as qwen2.5-3b's training, (4, 1024, 2048)
+                 "moe16b_train": "rmsnorm_backward"}[path]],
             "ms": ms, "plain_ms": previous_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms, "host_ms": host_ms,
             "ms_second_pass": ms_again, "previous_ms": previous_ms,
@@ -3565,6 +3777,90 @@ def phase_wave(state):
         "library": "none: no single PyTorch call computes a segmented max-plus scan"}
 
 
+# the dry run's cells (arch, shape, extra flags): one per family on the
+# 16x16 mesh, and llama3-8b's training on the 2x16x16 multi-pod mesh
+DRYRUN_CELLS = (("llama3-8b", "train_4k", ()),
+                ("qwen2.5-3b", "train_4k", ("--dp-sync", "themis")),
+                ("deepseek-moe-16b", "train_4k", ()),
+                ("internvl2-26b", "prefill_32k", ()),
+                ("whisper-medium", "decode_32k", ()),
+                ("xlstm-1.3b", "long_500k", ()),
+                ("recurrentgemma-2b", "decode_32k", ()),
+                ("llama3-8b", "train_4k", ("--multi-pod",)))
+DRYRUN_KEYS = {"arch", "shape", "kind", "mesh", "chips", "dp_sync", "status",
+               "n_params", "lower_s", "compile_s", "memory", "cost",
+               "collectives_hlo", "roofline"}
+DRYRUN_TIMEOUT_S = 300
+
+
+def phase_dryrun(state):
+    """``python -m repro_torch.launch.dryrun`` for each of DRYRUN_CELLS, one
+    subprocess each (a process holds one default process group), all at
+    once, writing under a temporary directory: each cell ``status: ok`` with
+    the reference's keys, and each train cell counting at least one
+    all-reduce, all-gather and reduce-scatter. Prints per-device GiB
+    against the card's 80, FLOPs, bytes by kind and seconds per cell. Host
+    only: meta tensors on a fake group."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.path.join(root, "src")
+           + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        for arch, shape, extra in DRYRUN_CELLS:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                 "--shape", shape, *extra, "--out", tmp], env=env, cwd=root,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        outs = []
+        for p in procs:
+            try:
+                out, err = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+            outs.append((p.returncode, out, err, time.perf_counter() - t0))
+        lines, fails = [], []
+        for (arch, shape, extra), (rc, out, err, wall) in zip(DRYRUN_CELLS, outs):
+            mp = "--multi-pod" in extra
+            dp = extra[extra.index("--dp-sync") + 1] if "--dp-sync" in extra else "gspmd"
+            tag = f"{arch}_{shape}_{'2x16x16' if mp else '16x16'}_{dp}"
+            path = os.path.join(tmp, tag + ".json")
+            res = json.load(open(path)) if os.path.exists(path) else {}
+            lines.append({"arch": arch, "shape": shape, "mesh": res.get("mesh"),
+                          "dp_sync": dp, "status": res.get("status"), "rc": rc,
+                          "per_device_total_gib": res.get("memory", {}).get(
+                              "per_device_total_gib"), "card_gib": 80,
+                          "memory": res.get("memory"),
+                          "flops_per_device": res.get("cost", {}).get("flops"),
+                          "bytes_by_kind": res.get("collectives_hlo", {}).get(
+                              "bytes_by_kind"),
+                          "op_counts": res.get("collectives_hlo", {}).get("op_counts"),
+                          "lower_s": res.get("lower_s"), "process_wall_s": wall})
+            if rc != 0 or res.get("status") != "ok":
+                fails.append(f"{tag}: rc {rc}, status {res.get('status')}: "
+                             f"{err[-1500:]}")
+                continue
+            if not DRYRUN_KEYS <= set(res):
+                fails.append(f"{tag}: keys {sorted(res)}")
+            kinds = set(res["collectives_hlo"]["op_counts"])
+            if res["kind"] == "train" and not {"all-reduce", "all-gather",
+                                               "reduce-scatter"} <= kinds:
+                fails.append(f"{tag}: collectives {sorted(kinds)}")
+        emit(dryrun={"cells": lines, "seconds": time.perf_counter() - t0,
+                     "card": state["card"]})
+        assert not fails, fails
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_times(state):
     import torch
 
@@ -3635,6 +3931,18 @@ def phase_times(state):
                     launches=by_shape["self"]),
         _time_rmsnorm(state, fam, WHISPER, WHISPER_X),
         _time_rmsnorm(state, fam, XLSTM, XLSTM_X),
+    ]
+    # K1, K2 and their backwards at deepseek-moe-16b's training shapes, from
+    # a generator of their own
+    moe = torch.Generator(device="cuda").manual_seed(37)
+    mb, ms_, mh, mkv, md, _, _ = MOE16B_TRAIN_ATTN
+    kernels += [
+        _time_flash(state, moe, "moe16b_train", *MOE16B_TRAIN_ATTN, iters=50),
+        _time_attention_backward(state, moe, "moe16b_train", mb, ms_, mh, mkv, md,
+                                 0, 50),
+        _time_rmsnorm(state, moe, "moe16b_train", MOE16B_TRAIN_X),
+        _time_rmsnorm_backward(state, moe, "moe16b_train", MOE16B_TRAIN_X,
+                               2 * MOE_TRAIN["layers"] + 1),
     ]
     emit(rmsnorm_decode_shape=_time_rmsnorm(state, gen, ARCH, (BATCH, 1, 4096)))
     emit(times={"card": state["card"], "peak_bytes_per_s": PEAK_BYTES_PER_S,

@@ -7,10 +7,22 @@ a Themis topology (the reference's TPU mapping, ICI axes innermost, the DCN
 'pod' axis outermost, kept exactly so that the orders equal the
 reference's), Algorithm 1 runs over the gradient buffer, and the per-chunk
 axis orders are what ``comms/hierarchical.py`` issues over
-``torch.distributed``. The HLO collective audit (``collective_stats``)
-waits for ROADMAP M13.
+``torch.distributed``.
+
+The collective audit (``collective_stats``) has no HLO to parse: a
+``CollectiveCounter`` records every collective that runs inside it (the
+functional collectives of DTensor's redistributions and the in-place
+``torch.distributed`` calls of the Themis step, on any group) by the
+reference's HLO kind names and result bytes, and ``collective_stats``
+sums them under the reference's keys.
 """
 from __future__ import annotations
+
+from collections import defaultdict
+
+import torch
+import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core.latency_model import LatencyModel
 from repro_torch.core.requests import CollectiveRequest
@@ -116,3 +128,127 @@ def predicted_axis_loads(
         for d, secs in lm.calc_loads(per_chunk, sched).items():
             loads[names[d]] += secs
     return loads
+
+
+# -- collective audit -----------------------------------------------------------
+# op name -> the reference's HLO kind
+_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "allgather_": "all-gather", "_allgather_base_": "all-gather",
+    "allgather_into_tensor_coalesced_": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "reduce_scatter_": "reduce-scatter", "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "alltoall_base_": "all-to-all",
+    "alltoall_": "all-to-all", "shard_dim_alltoall": "all-to-all",
+    "send": "collective-permute",
+}
+
+
+def tensors_of(x) -> list:
+    """The tensors in ``x`` (nested lists, tuples and dict values)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in tensors_of(v)]
+    return []
+
+
+def _nbytes(x) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors_of(x))
+
+
+def _group_size(args) -> int | None:
+    """The size of the process group an op names: a ``ProcessGroup``
+    argument (the in-place ops) or a group name (the functional ones)."""
+    for a in args:
+        if isinstance(a, torch.ScriptObject):
+            try:
+                return dist.ProcessGroup.unbox(a).size()
+            except Exception:  # another script object
+                continue
+    for a in args:
+        if isinstance(a, str):
+            try:
+                from torch.distributed.distributed_c10d import (
+                    _resolve_process_group,
+                )
+
+                return _resolve_process_group(a).size()
+            except Exception:  # not a group name (a reduce op's name)
+                continue
+    return None
+
+
+def _fake(args) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return any(isinstance(t, FakeTensor) for t in tensors_of(list(args)))
+
+
+class CollectiveCounter(TorchDispatchMode):
+    """Records every collective that runs inside it as (kind, result bytes,
+    group size). The bytes are those of the op's result, as the reference
+    counts an HLO op's result shape: an all-gather's is its group's size
+    times its input, a reduce-scatter's its input over that size; a
+    ``send`` counts as a collective-permute of its tensor (the matching
+    ``recv`` is not counted again). DTensor's move of a split from one dim
+    to another on a CUDA mesh (``_dtensor.shard_dim_alltoall``) counts as
+    the all-to-all it is.
+
+    An op on DTensors passes to DTensor (``NotImplemented``), so the
+    counter sees the local ops and collectives that DTensor runs for it,
+    on each rank's shards; the fake tensors of DTensor's sharding
+    propagation are not counted. ``on_local_op(func, args, kwargs, out)``
+    is called for every other op, for a subclass to count more."""
+
+    def __init__(self):
+        super().__init__()
+        self.records: list[tuple[str, int, int | None]] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **kwargs)
+        if _fake(args):
+            return out
+        kind = (_KINDS.get(func._opname) if func.namespace in
+                ("c10d", "_c10d_functional", "_dtensor") else None)
+        if kind is not None:
+            # the in-place ops write their first argument, the others return
+            result = args[0] if func.namespace == "c10d" else out
+            self.records.append((kind, _nbytes(result), _group_size(args)))
+        else:
+            self.on_local_op(func, args, kwargs, out)
+        return out
+
+    def on_local_op(self, func, args, kwargs, out) -> None:
+        pass
+
+
+def collective_stats(counter: CollectiveCounter) -> dict:
+    """The reference's summary of the collectives a ``CollectiveCounter``
+    recorded: bytes by kind and by group size, op counts, total bytes."""
+    by_kind: dict[str, float] = defaultdict(float)
+    by_group: dict[int, float] = defaultdict(float)
+    counts: dict[str, int] = defaultdict(int)
+    for kind, nbytes, size in counter.records:
+        by_kind[kind] += nbytes
+        counts[kind] += 1
+        if size is not None:
+            by_group[size] += nbytes
+    return {
+        "bytes_by_kind": dict(by_kind),
+        "bytes_by_group_size": dict(by_group),
+        "op_counts": dict(counts),
+        "total_bytes": float(sum(by_kind.values())),
+    }

@@ -86,6 +86,23 @@ class ShapeConfig:
     kind: Literal["train", "prefill", "decode"]
 
 
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[ShapeConfig]:
+    """The production shape cells this architecture runs: ``long_500k``
+    needs sub-quadratic attention, so the pure full-attention archs skip
+    it."""
+    shapes = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.sub_quadratic:
+        shapes.append(LONG_500K)
+    return shapes
+
+
 @dataclass(frozen=True)
 class ParallelConfig:
     """Mesh axes and policy switches for the distributed runtime."""

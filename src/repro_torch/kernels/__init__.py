@@ -12,6 +12,11 @@ its count where it launches its kernel, and nowhere else:
 backwards; ``flash_attention_sm90`` and
 ``flash_attention_bwd_sm90`` count the K1 launches that took an sm90
 kernel, of the totals beside them.
+
+On a meta tensor (the dry run, ``launch/dryrun.py``) each wrapper returns
+empty outputs of its kernel's shapes and dtypes and adds the kernel's FLOPs
+to its module's ``meta_flops`` (``meta_flops()`` sums them); it counts no
+launch.
 """
 from repro_torch.kernels import flash_attention, rglru, rmsnorm
 
@@ -32,3 +37,16 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for mod, attr in _COUNTS.values():
         setattr(mod, attr, 0)
+
+
+_META = (flash_attention, rmsnorm, rglru)
+
+
+def meta_flops() -> int:
+    """The FLOPs of the kernel calls on meta tensors since the last reset."""
+    return sum(mod.meta_flops for mod in _META)
+
+
+def reset_meta_flops() -> None:
+    for mod in _META:
+        mod.meta_flops = 0

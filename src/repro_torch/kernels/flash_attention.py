@@ -50,6 +50,7 @@ launches = 0          # forward kernel launches since the last reset, both route
 launches_sm90 = 0     # of which the sm90 kernel
 launches_bwd = 0      # backward kernel launches, both routes
 launches_bwd_sm90 = 0  # of which the sm90 kernel
+meta_flops = 0        # FLOPs of the calls on meta tensors (the dry run), both passes
 _fns: dict = {}
 
 
@@ -212,13 +213,38 @@ def run_kernel(route_name, q, k, v, *, causal: bool = True, window: int = 0):
     return out, lse
 
 
+def attention_pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """The (q, k) pairs inside the mask of one (batch, head): causal aligned
+    top-left, ``window`` > 0 keeping the last ``window`` keys, ``t`` keys."""
+    if not causal:
+        return s * t
+    cap = min(t, window) if window > 0 else t
+    if cap >= s:
+        return s * (s + 1) // 2
+    return cap * (cap + 1) // 2 + (s - cap) * cap
+
+
+def attention_flops(q, k, causal: bool, window: int) -> int:
+    """K1's forward FLOPs: the two products over the pairs in the mask."""
+    b, s, h, d = q.shape
+    return 4 * d * b * h * attention_pairs(s, k.shape[1], causal, window)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B,S,H,d); k, v: (B,T,KV,d) -> (out (B,S,H,d), lse (B,H,S) fp32).
 
     CUDA tensors go to the kernel that ``route`` picks, CPU tensors to
-    ``flash_attention_plain``; tensors elsewhere raise."""
+    ``flash_attention_plain``; meta tensors (the dry run; all of them on
+    meta) get empty outputs of the kernel's shapes and dtypes, and their
+    FLOPs go to ``meta_flops``; tensors elsewhere raise."""
+    global meta_flops
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if all(x.is_meta for x in (q, k, v)):
+        meta_flops += attention_flops(q, k, causal, window)
+        return (torch.empty_like(q),
+                torch.empty(q.shape[0], q.shape[2], q.shape[1],
+                            dtype=torch.float32, device="meta"))
     _check(q, k, v)
     return run_kernel(route(q.dtype, q.shape[-1]), q, k, v, causal=causal,
                       window=window)
@@ -304,7 +330,12 @@ def flash_attention_backward(q, k, v, out, lse, g, *, causal: bool = True,
 
     CUDA tensors go to the kernel that ``bwd_route`` picks; CPU tensors to
     the plain recompute ``models/common.py::flash_attention_bwd`` (the
-    reference's ``_flash_vjp_bwd``); tensors elsewhere raise."""
+    reference's ``_flash_vjp_bwd``); meta tensors get empty gradients and
+    2.5x the forward's FLOPs in ``meta_flops``; tensors elsewhere raise."""
+    global meta_flops
+    if all(x.is_meta for x in (q, k, v, out, lse, g)):
+        meta_flops += int(2.5 * attention_flops(q, k, causal, window))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.device.type == "cpu":
         from repro_torch.models.common import flash_attention_bwd
 

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 launches = 0          # forward kernel launches since the last reset
 launches_bwd = 0      # backward kernel launches since the last reset
+meta_flops = 0       # FLOPs of the calls on meta tensors (the dry run)
 _fns: dict = {}
 
 # The kernels' tile (csrc/rglru_scan.cu): LANES channels a block, WARPS
@@ -194,10 +195,14 @@ def rglru_scan(a, b, h0=None):
     """a, b: (B, S, C) fp32; h0: (B, C) fp32 or None -> h (B, S, C) fp32.
 
     CUDA tensors go to the kernel, CPU tensors to ``rglru_scan_plain``;
-    tensors elsewhere raise."""
-    global launches
+    meta tensors (the dry run) get an empty output and 2 FLOPs an element
+    in ``meta_flops``; tensors elsewhere raise."""
+    global launches, meta_flops
     if a.device.type == "cpu":
         return rglru_scan_plain(a, b, h0)
+    if a.is_meta and b.is_meta and (h0 is None or h0.is_meta):
+        meta_flops += 2 * a.numel()
+        return torch.empty_like(a)
     _check("rglru_scan", {"a": a, "b": b}, h0)
     bsz, s, c = a.shape
     out = torch.empty_like(a)
@@ -220,10 +225,15 @@ def rglru_scan_backward(a, h, g, h0=None):
     or None; dh0 is None then).
 
     CUDA tensors go to the kernel, CPU tensors to
-    ``rglru_scan_backward_plain``; tensors elsewhere raise."""
-    global launches_bwd
+    ``rglru_scan_backward_plain``; meta tensors get empty gradients and 3
+    FLOPs an element in ``meta_flops``; tensors elsewhere raise."""
+    global launches_bwd, meta_flops
     if a.device.type == "cpu":
         return rglru_scan_backward_plain(a, h, g, h0)
+    if a.is_meta and h.is_meta and g.is_meta and (h0 is None or h0.is_meta):
+        meta_flops += 3 * a.numel()
+        return (torch.empty_like(a), torch.empty_like(a),
+                None if h0 is None else torch.empty_like(h0))
     _check("rglru_scan_backward", {"a": a, "h": h, "g": g}, h0)
     bsz, s, c = a.shape
     da, db = torch.empty_like(a), torch.empty_like(a)

@@ -40,6 +40,7 @@ import torch
 
 launches = 0          # forward kernel launches since the last reset
 launches_bwd = 0      # backward launches (one per call: both of its kernels)
+meta_flops = 0       # FLOPs of the calls on meta tensors (the dry run)
 _kern = None
 _bwd_kern = None
 tl = None             # triton.language, bound at the first launch
@@ -170,11 +171,15 @@ def _check(x, w):
 def rmsnorm(x, w, eps: float = 1e-6):
     """x: (..., D); w: (D,) -> (..., D) in x's dtype.
 
-    CUDA tensors go to the kernel, CPU tensors to ``rmsnorm_plain``; tensors
-    elsewhere raise."""
-    global launches
+    CUDA tensors go to the kernel, CPU tensors to ``rmsnorm_plain``; meta
+    tensors (the dry run) get an empty output and 4 FLOPs an element in
+    ``meta_flops``; tensors elsewhere raise."""
+    global launches, meta_flops
     if x.device.type == "cpu":
         return rmsnorm_plain(x, w, eps)
+    if x.is_meta and w.is_meta:
+        meta_flops += 4 * x.numel()
+        return torch.empty_like(x)
     d = x.shape[-1]
     _check(x, w)
     x2 = x.reshape(-1, d)
@@ -196,10 +201,14 @@ def rmsnorm_grad(x, w, dy, eps: float = 1e-6):
     cotangent dy of its output.
 
     CUDA tensors go to the Triton kernels, CPU tensors to
-    ``rmsnorm_backward``; tensors elsewhere raise."""
-    global launches_bwd
+    ``rmsnorm_backward``; meta tensors get empty gradients and 8 FLOPs an
+    element in ``meta_flops``; tensors elsewhere raise."""
+    global launches_bwd, meta_flops
     if x.device.type == "cpu":
         return rmsnorm_backward(x, w, dy, eps)
+    if x.is_meta and w.is_meta and dy.is_meta:
+        meta_flops += 8 * x.numel()
+        return torch.empty_like(x), torch.empty_like(w)
     _check(x, w)
     if dy.shape != x.shape or dy.device != x.device:
         raise ValueError(f"rmsnorm_grad: dy {tuple(dy.shape)} on {dy.device} must "

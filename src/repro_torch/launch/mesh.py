@@ -83,6 +83,25 @@ class Mesh:
         return idx
 
 
+def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
+    """The production mesh over the current process group (in a dry run, a
+    fake one of 256 or 512 ranks): (16, 16) ("data", "model"), or with
+    ``multi_pod`` (2, 16, 16) ("pod", "data", "model"), the "pod" axis the
+    slow links between pods."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(shape, axes, device)
+
+
+def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...],
+              device="cuda") -> Mesh:
+    return Mesh(tuple(shape), tuple(axes), device)
+
+
+def axis_sizes(mesh) -> dict[str, int]:
+    return dict(mesh.shape)
+
+
 def parse_mesh(spec: str) -> tuple[tuple[int, ...], tuple[str, ...]]:
     """``"DATAxMODEL[xPOD]"`` -> (shape, axis names), as the reference's
     train driver reads ``--mesh``: ``("pod", "data", "model")`` when there is

@@ -30,8 +30,11 @@ Beyond the reference's flags: ``--device`` (``cuda`` by default),
 ``--layers`` (cut the depth; 0 keeps the config's), ``--remat-policy``
 (``full`` or ``dots``, the config's ``remat_policy``; ``models/common.py``)
 and ``--fixed-batch`` (train on step 0's batch at every step, an
-overfitting check). Step time is the host clock around a step that ends in
-a synchronisation.
+overfitting check). The audio family's batches carry the stub frontend's
+frames (``--batch`` x ``num_frames`` x d_model bf16 standard normals,
+drawn once from the seed; each rank its rows), which its loss needs and
+the reference's driver does not draw. Step time is the host clock around
+a step that ends in a synchronisation.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ import statistics
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -55,7 +59,12 @@ from repro_torch.ckpt import (
     themis_record,
 )
 from repro_torch.configs import ParallelConfig, TrainConfig, get_arch
-from repro_torch.data.pipeline import Prefetcher, SyntheticLM, rows_to_dtensor
+from repro_torch.data.pipeline import (
+    Prefetcher,
+    SyntheticLM,
+    local_rows,
+    rows_to_dtensor,
+)
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import Mesh, parse_mesh
 from repro_torch.models import build_model
@@ -118,6 +127,18 @@ def main(argv=None, on_step: Callable | None = None) -> dict:
     finally:
         if owns_group and dist.is_initialized():
             dist.destroy_process_group()
+
+
+def _frames(cfg, args, mesh, dev, seed: int) -> dict:
+    """The audio family's stub frames for this rank's rows of the batch
+    (``{}`` for the other families)."""
+    if cfg.family != "audio":
+        return {}
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((args.batch, cfg.num_frames, cfg.d_model))
+    frames = {"frames": torch.as_tensor(x).to(torch.bfloat16)}
+    return {k: v.to(dev) for k, v in
+            local_rows(frames, mesh, args.dp_sync).items()}
 
 
 def _train(args, dev, mesh, sizes, lead: bool, on_step) -> dict:
@@ -187,6 +208,7 @@ def _train(args, dev, mesh, sizes, lead: bool, on_step) -> dict:
                     fixed_step=0 if args.fixed_batch else None,
                     dp_sync=args.dp_sync)
     on_mesh = args.dp_sync == "gspmd" and sharded(mesh)
+    frames = _frames(cfg, args, mesh, dev, tcfg.seed)
     losses, gnorms, lrs, step_ms = [], [], [], []
     batch = None
     try:
@@ -194,6 +216,7 @@ def _train(args, dev, mesh, sizes, lead: bool, on_step) -> dict:
             if step >= args.steps:
                 break
             t0 = time.perf_counter()
+            batch = {**batch, **frames}
             if on_mesh:
                 batch = rows_to_dtensor(batch, mesh, args.batch)
             params, opt, metrics = step_fn(params, opt, batch)

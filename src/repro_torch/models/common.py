@@ -35,6 +35,8 @@ Dispatch to the hand-written kernels:
   ports of the reference functions below (``flash_attention_xla`` with the
   reference's recompute ``custom_vjp`` as an autograd function), and
   ``"pallas"`` runs K1's plain version.
+- On a meta tensor (the dry run) both go to the kernels' wrappers, which
+  return empty outputs and tally the kernels' FLOPs (``kernels``).
 - Decode (S == 1) and ``impl="naive"`` run ``naive_attention`` on either
   device, as in the reference.
 """
@@ -146,6 +148,17 @@ def _whole(x, *dims):
         x.device_mesh, pls)
 
 
+def rows_whole(x):
+    """An activation (B, ..., D) with every dim but the batch and the last
+    whole, for a projection: a DTensor's sequence split (between blocks
+    under ``sp``) is gathered, as sequence parallelism gathers before a
+    column-parallel matmul (DTensor of torch 2.11 cannot flatten a split
+    sequence into the matmul's rows). Anything else passes."""
+    if not isinstance(x, DTensor):
+        return x
+    return _whole(x, *range(1, x.ndim - 1))
+
+
 def _replicated_local(w, row_pls):
     """The local tensor of a replicated operand ``w`` (a weight), whose
     gradient comes back partial over the mesh dims that split the rows
@@ -236,7 +249,7 @@ def rms_norm(x, weight, eps: float = 1e-6):
         y = rms_norm(x.to_local(), _replicated_local(weight, x.placements), eps)
         return DTensor.from_local(y, x.device_mesh, x.placements,
                                   run_check=False)
-    if x.is_cuda:
+    if x.is_cuda or x.is_meta:
         return ops.rmsnorm(x, weight, eps)
     dt = x.dtype
     xf = x.float()
@@ -507,7 +520,7 @@ def attention(q, k, v, *, impl: str = "xla_flash", causal=True, window=0,
     if impl == "naive" or q.shape[1] == 1:
         return naive_attention(q, k, v, causal=causal, window=window,
                                q_offset=q_offset)
-    if impl == "pallas" or q.is_cuda:
+    if impl == "pallas" or q.is_cuda or q.is_meta:
         return ops.flash_attention(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)
     return flash_attention_xla(q, k, v, causal=causal, window=window,
@@ -529,6 +542,7 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, gated: bool,
 
 
 def apply_mlp(p: Params, x, gated: bool):
+    x = rows_whole(x)
     h = x @ p["wi"].to(x.dtype)
     h = constrain(h, "dp", None, "tp")
     if gated:

@@ -53,6 +53,7 @@ from repro_torch.models.common import (
     init_mlp,
     remat_policy,
     rms_norm,
+    rows_whole,
 )
 
 RGLRU_C = 8.0
@@ -182,6 +183,7 @@ def apply_rec(p, x, cfg: ModelConfig, *, state=None):
     prompt scanned from the carried state otherwise."""
     dt = x.dtype
     s = x.shape[1]
+    x = rows_whole(x)
     y = F.gelu(x @ p["linear_y"].to(dt), approximate="tanh")
     xr = constrain(x @ p["linear_x"].to(dt), "dp", None, "tp")
     xc, hist = _conv(p["conv_w"], xr, None if state is None else state["conv"],
@@ -353,9 +355,9 @@ def prefill(params, tokens, cfg: ModelConfig):
     dt = tr.torch_dtype(cfg.dtype)
     x = tr._embed(params, tokens, cfg, dt, None)
     b = x.shape[0]
-    caches = init_caches(cfg, b, device=x.device)
-    caches = {"periods": tr.place_cache(caches["periods"], b),
-              "tail": tr.place_cache(caches["tail"], b, stacked=False)}
+    caches = tr.place_cache(lambda dev: init_caches(cfg, b, device=dev), b,
+                            stacked={"periods": True, "tail": False},
+                            device=x.device)
     x = _run_layers(params, x, cfg, pos0=0, caches=caches)
     return tr._logits(params, x[:, -1:].contiguous(), cfg, None), caches
 

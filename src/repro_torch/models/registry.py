@@ -7,7 +7,10 @@ the reference (dense, MoE, VLM, hybrid, SSM, audio).
 ``decode_step(params, caches, token, pos)`` and
 ``forward(params, tokens, *, patches=None, frames=None)``; ``param_spec()``
 gives the params' shapes and dtypes without allocating them (built on the
-``meta`` device). ``init`` runs on ``cuda`` unless ``device`` says
+``meta`` device), and ``batch_spec(shape)`` / ``decode_spec(shape)`` the
+same stand-ins of every input of a shape cell (``configs.base.ShapeConfig``)
+in the reference's shapes and dtypes, for the dry run
+(``launch/dryrun.py``). ``init`` runs on ``cuda`` unless ``device`` says
 otherwise. Every family trains through ``loss_fn``.
 
 A batch holds "tokens" (B,S), and "patches" (B,P,D) for the VLM family or
@@ -28,7 +31,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import recurrent, transformer, whisper, xlstm
 
@@ -54,6 +57,50 @@ class ModelApi:
         return _INIT[self.cfg.family](
             gen, self.cfg, dtype=transformer.torch_dtype(self.cfg.param_dtype),
             device="meta")
+
+    def batch_spec(self, shape: ShapeConfig) -> dict:
+        """A training or prefill batch of ``shape`` on ``meta``: int32
+        "tokens" and "labels" (B, S), for the VLM family of S - P tokens
+        beside bf16 "patches" (B, P, D), for the audio family bf16 "frames"
+        (B, F, D)."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        if cfg.family == "vlm":
+            s -= cfg.num_patches
+        batch = {"tokens": _meta((b, s), torch.int32),
+                 "labels": _meta((b, s), torch.int32)}
+        if cfg.family == "vlm":
+            batch["patches"] = _meta((b, cfg.num_patches, cfg.d_model),
+                                     torch.bfloat16)
+        if cfg.family == "audio":
+            batch["frames"] = _meta((b, cfg.num_frames, cfg.d_model),
+                                    torch.bfloat16)
+        return batch
+
+    def decode_spec(self, shape: ShapeConfig):
+        """(caches, token, pos) of a decode step of ``shape`` on ``meta``:
+        the family's caches for the global batch (a KV cache of ``seq_len``
+        positions; int8 codes and bf16 scales under ``kv_quant``), an int32
+        token (B,) and an int32 position ()."""
+        cfg = self.cfg
+        b = shape.global_batch
+        fam = cfg.family
+        if fam in ("dense", "moe", "vlm"):
+            caches = transformer.init_cache(cfg, b, shape.seq_len, device="meta")
+        elif fam == "hybrid":
+            caches = recurrent.init_caches(cfg, b, device="meta")
+        elif fam == "ssm":
+            caches = xlstm.init_caches(cfg, b, device="meta")
+        else:
+            caches = {"kv": whisper.init_caches(cfg, b, shape.seq_len,
+                                                device="meta"),
+                      "memory": _meta((b, cfg.num_frames, cfg.d_model),
+                                      transformer.torch_dtype(cfg.dtype))}
+        return caches, _meta((b,), torch.int32), _meta((), torch.int32)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def leaves(tree) -> list:

@@ -60,6 +60,7 @@ from repro_torch.models.common import (
     init_mlp,
     remat_policy,
     rms_norm,
+    rows_whole,
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -104,6 +105,7 @@ def apply_attn(p, x, cfg: ModelConfig, *, pos0: int, cache: dict | None = None,
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     dt = x.dtype
+    x = rows_whole(x)
 
     def proj(w, bias, nh):
         y = x @ p[w].to(dt)
@@ -157,20 +159,51 @@ def _write(dst, idx, src):
     dst[:, idx] = src.to(dst.dtype) if isinstance(src, torch.Tensor) else src
 
 
-def place_cache(caches, batch: int, stacked: bool = True):
-    """Under a mesh context with a ``DeviceMesh``, the new ``caches`` as
-    DTensors on ``cache_pspec``'s placements for a global batch of
-    ``batch`` (each rank keeps its block); else ``caches`` as they are.
-    ``stacked``: each leaf's leading layer dim stays whole
+# the value of a new cache leaf: zeros, but -1 in the ring buffer's "pos"
+# (an empty slot), as ``recurrent.init_caches`` makes them
+_CACHE_FILL = {"pos": -1}
+
+
+def place_cache(build, batch: int, stacked=True, device=None):
+    """New caches: ``build(device)`` (e.g. ``init_cache`` of the global
+    batch); under a mesh context with a ``DeviceMesh`` instead DTensors on
+    ``cache_pspec``'s placements for a global batch of ``batch``, of which
+    each rank allocates only its own block on ``device`` (the whole caches
+    are built on ``meta`` for their shapes). ``stacked``: each leaf's
+    leading layer dim (an int: that many) stays whole
     (``specs.cache_specs``), so ``_layer`` takes views of this rank's
-    shard."""
+    shard; a dict gives it per top-level key."""
     mesh = _CTX["mesh"]
     if mesh is None or mesh.device_mesh is None:
-        return caches
-    from repro_torch.sharding.specs import cache_placements, distribute
+        return build(device)
+    from torch.utils._python_dispatch import _disable_current_modes
 
-    return distribute(caches, mesh,
-                      cache_placements(caches, mesh, batch, stacked))
+    from repro_torch.sharding.specs import (
+        _zip_map,
+        cache_placements,
+        local_shape,
+        tree_map_with_path,
+    )
+
+    # a shape-only build: outside any dispatch mode, which (as the dry
+    # run's counter) would take its meta tensors for allocations
+    with _disable_current_modes():
+        spec = build("meta")
+    if isinstance(stacked, dict):
+        pls = {k: cache_placements(v, mesh, batch, stacked[k])
+               for k, v in spec.items()}
+    else:
+        pls = cache_placements(spec, mesh, batch, stacked)
+    dm = mesh.device_mesh
+
+    def new(path, x, pl):
+        fill = _CACHE_FILL.get(path.rsplit("/", 1)[-1], 0)
+        t = torch.full(local_shape(x.shape, pl, dm), fill, dtype=x.dtype,
+                       device=device)
+        return DTensor.from_local(t, dm, pl, run_check=False)
+
+    return tree_map_with_path(lambda path, pair: new(path, *pair),
+                              _zip_map(lambda x, pl: (x, pl), spec, pls))
 
 
 def _write_cache(k, v, cache, pos0: int, kv_quant: bool = False):
@@ -291,11 +324,16 @@ def _layer(tree, i: int):
 
 
 def _unbind(tree) -> list:
-    """A dict of stacked tensors -> one dict of views per layer."""
+    """A dict of stacked tensors -> one dict of views per layer. A DTensor
+    whose layer dim is split (the reference's expert rule splits dim -3 of
+    a shared expert's stacked (L, D, F) weights over "model" where the layer
+    count divides it) is gathered over that mesh dim first."""
     if isinstance(tree, dict):
         per_key = {k: _unbind(v) for k, v in tree.items()}
         n = len(next(iter(per_key.values())))
         return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    if isinstance(tree, DTensor):
+        tree = _whole(tree, 0)
     return list(torch.unbind(tree, 0))
 
 
@@ -330,7 +368,7 @@ def _embed(params, tokens, cfg, dt, seq_axis="sp"):
 
 
 def _logits(params, x, cfg: ModelConfig, seq_axis="sp"):
-    x = rms_norm(x, params["ln_f"].to(x.dtype), cfg.norm_eps)
+    x = rows_whole(rms_norm(x, params["ln_f"].to(x.dtype), cfg.norm_eps))
     w = params["lm_head"] if "lm_head" in params else params["embed"].T
     return constrain(x @ w.to(x.dtype), "dp", seq_axis, "tp")
 
@@ -338,10 +376,13 @@ def _logits(params, x, cfg: ModelConfig, seq_axis="sp"):
 def _embed_with_extra(params, tokens, cfg: ModelConfig, extra_embeds):
     """Token embeddings, with ``extra_embeds`` (B,P,D) in front of them."""
     dt = torch_dtype(cfg.dtype)
-    x = _embed(params, tokens, cfg, dt)
-    if extra_embeds is not None:
-        x = torch.cat([extra_embeds.to(dt), x], dim=1)
-    return x
+    if extra_embeds is None:
+        return _embed(params, tokens, cfg, dt)
+    # the sequence whole at the join; the reference's constraint lands on
+    # the joined tensor
+    x = torch.cat([extra_embeds.to(dt), _embed(params, tokens, cfg, dt, None)],
+                  dim=1)
+    return constrain(x, "dp", "sp", None)
 
 
 def forward(params, tokens, cfg: ModelConfig, *, extra_embeds=None):
@@ -350,6 +391,8 @@ def forward(params, tokens, cfg: ModelConfig, *, extra_embeds=None):
     x = _embed_with_extra(params, tokens, cfg, extra_embeds)
     x = _run_blocks(params, x, cfg, pos0=0)
     if extra_embeds is not None:
+        if isinstance(x, DTensor):
+            x = _whole(x, 1)
         x = x[:, extra_embeds.shape[1]:]
     return _logits(params, x, cfg)
 
@@ -395,7 +438,8 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int, *,
     goes on at position P+S."""
     x = _embed_with_extra(params, tokens, cfg, extra_embeds)
     b = x.shape[0]
-    caches = place_cache(init_cache(cfg, b, max_len, device=x.device), b)
+    caches = place_cache(lambda dev: init_cache(cfg, b, max_len, device=dev), b,
+                         device=x.device)
     x = _run_blocks(params, x, cfg, pos0=0, caches=caches)
     return _logits(params, x[:, -1:].contiguous(), cfg), caches
 

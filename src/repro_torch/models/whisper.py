@@ -19,19 +19,23 @@ decodes must size to prompt + steps.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tr
 from repro_torch.models.common import (
+    _CTX,
     apply_mlp,
     attention,
+    constrain,
     cross_entropy,
     dense_init,
     embed_init,
     init_mlp,
     remat_policy,
     rms_norm,
+    rows_whole,
     sinusoidal_positions,
 )
 
@@ -49,14 +53,20 @@ def _init_proj(gen, cfg, dtype, device, lead):
 
 
 def _proj_qkv(p, xq, xkv, cfg):
+    xq, xkv = rows_whole(xq), rows_whole(xkv)
     b, s, _ = xq.shape
     t = xkv.shape[1]
     hd = cfg.resolved_head_dim
     dt = xq.dtype
-    q = (xq @ p["wq"].to(dt)).reshape(b, s, cfg.num_heads, hd)
-    k = (xkv @ p["wk"].to(dt)).reshape(b, t, cfg.num_kv_heads, hd)
-    v = (xkv @ p["wv"].to(dt)).reshape(b, t, cfg.num_kv_heads, hd)
-    return q, k, v
+    q = tr._heads_divide(xq @ p["wq"].to(dt), cfg.num_heads).reshape(
+        b, s, cfg.num_heads, hd)
+    k = tr._heads_divide(xkv @ p["wk"].to(dt), cfg.num_kv_heads).reshape(
+        b, t, cfg.num_kv_heads, hd)
+    v = tr._heads_divide(xkv @ p["wv"].to(dt), cfg.num_kv_heads).reshape(
+        b, t, cfg.num_kv_heads, hd)
+    return (constrain(q, "dp", None, "tp", None),
+            constrain(k, "dp", None, "tp", None),
+            constrain(v, "dp", None, "tp", None))
 
 
 def _ones(cfg, dtype, device, lead):
@@ -76,7 +86,8 @@ def apply_enc_block(p, x, cfg):
     h = rms_norm(x, p["ln1"].to(x.dtype), cfg.norm_eps)
     q, k, v = _proj_qkv(p["attn"], h, h, cfg)
     o = attention(q, k, v, impl="xla_flash", causal=False)
-    x = x + o.reshape(x.shape[0], x.shape[1], -1) @ p["attn"]["wo"].to(x.dtype)
+    x = x + constrain(o.reshape(x.shape[0], x.shape[1], -1)
+                      @ p["attn"]["wo"].to(x.dtype), "dp", "sp", None)
     h = rms_norm(x, p["ln2"].to(x.dtype), cfg.norm_eps)
     return x + apply_mlp(p["mlp"], h, gated=False)
 
@@ -102,11 +113,13 @@ def apply_dec_block(p, x, cfg, *, memory, pos0: int = 0, cache=None):
     if cache is not None:
         k, v = tr._write_cache(k, v, cache, pos0)
     o = attention(q, k, v, impl="xla_flash", causal=True, q_offset=pos0)
-    x = x + o.reshape(b, s, -1) @ p["self_attn"]["wo"].to(dt)
+    x = x + constrain(o.reshape(b, s, -1) @ p["self_attn"]["wo"].to(dt),
+                      "dp", "sp", None)
     h = rms_norm(x, p["ln_x"].to(dt), cfg.norm_eps)
     q, k, v = _proj_qkv(p["cross_attn"], h, memory, cfg)
     o = attention(q, k, v, impl="xla_flash", causal=False)
-    x = x + o.reshape(b, s, -1) @ p["cross_attn"]["wo"].to(dt)
+    x = x + constrain(o.reshape(b, s, -1) @ p["cross_attn"]["wo"].to(dt),
+                      "dp", "sp", None)
     h = rms_norm(x, p["ln2"].to(dt), cfg.norm_eps)
     return x + apply_mlp(p["mlp"], h, gated=False)
 
@@ -138,6 +151,7 @@ def encode(params, frames, cfg: ModelConfig):
     dt = tr.torch_dtype(cfg.dtype)
     x = frames.to(dt) + sinusoidal_positions(frames.shape[1], cfg.d_model,
                                              device=frames.device).to(dt)
+    x = constrain(x, "dp", "sp", None)
     context_fn = remat_policy(cfg) or noop_context_fn
     for p_l in tr._unbind(params["enc_blocks"]):
         if _remat(cfg):
@@ -156,7 +170,8 @@ def decode(params, memory, tokens, cfg: ModelConfig, *, pos0: int = 0,
     dt = tr.torch_dtype(cfg.dtype)
     s = tokens.shape[1]
     pe = sinusoidal_positions(s, cfg.d_model, offset=pos0, device=tokens.device)
-    x = params["embed"][tokens].to(dt) + pe.to(dt)
+    x = constrain(tr._embed(params, tokens, cfg, dt, None) + pe.to(dt),
+                  "dp", "sp", None)
     remat = caches is None and _remat(cfg)
     context_fn = remat_policy(cfg) or noop_context_fn
     for i, p_l in enumerate(tr._unbind(params["dec_blocks"])):
@@ -168,8 +183,8 @@ def decode(params, memory, tokens, cfg: ModelConfig, *, pos0: int = 0,
                                 cache=None if caches is None else tr._layer(caches, i))
     if last_only:
         x = x[:, -1:].contiguous()
-    x = rms_norm(x, params["ln_f"].to(dt), cfg.norm_eps)
-    return x @ params["lm_head"].to(dt)
+    x = rows_whole(rms_norm(x, params["ln_f"].to(dt), cfg.norm_eps))
+    return constrain(x @ params["lm_head"].to(dt), "dp", "sp", "tp")
 
 
 def forward(params, tokens, frames, cfg: ModelConfig):
@@ -196,10 +211,26 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None):
 def prefill(params, frames, tokens, cfg: ModelConfig, max_len: int):
     """Encode the frames, run the prompt into a new cache of ``max_len``
     positions; returns (last_logits (B,1,V), {"kv": cache, "memory"})."""
-    memory = encode(params, frames, cfg)
-    caches = init_caches(cfg, tokens.shape[0], max_len, device=tokens.device)
+    b = tokens.shape[0]
+    memory = _place_memory(encode(params, frames, cfg), b)
+    caches = tr.place_cache(
+        lambda dev: init_caches(cfg, b, max_len, device=dev), b,
+        device=tokens.device)
     logits = decode(params, memory, tokens, cfg, caches=caches, last_only=True)
     return logits, {"kv": caches, "memory": memory}
+
+
+def _place_memory(memory, batch: int):
+    """A DTensor ``memory`` on ``cache_pspec``'s placements ("memory": batch
+    on "dp", d_model on "model" where it is at least 64); else as it is."""
+    if not isinstance(memory, DTensor):
+        return memory
+    from repro_torch.sharding.specs import cache_pspec, placements
+
+    mesh = _CTX["mesh"]
+    pls = placements(cache_pspec("memory", tuple(memory.shape), mesh, batch),
+                     mesh)
+    return memory.redistribute(memory.device_mesh, pls)
 
 
 def decode_step(params, state, token, pos: int, cfg: ModelConfig):

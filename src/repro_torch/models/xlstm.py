@@ -19,6 +19,17 @@ No kernel of the reference is in this family: on a CUDA tensor it runs K2
 (``rms_norm``), twice per block and once before the head; the rest is
 plain PyTorch.
 
+Under a ``mesh_context`` with a ``DeviceMesh`` the reference's constraint
+points apply (``up`` and the sLSTM's input gates on "tp", the block outputs
+and the embeddings on "dp", the logits' vocab on "tp"). Between them each
+block runs on local rows with its channels whole (``_rows_local``): the tp
+split of ``up`` does not line up with its two halves, the mLSTM's head-wise
+products need whole heads (xlstm-1.3b's 4 heads do not divide a tp of 16),
+its group norm whole rows, and the sLSTM's loop over time runs as plain
+tensor ops, one gather before it and one wrap after. The states are
+DTensors on ``cache_pspec``'s placements, gathered whole over "model" per
+block and written back into their own shards.
+
 Unlike the reference, the states are updated in place: ``prefill``
 allocates them and ``decode_step`` writes them and returns the same dict.
 ``prefill`` runs the head on the last position only.
@@ -29,18 +40,22 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tr
 from repro_torch.models.common import (
+    _replicated_local,
+    constrain,
     cross_entropy,
     dense_init,
     embed_init,
     remat_policy,
     rms_norm,
+    rows_whole,
 )
-from repro_torch.models.recurrent import causal_conv1d, conv1d_step
+from repro_torch.models.recurrent import _store, causal_conv1d, conv1d_step
 
 CHUNK = 256
 
@@ -119,12 +134,22 @@ def _mlstm_chunk_scan(q, k, v, i, logf, C0, n0):
 def apply_mlstm(p, x, cfg: ModelConfig, *, state=None):
     """x: (B,S,D) -> x + the block's output. ``state`` ({"C", "n"} fp32,
     "conv" bf16) is read and written in place: one step for S == 1, the
-    prompt scanned from the carried state otherwise."""
+    prompt scanned from the carried state otherwise. On DTensors the block
+    between ``w_up`` and ``w_down`` runs on local rows (``_rows_local``)."""
     dt = x.dtype
-    b, s, d = x.shape
+    h0 = rows_whole(rms_norm(x, p["ln"].to(dt), cfg.norm_eps))
+    up = constrain(h0 @ p["w_up"].to(dt), "dp", None, "tp")
+    mixed = _rows_local(_mlstm_mix, p, ("conv_w", "wq", "wk", "wv", "w_i",
+                                        "w_f", "f_bias", "gn"), up, state, cfg)
+    return x + constrain(mixed @ p["w_down"].to(dt), "dp", None, None)
+
+
+def _mlstm_mix(p, up, state, cfg: ModelConfig):
+    """The mLSTM block from the up projection (B,S,2*di) to the gated
+    output (B,S,di) before ``w_down``, on plain tensors."""
+    dt = up.dtype
+    b, s, _ = up.shape
     di, nh, dh = _dims(cfg)
-    h0 = rms_norm(x, p["ln"].to(dt), cfg.norm_eps)
-    up = h0 @ p["w_up"].to(dt)
     xm, z = torch.chunk(up, 2, dim=-1)
 
     if state is None:
@@ -150,8 +175,8 @@ def apply_mlstm(p, x, cfg: ModelConfig, *, state=None):
     logf = F.logsigmoid((xm @ p["w_f"].to(dt)).float() + p["f_bias"].float())
 
     if state is None:
-        C0 = torch.zeros((b, nh, dh, dh), dtype=torch.float32, device=x.device)
-        n0 = torch.zeros((b, nh, dh), dtype=torch.float32, device=x.device)
+        C0 = torch.zeros((b, nh, dh, dh), dtype=torch.float32, device=up.device)
+        n0 = torch.zeros((b, nh, dh), dtype=torch.float32, device=up.device)
     else:
         C0, n0 = state["C"], state["n"]
 
@@ -168,12 +193,41 @@ def apply_mlstm(p, x, cfg: ModelConfig, *, state=None):
         h, C, n = _mlstm_chunk_scan(q, k, v, gate_i, logf, C0, n0)
 
     h = rms_norm(h.reshape(b, s, di), p["gn"].to(dt), cfg.norm_eps)
-    out = (h * F.silu(z)) @ p["w_down"].to(dt)
     if state is not None:
         state["C"].copy_(C)
         state["n"].copy_(n)
         state["conv"].copy_(new_conv)
-    return x + out
+    return h * F.silu(z)
+
+
+def _rows_local(fn, p, names, x, state, cfg: ModelConfig):
+    """``fn(p, x, state, cfg)`` (plain tensors in, one out); on a DTensor
+    ``x`` it runs on this rank's rows with every other dim whole: x gathered
+    to batch on "dp" only (a split of channels does not line up with the
+    mLSTM's halves and heads, nor with the sLSTM's gates), the params
+    ``names`` whole (their gradients partial over the mesh dims that split
+    the rows) and each state leaf gathered the same way, written back into
+    its own shard after where the gather made a copy; the output takes x's
+    placements."""
+    if not isinstance(x, DTensor):
+        return fn(p, x, state, cfg)
+    mesh = x.device_mesh
+
+    def rows(t):
+        return tuple(pl if pl.is_shard() and pl.dim == 0 else Replicate()
+                     for pl in t.placements)
+
+    x = x.redistribute(mesh, rows(x))
+    local_p = {n: _replicated_local(p[n], x.placements) for n in names}
+    whole = {} if state is None else {
+        k: v.redistribute(mesh, rows(v)) for k, v in state.items()}
+    out = fn(local_p, x.to_local(),
+             None if state is None else {k: v.to_local() for k, v in whole.items()},
+             cfg)
+    for k, v in whole.items():
+        if v.to_local().data_ptr() != state[k].to_local().data_ptr():
+            _store(state[k], v)
+    return DTensor.from_local(out, mesh, x.placements, run_check=False)
 
 
 def init_mlstm_state(cfg: ModelConfig, batch: int, device=None, lead: tuple = ()):
@@ -218,16 +272,29 @@ def _slstm_cell(gx, h_prev, c_prev, r_gates, nh, dh):
 
 def apply_slstm(p, x, cfg: ModelConfig, *, state=None):
     """x: (B,S,D) -> x + the block's output; the cell runs step by step over
-    S. ``state`` ({"h", "c" fp32}) is read and written in place."""
+    S. ``state`` ({"h", "c" fp32}) is read and written in place. On
+    DTensors the loop runs on local rows: ``gx`` gathered to whole channels
+    once before it, the output wrapped once after (``_rows_local``), so no
+    DTensor op runs per step."""
     dt = x.dtype
-    b, s, d = x.shape
+    xn = rows_whole(rms_norm(x, p["ln"].to(dt), cfg.norm_eps))
+    gx = constrain(xn @ p["w_gates"].to(dt), "dp", None, "tp")    # (B,S,4D)
+    hseq = _rows_local(_slstm_loop, p, ("r_gates",), gx, state, cfg)
+    out = rms_norm(hseq, p["gn"].to(dt), cfg.norm_eps) @ p["w_out"].to(dt)
+    return x + constrain(out, "dp", None, None)
+
+
+def _slstm_loop(p, gx, state, cfg: ModelConfig):
+    """The sLSTM cell over the S steps of gx (B,S,4D) on plain tensors;
+    returns h (B,S,D) and writes ``state`` in place."""
+    dt = gx.dtype
+    b, s, d4 = gx.shape
+    d = d4 // 4
     nh = cfg.num_heads
     dh = d // nh
-    xn = rms_norm(x, p["ln"].to(dt), cfg.norm_eps)
-    gx = xn @ p["w_gates"].to(dt)                                  # (B,S,4D)
     if state is None:
-        h = torch.zeros((b, d), dtype=dt, device=x.device)
-        c = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        h = torch.zeros((b, d), dtype=dt, device=gx.device)
+        c = torch.zeros((b, d), dtype=torch.float32, device=gx.device)
     else:
         h, c = state["h"].to(dt), state["c"]
     r_gates = p["r_gates"].to(dt)          # cast once, not on every step
@@ -236,12 +303,10 @@ def apply_slstm(p, x, cfg: ModelConfig, *, state=None):
         h2, c = _slstm_cell(gx[:, t], h, c.float(), r_gates, nh, dh)
         h = h2.to(dt)
         hs.append(h)
-    hseq = torch.stack(hs, dim=1)
-    out = rms_norm(hseq, p["gn"].to(dt), cfg.norm_eps) @ p["w_out"].to(dt)
     if state is not None:
         state["h"].copy_(h)
         state["c"].copy_(c)
-    return x + out
+    return torch.stack(hs, dim=1)
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int, device=None, lead: tuple = ()):
@@ -305,14 +370,14 @@ def _run_periods(params, x, cfg: ModelConfig, caches=None):
 
 def _head(params, x, cfg: ModelConfig):
     dt = x.dtype
-    x = rms_norm(x, params["ln_f"].to(dt), cfg.norm_eps)
-    return x @ params["lm_head"].to(dt)
+    x = rows_whole(rms_norm(x, params["ln_f"].to(dt), cfg.norm_eps))
+    return constrain(x @ params["lm_head"].to(dt), "dp", None, "tp")
 
 
 def forward(params, tokens, cfg: ModelConfig):
     """tokens (B,S) -> logits (B,S,V)."""
     dt = tr.torch_dtype(cfg.dtype)
-    x = _run_periods(params, tr._embed(params, tokens, cfg, dt), cfg)
+    x = _run_periods(params, tr._embed(params, tokens, cfg, dt, None), cfg)
     return _head(params, x, cfg)
 
 
@@ -335,8 +400,10 @@ def prefill(params, tokens, cfg: ModelConfig):
     """Run the prompt through new states; returns (last_logits (B,1,V),
     caches). The states have a fixed size, so there is no ``max_len``."""
     dt = tr.torch_dtype(cfg.dtype)
-    x = tr._embed(params, tokens, cfg, dt)
-    caches = init_caches(cfg, x.shape[0], device=x.device)
+    x = tr._embed(params, tokens, cfg, dt, None)
+    b = x.shape[0]
+    caches = tr.place_cache(lambda dev: init_caches(cfg, b, device=dev), b,
+                            stacked={"mlstm": 2, "slstm": 1}, device=x.device)
     x = _run_periods(params, x, cfg, caches)
     return _head(params, x[:, -1:].contiguous(), cfg), caches
 
@@ -345,6 +412,6 @@ def decode_step(params, caches, token, pos: int, cfg: ModelConfig):
     """One decode step (``pos`` is not needed: the states carry the
     position); updates ``caches`` in place."""
     dt = tr.torch_dtype(cfg.dtype)
-    x = _run_periods(params, tr._embed(params, token[:, None], cfg, dt), cfg,
+    x = _run_periods(params, tr._embed(params, token[:, None], cfg, dt, None), cfg,
                      caches)
     return _head(params, x, cfg), caches

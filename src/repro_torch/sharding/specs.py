@@ -217,18 +217,19 @@ def opt_specs(tree, mesh, parallel: ParallelConfig):
             mesh, parallel), tree)
 
 
-def cache_specs(tree, mesh, global_batch: int, stacked: bool = False):
+def cache_specs(tree, mesh, global_batch: int, stacked: bool | int = False):
     """``cache_pspec`` of every leaf. ``stacked``: every leaf carries a
-    leading layer dim, which stays whole: the rule is applied to one
-    layer's shape. (On the stacked shape the rule splits the layer dim
+    leading layer dim (an int: that many, as the xLSTM's (periods, blocks)
+    stack), which stays whole: the rule is applied to one layer's shape. (On the stacked shape the rule splits the layer dim
     instead of the batch when the layer count equals the batch, and a
     layer's view of a cache split so is a gathered copy, which in-place
     writes would miss.) Where the counts differ the two specs are equal."""
+    lead = int(stacked)
+
     def rule(path, x):
         shape = tuple(x.shape)
-        if stacked:
-            return (None, *cache_pspec(path, shape[1:], mesh, global_batch))
-        return cache_pspec(path, shape, mesh, global_batch)
+        return ((None,) * lead
+                + cache_pspec(path, shape[lead:], mesh, global_batch))
 
     return tree_map_with_path(rule, tree)
 
@@ -246,7 +247,8 @@ def opt_placements(tree, mesh, parallel: ParallelConfig):
                               opt_specs(tree, mesh, parallel))
 
 
-def cache_placements(tree, mesh, global_batch: int, stacked: bool = False):
+def cache_placements(tree, mesh, global_batch: int,
+                     stacked: bool | int = False):
     return tree_map_with_path(lambda _, s: placements(s, mesh),
                               cache_specs(tree, mesh, global_batch, stacked))
 
@@ -270,6 +272,15 @@ def local_block(x, pls, dm):
             ln = x.shape[d] // n
             x = x.narrow(d, dm.get_local_rank(j) * ln, ln)
     return x
+
+
+def local_shape(shape, pls, dm) -> tuple[int, ...]:
+    """The shape of ``local_block``'s block of a tensor of ``shape``."""
+    out = list(shape)
+    for j, p in enumerate(pls):
+        if p.is_shard():
+            out[p.dim % len(out)] //= dm.size(j)
+    return tuple(out)
 
 
 def distribute_leaf(x, pls, mesh):

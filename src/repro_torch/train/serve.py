@@ -8,8 +8,7 @@ GSPMD program does: params on ``param_pspec``'s placements, the caches on
 ``cache_pspec``'s (for the prompt's global batch), the tokens on
 ``batch_pspec``'s, the model's ``constrain`` points inside a
 ``mesh_context``; the last-token logits come back whole, as a plain
-tensor, so a caller's argmax is unchanged. The MoE, VLM, audio and SSM
-families raise on a sharded mesh (ROADMAP M14).
+tensor, so a caller's argmax is unchanged. Every family serves sharded.
 """
 from __future__ import annotations
 
@@ -23,7 +22,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.common import mesh_context
 from repro_torch.models.registry import ModelApi
 from repro_torch.sharding.specs import distribute, param_placements
-from repro_torch.train.step import check_family, shard_batch, sharded
+from repro_torch.train.step import shard_batch, sharded
 
 
 def place_params(params, mesh, parallel: ParallelConfig):
@@ -55,7 +54,6 @@ def make_serve_fns(api: ModelApi, device=None,
             raise ValueError(f"mesh {parallel.mesh_shape}: sharded serving "
                              "needs a Mesh over a process group")
         mesh = None
-    check_family(api, mesh)
 
     def _check(params):
         pdev = params["embed"].device

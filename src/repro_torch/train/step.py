@@ -11,9 +11,9 @@ Two data-parallel gradient-sync modes:
   points inside a ``mesh_context`` (``seq_sharding`` too), and the
   collectives that DTensor's redistributions make. With no mesh, or a
   group-less 1x1 one, it is the single-device step. Both accumulate
-  gradients over ``tcfg.microbatch`` slices of the batch. The MoE, VLM,
-  audio and SSM families raise on a sharded mesh: their constraint points
-  are not ported (ROADMAP M14).
+  gradients over ``tcfg.microbatch`` slices of the batch. Every family
+  runs sharded: each model module carries the reference's constraint
+  points (the MoE's experts on "model", ``models/moe.py``).
 * ``themis`` / ``hier_baseline``: the paper's technique. Every mesh axis is
   a data-parallel axis (pure-DP ZeRO-2). Gradients are flattened, chunked
   and reduce-scattered over ``torch.distributed`` with per-chunk axis orders
@@ -83,25 +83,10 @@ def trainable(params):
 # --------------------------------------------------------------------------
 # GSPMD mode
 # --------------------------------------------------------------------------
-# the families whose constraint points the port has (the others raise on a
-# sharded mesh)
-SHARDED_FAMILIES = ("dense", "hybrid")
-
-
 def sharded(mesh) -> bool:
     """Whether ``mesh`` runs the sharded (DTensor) path: it has a
     ``DeviceMesh``, that is a process group is up."""
     return mesh is not None and mesh.device_mesh is not None
-
-
-def check_family(api: ModelApi, mesh) -> None:
-    """Raise for a family with no sharded path on a sharded mesh (one rank
-    included: its DTensor path is untested, and nothing falls back)."""
-    if sharded(mesh) and api.cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"{api.cfg.name} ({api.cfg.family} family) on a sharded mesh of "
-            f"{mesh.size} ranks: the family's constraint points are not "
-            "ported yet (ROADMAP M14)")
 
 
 def shard_batch(batch: dict, mesh) -> dict:
@@ -148,7 +133,6 @@ def make_gspmd_train_step(api: ModelApi, mesh, parallel: ParallelConfig,
                           or (mesh is not None and mesh.size != 1)):
         raise ValueError(f"mesh {parallel.mesh_shape}: the sharded GSPMD step "
                          "needs a Mesh over a process group")
-    check_family(api, mesh)
     n_micro = max(tcfg.microbatch, 1)
 
     def grads_of(params, batch):
@@ -198,7 +182,6 @@ def gspmd_init_state(api: ModelApi, mesh, parallel: ParallelConfig,
     each rank makes the whole params from the seed and keeps its blocks as
     DTensors on ``param_placements``; m and v are zero DTensors on
     ``opt_placements``."""
-    check_family(api, mesh)
     if params is None:
         params = api.init(seed, device)
     if not sharded(mesh):

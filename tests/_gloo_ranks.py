@@ -5,7 +5,9 @@ the first ranks of the spawn.
 
 ``run_reference(script, path, spec, devices)`` runs ``script`` with
 ``argv[1] = path`` (an .npz it writes) and ``argv[2] = repr(spec)`` under
-``--xla_force_host_platform_device_count=devices``. ``spawn(worker, world,
+``--xla_force_host_platform_device_count=devices``;
+``run_references(script, path, specs, devices)`` runs one such process per
+spec, all at once, and merges their arrays into ``path``. ``spawn(worker, world,
 tmp, args)`` starts ``worker(rank, store, out_dir, *args)`` on ``world``
 ranks (a ``file://`` store in ``tmp``, a join timeout) and returns each
 rank's results. A worker calls ``run_checks(rank, out_dir, checks)``: it
@@ -35,6 +37,24 @@ def run_reference(script: str, path, spec, devices: int, timeout: int = 900):
                           env=env, capture_output=True, text=True,
                           timeout=timeout)
     assert proc.returncode == 0, proc.stderr[-4000:]
+
+
+def run_references(script: str, path, specs: list, devices: int,
+                   timeout: int = 900):
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    path = Path(path)
+    parts = [path.with_name(f"{path.stem}.{i}.npz") for i in range(len(specs))]
+    with ThreadPoolExecutor(len(specs)) as pool:
+        for f in [pool.submit(run_reference, script, part, spec, devices,
+                              timeout) for part, spec in zip(parts, specs)]:
+            f.result()
+    merged = {}
+    for part in parts:
+        merged.update(np.load(part))
+    np.savez(path, **merged)
 
 
 def spawn(worker, world: int, tmp, args=(), timeout: int = 600) -> list[dict]:

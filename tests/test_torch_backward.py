@@ -138,14 +138,28 @@ def test_cpu_wrappers_are_the_plain_backwards():
 
 
 def test_backward_wrappers_reject_non_cpu_non_cuda():
+    """All on meta (the dry run): empty gradients of the inputs' shapes and
+    dtypes, 2.5x the forward's FLOPs (K1) and 8 an element (K2) tallied, no
+    launch; on mixed devices they raise."""
+    from repro_torch import kernels
+
     q = torch.zeros((1, 8, 2, 16), device="meta")
     k = torch.zeros((1, 8, 1, 16), device="meta")
     lse = torch.zeros((1, 2, 8), device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        tfa.flash_attention_backward(q, k, k, q, lse, q)
+    kernels.reset_meta_flops()
+    before = kernels.launch_counts()
+    dq, dk, dv = tfa.flash_attention_backward(q, k, k, q, lse, q)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert all(t.is_meta for t in (dq, dk, dv))
     x = torch.zeros((4, 16), device="meta")
+    dx, dw = trn.rmsnorm_grad(x, torch.zeros((16,), device="meta"), x)
+    assert dx.shape == (4, 16) and dw.shape == (16,) and dx.is_meta
+    assert kernels.meta_flops() == int(2.5 * 4 * 16 * 2 * 36) + 8 * 64
+    assert kernels.launch_counts() == before
     with pytest.raises(ValueError, match="CUDA"):
-        trn.rmsnorm_grad(x, torch.zeros((16,), device="meta"), x)
+        tfa.flash_attention_backward(q, k, k, q, torch.zeros((1, 2, 8)), q)
+    with pytest.raises(ValueError, match="CUDA"):
+        trn.rmsnorm_grad(x, torch.zeros((16,)), x)
 
 
 _CTYPE = {"int": ctypes.c_int, "float": ctypes.c_float}

@@ -124,8 +124,9 @@ def test_rglru_scan_backward_matches_autograd_through_plain(shape, with_h0):
 
 
 def test_rglru_scan_backward_wrappers_on_cpu_and_elsewhere():
-    """On a CPU tensor the wrapper is the plain version, to the bit; on a
-    tensor that is neither on the CPU nor on a card it raises."""
+    """On a CPU tensor the wrapper is the plain version, to the bit; on
+    meta tensors the shape-only branch; on tensors that are neither all on
+    the CPU, all on a card nor all on meta it raises."""
     a, bb, h0, g = (torch.from_numpy(x) for x in _scan_inputs((2, 9, 5), True))
     h = trg.rglru_scan(a, bb, h0)
     got = trg.rglru_scan_backward(a, h, g, h0)
@@ -133,9 +134,15 @@ def test_rglru_scan_backward_wrappers_on_cpu_and_elsewhere():
     assert all(torch.equal(x, y) for x, y in zip(got, want))
     da, db, dh0 = trg.rglru_scan_backward(a, h, g)
     assert dh0 is None and torch.equal(db, want[1])
+    # all on meta (the dry run): empty gradients, 3 FLOPs an element
+    # tallied; on mixed devices it raises
     m = torch.zeros((1, 4, 8), device="meta")
+    before = trg.meta_flops
+    da, db, dh0 = trg.rglru_scan_backward(m, m, m)
+    assert da.is_meta and db.shape == (1, 4, 8) and dh0 is None
+    assert trg.meta_flops - before == 3 * 32
     with pytest.raises(ValueError, match="CUDA"):
-        trg.rglru_scan_backward(m, m, m)
+        trg.rglru_scan_backward(m, m, torch.zeros((1, 4, 8)))
 
 
 @pytest.mark.parametrize("which", sorted(trg.KERNELS))

@@ -104,12 +104,28 @@ def test_flash_attention_plain_non_causal_and_gqa(causal):
 
 
 def test_flash_attention_wrapper_rejects_non_cpu_non_cuda():
+    """Meta tensors (the dry run) take the shape-only branch: empty outputs
+    of the kernel's shapes and dtypes, the kernel's FLOPs tallied, no
+    launch; inputs on mixed devices, neither all on the CPU, all on a card
+    nor all on meta, raise."""
+    from repro_torch import kernels
+
     q = torch.zeros((1, 8, 2, 16), device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        tfa.flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="CUDA"):
-        trn.rmsnorm(torch.zeros((4, 16), device="meta"),
+    kernels.reset_meta_flops()
+    before = kernels.launch_counts()
+    out, lse = tfa.flash_attention(q, q, q)
+    assert out.is_meta and out.shape == q.shape and out.dtype == q.dtype
+    assert lse.is_meta and lse.shape == (1, 2, 8) and lse.dtype == torch.float32
+    y = trn.rmsnorm(torch.zeros((4, 16), device="meta"),
                     torch.zeros((16,), device="meta"))
+    assert y.is_meta and y.shape == (4, 16)
+    # 8 causal rows: 36 (q, k) pairs a head, 2 products of 2 FLOPs; 4 a norm element
+    assert kernels.meta_flops() == 4 * 16 * 2 * 36 + 4 * 64
+    assert kernels.launch_counts() == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention(q, torch.zeros((1, 8, 2, 16)), q)
+    with pytest.raises(ValueError, match="CUDA"):
+        trn.rmsnorm(torch.zeros((4, 16), device="meta"), torch.zeros((16,)))
 
 
 # -- K1's sm90 route: its numerics, route choice and layout check --------------
@@ -284,9 +300,15 @@ def test_rglru_scan_plain_matches_pallas_and_oracle(b, s, c, with_h0):
 
 
 def test_rglru_scan_wrapper_rejects_non_cpu_non_cuda():
+    """All on meta (the dry run): an empty output, 2 FLOPs an element
+    tallied, no launch; on mixed devices it raises."""
     a = torch.zeros((1, 4, 8), device="meta")
+    before, launched = trg.meta_flops, trg.launches
+    h = trg.rglru_scan(a, a)
+    assert h.is_meta and h.shape == a.shape and h.dtype == a.dtype
+    assert trg.meta_flops - before == 2 * 32 and trg.launches == launched
     with pytest.raises(ValueError, match="CUDA"):
-        trg.rglru_scan(a, a)
+        trg.rglru_scan(a, torch.zeros((1, 4, 8)))
 
 
 # -- ops on the CPU -------------------------------------------------------------

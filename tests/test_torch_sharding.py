@@ -209,32 +209,3 @@ def test_distribute_wraps_the_same_storage_on_one_rank(tmp_path):
             assert torch.equal(b.full_tensor(), a)
     finally:
         dist.destroy_process_group()
-
-
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "internvl2-26b",
-                                  "whisper-medium", "xlstm-1.3b"])
-def test_other_families_raise_on_a_multi_rank_mesh(arch):
-    """The MoE, VLM, audio and SSM families have no constraint points in the
-    port yet (ROADMAP M14): the sharded step, its init and sharded serving
-    refuse a sharded mesh, naming the item (a stand-in for a 2-rank mesh:
-    they refuse before they use it)."""
-    from repro_torch.configs import TrainConfig
-    from repro_torch.train.serve import make_serve_fns
-    from repro_torch.train.step import (
-        check_family,
-        gspmd_init_state,
-        make_gspmd_train_step,
-    )
-
-    class TwoRanks:
-        size = 2
-        device_mesh = object()
-
-    api = build_model(get_arch(arch, reduced=True))
-    par = ParallelConfig(data=2)
-    for call in (lambda: make_gspmd_train_step(api, TwoRanks(), par, TrainConfig()),
-                 lambda: gspmd_init_state(api, TwoRanks(), par, 0, "cpu"),
-                 lambda: make_serve_fns(api, "cpu", par, mesh=TwoRanks())):
-        with pytest.raises(NotImplementedError, match="M14"):
-            call()
-    check_family(build_model(get_arch("llama3-8b", reduced=True)), TwoRanks())
