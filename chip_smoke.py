@@ -40,9 +40,16 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    the tests' shapes with and without a window, at
    the training shape, at a windowed shape of training width, at head dim
    256 (windowed, ragged, and the hybrid's training shape q (2,4096,10,256)
-   with window 2048; bf16 on the sm90 backward, fp32 on the SIMT one) and
+   with window 2048; bf16 on the sm90 backward, fp32 on the SIMT one), at
+   the training shapes of deepseek-moe-16b, whisper-medium (the
+   non-causal encoder over 1500 frames, a ragged T, and cross-attention
+   with S 448 and T 1500; the causal decoder at 448), internvl2-26b (a GQA
+   group of 6) and qwen3-moe (a group of 16), at two small non-causal
+   shapes with S and T both ragged and T != S ((2,100,4,2,64,300),
+   (1,257,3,3,128,129)), and
    on views of a packed projection with a strided cotangent, each check
-   naming its backward route; the sm90 d-256 backward twice on the same
+   naming its backward route; K2's backward also at the families' training
+   widths (4,1500,1024), (4,448,1024), (4,1024,6144) and (4,1024,4096); the sm90 d-256 backward twice on the same
    inputs, equal to the bit (K2's fp32 gradients also against autograd through
    ``rmsnorm_plain`` and against ``rmsnorm_backward`` on fp64 copies of the
    inputs, since the kernel sums dw in fp64; the fp32 versions' distances
@@ -117,7 +124,29 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    (``phase_moe_train``): the first loss equal to the bit, later losses
    and gnorms within 1e-5 relative (the dispatch's gathers add with
    atomics in the backward), equal launches, step ms, busy share and peak
-   memory of both;
+   memory of both; then four more families train through
+   ``launch/train.py --dp-sync gspmd --fixed-batch`` for 4 steps at batch
+   4 (``phase_whisper_train``, ``phase_vlm_train``,
+   ``phase_qwen3moe_train``, ``phase_xlstm_train``): whisper-medium whole
+   over 1500 stub frames and 448 tokens (per step K1 144: 48 non-causal
+   encoder, 48 non-causal cross-attention, 48 causal self-attention; K1's
+   backward 72, the non-causal ones the first on the card; K2 242, K2's
+   backward 122; tallied by shape), internvl2-26b's backbone at 4 of 48
+   layers (2.70 B params) with 256 stub patches then 768 tokens through the
+   ``step_fn`` the driver returns (the driver, like the reference's, draws
+   no patches; K1 8, K1's backward 4, K2 17, K2's backward 9),
+   qwen3-moe-235b-a22b at 1 of 94 layers in its bf16 params (3.73 B; K1 2,
+   K1's backward 1, K2 5, K2's backward 3) and xlstm-1.3b whole at 4 x 1024
+   (no K1; K2 193 and its backward 97, tallied by width): finite losses,
+   the last below the first, the launches per step held to those counts,
+   every K1 and K1-backward launch on the sm90 route, step ms (median of
+   steps 2-4), tokens/s, peak GiB, the parameter count, and one more step
+   under ``torch.profiler`` read from its raw events (busy share, top
+   kernels, kernel groups); each reduced config then on the card against
+   the CPU as ``phase_train_card_vs_cpu`` (head dim 16: the SIMT routes,
+   whisper's non-causal backward among them; whisper's frames and the
+   VLM's patches in the batch; qwen3-moe with fp32 params, its bf16 run
+   compared only where every layer's routing ids agree on the two);
 5. train qwen2.5-3b at its published width and depth (36 layers, d_model
    2048, vocab 151936, tied embeddings, 3.09 B params in fp32, bf16
    activations, remat "full"; random weights from a seed) through
@@ -226,7 +255,13 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    non-causal ones against SDPA with ``is_causal=False``), K2 at
    xlstm-1.3b's (4, 2048, 4096); K1, K2 and their backwards at
    deepseek-moe-16b's training shape (q, k/v (4, 1024, 16, 128); x (4,
-   1024, 2048)); and each training step's floor
+   1024, 2048)); K1, K1's backward, K2 and K2's backward at the four
+   families' training shapes (whisper's three attention shapes, the
+   non-causal ones against SDPA with ``is_causal=False``, and its two
+   norm widths; internvl2-26b's q (4,1024,48,128) on 8 kv heads and x
+   (4,1024,6144); qwen3-moe's q (4,1024,64,128) on 4 and x (4,1024,4096);
+   xlstm-1.3b's x (4,1024,2048) and (4,1024,4096)), each row's launches its
+   shape's in that run; and each training step's floor
    (its FLOPs at the bf16 peak) and ``model_flops_6nd`` share beside the
    measured step time;
 9. the dry run (``python -m repro_torch.launch.dryrun``, meta tensors on a
@@ -325,16 +360,59 @@ VLM_X = (BATCH, VLM_PROMPT, VLM_D["d_model"])
 WHISPER_X = (BATCH, WH_F, WHISPER_D["d_model"])
 XLSTM_X = (BATCH, XLSTM_D["prompt"], XLSTM_D["inner"])
 # the serving-error keys of the new paths' kernel checks, by shape
+# the four families that train after phase_moe_train, 4 steps each at batch
+# 4: whisper-medium whole over 1500 stub frames and 448 tokens (its
+# published text context); internvl2-26b's backbone cut to 4 of its 48
+# layers, 256 stub patches then 768 tokens; qwen3-moe-235b-a22b cut to 1 of
+# its 94 layers (bf16 params); xlstm-1.3b whole at 1024 tokens
+FAM_TRAIN_BATCH, FAM_TRAIN_STEPS = 4, 4
+WH_TRAIN_SEQ, VLM_TRAIN_LAYERS, VLM_TRAIN_TEXT = 448, 4, 768
+QWEN3MOE_TRAIN_LAYERS, XLSTM_TRAIN_SEQ = 1, 1024
+VLM_TRAIN_POS = VLM_D["patches"] + VLM_TRAIN_TEXT
+# K1's (b, s, h, kv, d, t, window) in those steps (window None: non-causal);
+# the encoder's is WHISPER_ENC_ATTN
+WHISPER_TRAIN_CROSS = (FAM_TRAIN_BATCH, WH_TRAIN_SEQ, 16, 16, 64, WH_F, None)
+WHISPER_TRAIN_SELF = (FAM_TRAIN_BATCH, WH_TRAIN_SEQ, 16, 16, 64, WH_TRAIN_SEQ, 0)
+VLM_TRAIN_ATTN = (FAM_TRAIN_BATCH, VLM_TRAIN_POS, VLM_D["h"], VLM_D["kv"], 128,
+                  VLM_TRAIN_POS, 0)
+QWEN3MOE_TRAIN_ATTN = (FAM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, QWEN3MOE_D["h"],
+                       QWEN3MOE_D["kv"], 128, XLSTM_TRAIN_SEQ, 0)
+# and K2's x: whisper's decoder, the VLM's, qwen3-moe's (also the xLSTM's
+# group norm) and the xLSTM's (also deepseek-moe-16b's training width);
+# whisper's encoder's is WHISPER_X
+WHISPER_DEC_X = (FAM_TRAIN_BATCH, WH_TRAIN_SEQ, WHISPER_D["d_model"])
+VLM_TRAIN_X = (FAM_TRAIN_BATCH, VLM_TRAIN_POS, VLM_D["d_model"])
+QWEN3MOE_TRAIN_X = (FAM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, QWEN3MOE_D["d_model"])
+XLSTM_TRAIN_X = (FAM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, XLSTM_D["d_model"])
 FAMILY_ATTN = {MOE16B_ATTN: "flash_attention_moe16b",
                QWEN3MOE_ATTN: "flash_attention_qwen3moe",
                VLM_ATTN: "flash_attention_vlm",
                WHISPER_ENC_ATTN: "flash_attention_whisper_enc",
                WHISPER_CROSS_ATTN: "flash_attention_whisper_cross",
                WHISPER_SELF_ATTN: "flash_attention_whisper_self",
-               MOE16B_TRAIN_ATTN: "flash_attention_moe16b_train"}
+               MOE16B_TRAIN_ATTN: "flash_attention_moe16b_train",
+               WHISPER_TRAIN_CROSS: "flash_attention_whisper_train_cross",
+               WHISPER_TRAIN_SELF: "flash_attention_whisper_train_self",
+               VLM_TRAIN_ATTN: "flash_attention_vlm_train",
+               QWEN3MOE_TRAIN_ATTN: "flash_attention_qwen3moe_train"}
 FAMILY_NORM = {MOE16B_X: "rmsnorm_moe16b", QWEN3MOE_X: "rmsnorm_qwen3moe",
                VLM_X: "rmsnorm_vlm", WHISPER_X: "rmsnorm_whisper",
-               XLSTM_X: "rmsnorm_xlstm", MOE16B_TRAIN_X: "rmsnorm_moe16b_train"}
+               XLSTM_X: "rmsnorm_xlstm", MOE16B_TRAIN_X: "rmsnorm_moe16b_train",
+               WHISPER_DEC_X: "rmsnorm_whisper_dec", VLM_TRAIN_X: "rmsnorm_vlm_train",
+               QWEN3MOE_TRAIN_X: "rmsnorm_qwen3moe_train"}
+# K1's backward at two small non-causal shapes, S and T both ragged, T != S
+RAGGED_NONCAUSAL = [(2, 100, 4, 2, 64, 300, None), (1, 257, 3, 3, 128, 129, None)]
+# the keys of the largest bf16 gradient errors at the families' training
+# shapes (K1's backward; K2's, whose (4, 1024, 2048) is qwen2.5-3b's)
+FAM_GRAD_KEYS = {WHISPER_ENC_ATTN: "flash_attention_backward_whisper_enc",
+                 WHISPER_TRAIN_CROSS: "flash_attention_backward_whisper_cross",
+                 WHISPER_TRAIN_SELF: "flash_attention_backward_whisper_self",
+                 VLM_TRAIN_ATTN: "flash_attention_backward_vlm_train",
+                 QWEN3MOE_TRAIN_ATTN: "flash_attention_backward_qwen3moe_train"}
+FAM_NORM_GRAD_KEYS = {WHISPER_X: "rmsnorm_backward_whisper_enc",
+                      WHISPER_DEC_X: "rmsnorm_backward_whisper_dec",
+                      VLM_TRAIN_X: "rmsnorm_backward_vlm_train",
+                      QWEN3MOE_TRAIN_X: "rmsnorm_backward_qwen3moe_train"}
 # the checkpoint phase: qwen2.5-3b at full width cut to 2 layers
 CKPT_LAYERS, CKPT_BATCH, CKPT_STEPS = 2, 2, 4
 GRAD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": 2e-2}
@@ -445,7 +523,8 @@ def main() -> int:
               phase_qwen3moe_checks, phase_vlm_serve, phase_vlm_sharded_serve,
               phase_vlm_checks, phase_whisper_serve, phase_whisper_sharded_serve,
               phase_whisper_checks, phase_xlstm_serve, phase_xlstm_sharded_serve,
-              phase_xlstm_checks, phase_moe_train,
+              phase_xlstm_checks, phase_moe_train, phase_whisper_train,
+              phase_vlm_train, phase_qwen3moe_train, phase_xlstm_train,
               phase_train, phase_train_profile, phase_train_dots,
               phase_train_dots_profile, phase_themis_train, phase_sharded_train,
               phase_train_card_vs_cpu, phase_ckpt_resume, phase_hybrid_train,
@@ -738,7 +817,8 @@ def _grad_close(name, got, want, dn, errs):
 
 def _flash_grad_check(gen, shape, dn):
     """K1's gradients through ``ops.flash_attention`` at ``shape`` (b, s, h,
-    kv, d, t, window), causal, in ``dn``: against autograd through the plain
+    kv, d, t, window) in ``dn`` (window None: non-causal, as
+    ``_flash_check``; else causal): against autograd through the plain
     version, against ``flash_attention_bwd`` fed with the kernel's out and
     LSE, and in bf16 against autograd through the plain version on fp32
     copies. Returns the check's line and its largest error against the
@@ -750,19 +830,20 @@ def _flash_grad_check(gen, shape, dn):
     from repro_torch.models.common import flash_attention_bwd
 
     b, s, h, kv, d, t, win = shape
+    causal, w = win is not None, win or 0
     dt = _dtype(dn)
     q = _randn(gen, (b, s, h, d), dt).requires_grad_(True)
     k = _randn(gen, (b, t, kv, d), dt).requires_grad_(True)
     v = _randn(gen, (b, t, kv, d), dt).requires_grad_(True)
     dout = _randn(gen, (b, s, h, d), dt)
-    got = torch.autograd.grad(ops.flash_attention(q, k, v, True, win),
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, causal, w),
                               (q, k, v), dout)
-    p_out, _ = fa.flash_attention_plain(q, k, v, causal=True, window=win)
+    p_out, _ = fa.flash_attention_plain(q, k, v, causal=causal, window=w)
     want = torch.autograd.grad(p_out, (q, k, v), dout)
     with torch.no_grad():
-        out, lse = fa.flash_attention(q, k, v, causal=True, window=win)
-        plain = flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
-                                    window=win)
+        out, lse = fa.flash_attention(q, k, v, causal=causal, window=w)
+        plain = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                    window=w)
     readings = fp32_errs = None
     if dn == "bfloat16":
         # the gate against fp32: the kernel's gradients against
@@ -773,7 +854,7 @@ def _flash_grad_check(gen, shape, dn):
         q32, k32, v32 = (x.detach().float().requires_grad_(True)
                          for x in (q, k, v))
         ref = torch.autograd.grad(fa.flash_attention_plain(
-            q32, k32, v32, causal=True, window=win)[0], (q32, k32, v32),
+            q32, k32, v32, causal=causal, window=w)[0], (q32, k32, v32),
             dout.float())
         readings = {label: {n: _max_err(a, r) for n, a, r in
                             zip(("dq", "dk", "dv"), grads, ref)}
@@ -793,7 +874,7 @@ def _flash_grad_check(gen, shape, dn):
     worst = max(e["max_abs_err"] for e in errs + plain_errs)
     check = {"kernel": "flash_attention", "route": fa.route(dt, d),
              "backward_route": fa.bwd_route(dt, d),
-             "shape": [b, s, h, kv, d, t], "window": win,
+             "shape": [b, s, h, kv, d, t], "window": win, "causal": causal,
              "dtype": dn, "grads": errs,
              "vs_plain_backward": plain_errs, "tol": GRAD_TOL[dn],
              "vs_fp32_autograd": fp32_errs,
@@ -847,6 +928,18 @@ def _grad_checks(gen):
         if dn == "bfloat16":
             worst["flash_attention_backward_moe16b_train"] = err
         checks.append(check)
+    # the four families' training shapes: whisper's non-causal encoder (a
+    # ragged T of 1500) and cross-attention (S 448, T 1500) and its causal
+    # decoder; internvl2-26b's group of 6 and qwen3-moe's of 16; then two
+    # small non-causal shapes with S and T ragged and T != S. A generator of
+    # their own, so every check above keeps its inputs
+    fam_gen = torch.Generator(device="cuda").manual_seed(41)
+    for shape in list(FAM_GRAD_KEYS) + RAGGED_NONCAUSAL:
+        for dn in ("float32", "bfloat16"):
+            check, err = _flash_grad_check(fam_gen, shape, dn)
+            if dn == "bfloat16" and shape in FAM_GRAD_KEYS:
+                worst[FAM_GRAD_KEYS[shape]] = err
+            checks.append(check)
     # the sm90 backward at d 256 gives the same bits from run to run
     b, s, h, kv, d, t, win = HYB_TRAIN_ATTN
     bf = torch.bfloat16
@@ -884,9 +977,12 @@ def _grad_checks(gen):
                    "layout": "q, k, v views of one packed tensor; strided cotangent",
                    "grads": errs, "tol": GRAD_TOL["bfloat16"]})
     del qkv, dout, got, want
+    # the families' training widths come last, so every check before keeps
+    # its inputs
     for shape, dn in RN_TEST_SHAPES + [((TRAIN_BATCH, TRAIN_SEQ, 2048), "bfloat16"),
                                        ((TRAIN_BATCH, TRAIN_SEQ, 2048), "float32"),
-                                       (HYB_TRAIN_X, "bfloat16")]:
+                                       (HYB_TRAIN_X, "bfloat16")] + [
+            (x, dn) for x in FAM_NORM_GRAD_KEYS for dn in ("bfloat16", "float32")]:
         dt = _dtype(dn)
         x = _randn(gen, shape, dt).requires_grad_(True)
         w = _randn(gen, shape[-1:], dt).requires_grad_(True)
@@ -912,7 +1008,7 @@ def _grad_checks(gen):
             for n, a, r in zip(("dx", "dw"), got, ref):
                 _grad_close(f"rmsnorm{shape} {dn} {n}{label}", a, r, dn, errs[label])
         key = {(TRAIN_BATCH, TRAIN_SEQ, 2048): "rmsnorm_backward",
-               HYB_TRAIN_X: "rmsnorm_backward_hybrid"}.get(shape)
+               HYB_TRAIN_X: "rmsnorm_backward_hybrid", **FAM_NORM_GRAD_KEYS}.get(shape)
         if dn == "bfloat16" and key:
             worst[key] = max(e["max_abs_err"] for v in errs.values() for e in v)
         checks.append({"kernel": "rmsnorm", "route": "triton",
@@ -1565,25 +1661,6 @@ def phase_vlm_checks(state):
     _card_vs_cpu(VLM, 24, dtype="float32")
 
 
-def _count_attention(module):
-    """Wrap ``module.attention`` to tally K1's launches by the call's
-    (causal, S, T); returns (tally, restore)."""
-    from repro_torch.kernels import launch_counts
-
-    tally, orig = {}, module.attention
-
-    def counted(q, k, v, **kw):
-        before = launch_counts()["flash_attention_sm90"]
-        out = orig(q, k, v, **kw)
-        key = (kw.get("causal", True), q.shape[1], k.shape[1])
-        n = launch_counts()["flash_attention_sm90"] - before
-        tally[key] = tally.get(key, 0) + n
-        return out
-
-    module.attention = counted
-    return tally, lambda: setattr(module, "attention", orig)
-
-
 def phase_whisper_serve(state):
     """whisper-medium at its published width and depth (24 encoder and 24
     decoder layers, d_model 1024, 16 heads of 64, vocab 51865; 0.81 B
@@ -1595,27 +1672,24 @@ def phase_whisper_serve(state):
     prefill, 73 per decode step. The launches are tallied by shape for
     the kernel rows. Teacher forcing, and the reduced config (30 frames)
     on the card against the CPU."""
-    from repro_torch.models import whisper
-
     n = WHISPER_D["layers"]
-    tally, restore = _count_attention(whisper)
-    try:
-        state[WHISPER] = _serve(state, WHISPER, WH_S, on_reset=tally.clear, expect={
+    with _tally_by_shape() as tally:
+        state[WHISPER] = _serve(state, WHISPER, WH_S, on_reset=tally.counts.clear, expect={
             "prefill": {"flash_attention": 3 * n, "flash_attention_sm90": 3 * n,
                         "rmsnorm": 5 * n + 2, "rglru_scan": 0, **NO_BACKWARD},
             "decode": {"flash_attention": 0, "flash_attention_sm90": 0,
                        "rmsnorm": 3 * n + 1, "rglru_scan": 0, **NO_BACKWARD}})
-    finally:
-        restore()
-    # the counted run's launches by shape (the tally was cleared with the
-    # counts, after the warm-up)
-    by_shape = {"enc": tally.get((False, WH_F, WH_F), 0),
-                "cross": tally.get((False, WH_S, WH_F), 0),
-                "self": tally.get((True, WH_S, WH_S + GEN), 0)}
+    # the counted run's sm90 launches by (S, T, causal) (the tally was
+    # cleared with the counts, after the warm-up)
+    k1 = {shape: m for (kind, shape), m in tally.counts.items()
+          if kind == "flash_attention_sm90"}
+    by_shape = {"enc": k1.get((WH_F, WH_F, False), 0),
+                "cross": k1.get((WH_S, WH_F, False), 0),
+                "self": k1.get((WH_S, WH_S + GEN, True), 0)}
     emit(whisper_k1_launches_by_shape=by_shape, all_shapes=
-         {f"{'causal' if c else 'full'} {s}x{t}": m for (c, s, t), m in tally.items()})
+         {f"{'causal' if c else 'full'} {s}x{t}": m for (s, t, c), m in k1.items()})
     assert by_shape == {"enc": n, "cross": n, "self": n}, by_shape
-    assert sum(tally.values()) == 3 * n, tally
+    assert sum(k1.values()) == 3 * n, k1
     state[WHISPER]["k1_by_shape"] = by_shape
 
 
@@ -1727,6 +1801,283 @@ def phase_moe_train(state):
         assert b["launches"][k] > 0, b["launches"]
 
 
+class _tally_by_shape:
+    """While open, tally the launches of K1, K1's backward, K2 and K2's
+    backward by shape into ``counts`` (key: (kernel, shape) -> launches),
+    where K1's shape is (S, T, causal) and K2's the x shape; and K1's and
+    its backward's launches on the sm90 route under (kernel + "_sm90", ...).
+    It wraps the module functions that ``kernels/ops.py`` calls and counts
+    the wrappers' own launch counts across each call, so it adds none."""
+
+    KINDS = (("flash_attention", "flash_attention", "flash_attention"),
+             ("flash_attention", "flash_attention_backward", "flash_attention_bwd"),
+             ("rmsnorm", "rmsnorm", "rmsnorm"), ("rmsnorm", "rmsnorm_grad", "rmsnorm_bwd"))
+
+    def __init__(self):
+        self.counts = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention, launch_counts, rmsnorm
+
+        mods = {"flash_attention": flash_attention, "rmsnorm": rmsnorm}
+        self.saved = []
+        for mod_name, fn_name, kind in self.KINDS:
+            mod = mods[mod_name]
+            orig = getattr(mod, fn_name)
+
+            def counted(*a, _orig=orig, _kind=kind, **kw):
+                before = launch_counts()
+                out = _orig(*a, **kw)
+                after = launch_counts()
+                if _kind.startswith("flash"):
+                    shape = (a[0].shape[1], a[1].shape[1], kw.get("causal", True))
+                else:
+                    shape = tuple(a[0].shape)
+                for k in (_kind, _kind + "_sm90"):
+                    if k in after and after[k] > before[k]:
+                        key = (k, shape)
+                        self.counts[key] = self.counts.get(key, 0) + after[k] - before[k]
+                return out
+
+            self.saved.append((mod, fn_name, orig))
+            setattr(mod, fn_name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn_name, orig in self.saved:
+            setattr(mod, fn_name, orig)
+        return False
+
+
+def _profile_step(step, batch):
+    """``step(batch)`` once under torch.profiler: the card's busy ms (the sum
+    of its kernels', copies' and sets' device times; the port's profiler
+    ranges not counted, as ``_is_kernel``), their idle share of the step's
+    wall, the top kernels and device ms by kernel group. CUDA activity
+    only, read from the raw kineto events: recording the host's ops too,
+    and building the profiler's Python event tree, take minutes for a step
+    of some 10^5 launches (xlstm-1.3b's sLSTM loop)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation()
+                or name.startswith("repro_torch.")):
+            continue
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + e.duration_ns() / 1e6, n + 1)
+    rows = sorted(by_name.items(), key=lambda r: -r[1][0])
+    busy = sum(ms for _, (ms, _) in rows)
+    groups = {name: 0.0 for name, _ in _GROUPS}
+    groups["other kernels (elementwise, reductions)"] = 0.0
+    for name, (ms, _) in rows:
+        groups[_kernel_group(name)] += ms
+    return {"wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
+            "idle_share": 1.0 - busy / wall,
+            "top": [{"kernel": k[:90], "ms_per_step": ms, "launches_per_step": n}
+                    for k, (ms, n) in rows[:14]],
+            "device_launches_per_step": sum(n for _, (_, n) in rows),
+            "groups_ms": groups}
+
+
+def _family_train(state, key, arch, seq, want, *, layers=0, patches=False):
+    """``arch`` at full width (``layers`` > 0: cut to that depth) through
+    ``launch/train.py --dp-sync gspmd --fixed-batch``, FAM_TRAIN_STEPS steps
+    at FAM_TRAIN_BATCH x ``seq``: finite losses, the last below the first;
+    step ms (the median of steps 2 on), tokens/s, peak GiB, the parameter
+    count; launches per step held to ``want``, every K1 and K1-backward
+    launch on the sm90 route; launches by shape (``_tally_by_shape``) for
+    the kernel rows; one more step under torch.profiler (busy share, top
+    kernels). ``patches``: the VLM, whose batches the driver does not draw
+    (nor the reference's): ``train.main`` takes no step (``--steps 0``;
+    its schedule then warms up over step 1 and holds 10% of the peak rate
+    from step 2) and returns its ``step_fn``, which takes the steps with
+    256 stub patches, drawn as ``serve.synthetic_batch`` draws them, in
+    front of the tokens (host clock after a synchronize, as the driver
+    times its steps)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve, train
+
+    steps = FAM_TRAIN_STEPS
+    extra = ("--layers", str(layers)) if layers else ()
+    argv = _train_argv("--steps", "0" if patches else str(steps), "--dp-sync", "gspmd",
+                       *extra, arch=arch, batch=FAM_TRAIN_BATCH, seq=seq)
+    torch.cuda.empty_cache()
+    snaps, tally = [], _tally_by_shape()
+    with tally:
+        reset_launch_counts()
+        res = train.main(argv, on_step=lambda step, m: snaps.append(launch_counts()))
+        batch, cfg = res["batch"], res["cfg"]
+        if patches:
+            batch = {**batch, "patches": serve.synthetic_batch(
+                cfg, FAM_TRAIN_BATCH, seq, device="cuda")["patches"]}
+            for k in ("losses", "gnorms", "lrs", "step_ms"):
+                res[k] = []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                _, _, m = res["step_fn"](res["params"], res["opt"], batch)
+                torch.cuda.synchronize()
+                res["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                for k, name in (("losses", "loss"), ("gnorms", "gnorm"), ("lrs", "lr")):
+                    res[k].append(float(m[name]))
+                snaps.append(launch_counts())
+            res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    total = launch_counts()
+    per_step, prev = [], {k: 0 for k in total}
+    for c in snaps:
+        per_step.append({k: c[k] - prev[k] for k in c})
+        prev = c
+    losses = res["losses"]
+    step_ms = statistics.median(res["step_ms"][1:])
+    positions = seq + (cfg.num_patches if patches else 0)
+    prof = _profile_step(lambda b: res["step_fn"](res["params"], res["opt"], b), batch)
+    by_shape = {f"{k} {shape}": n for (k, shape), n in sorted(tally.counts.items(),
+                                                              key=str)}
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           "published_layers": get_arch(arch).num_layers,
+           "params": sum(p.numel() for p in _leaves(res["params"])),
+           "param_dtype": cfg.param_dtype, "dtype": cfg.dtype, "remat": cfg.remat_policy,
+           "batch": FAM_TRAIN_BATCH, "seq": seq, "positions": positions,
+           "patches": cfg.num_patches if patches else 0, "dp_sync": "gspmd",
+           "losses": losses, "gnorms": res["gnorms"], "lrs": res["lrs"],
+           "step_ms": res["step_ms"], "step_ms_median_2_on": step_ms,
+           "tokens_per_s": FAM_TRAIN_BATCH * seq / (step_ms / 1e3),
+           "positions_per_s": FAM_TRAIN_BATCH * positions / (step_ms / 1e3),
+           "peak_mem_gib": res["peak_mem_bytes"] / 2**30,
+           "launches_per_step": per_step, "launches_total": total,
+           "launches_by_shape": by_shape, "profile": prof,
+           "busy_share": 1.0 - prof["idle_share"],
+           # the profiler's host cost stretches the profiled step: the same
+           # busy ms over the unprofiled median step as well
+           "busy_share_of_median_step": prof["device_busy_ms_per_step"] / step_ms,
+           "card": state["card"]}
+    emit(**{key: out})
+    state[key] = {"launches": total, "by_shape": dict(tally.counts), "step_ms": step_ms,
+                  "busy_share": out["busy_share"], "peak_mem_gib": out["peak_mem_gib"],
+                  "busy_share_of_median_step": out["busy_share_of_median_step"]}
+    del res, batch
+    torch.cuda.empty_cache()
+    assert all(math.isfinite(x) for x in losses), f"non-finite loss {losses}"
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    assert len(per_step) == steps, per_step
+    for i, c in enumerate(per_step):
+        assert c == want, f"step {i + 1}: launches {c}, expected {want}"
+    assert (total["flash_attention"] == total["flash_attention_sm90"]
+            and total["flash_attention_bwd"] == total["flash_attention_bwd_sm90"]), (
+        f"{arch}: a K1 launch off the sm90 route: {total}")
+
+
+def _whisper_train_launches(enc, dec):
+    """whisper-medium's launches per step under remat "full": each encoder
+    block runs K1 once (non-causal over the frames) and K2 twice, each
+    decoder block K1 twice (causal self-attention, non-causal
+    cross-attention) and K2 three times, all again in the backward's
+    recompute; K2 once more after each stack."""
+    return {"flash_attention": 2 * (enc + 2 * dec),
+            "flash_attention_sm90": 2 * (enc + 2 * dec),
+            "flash_attention_bwd": enc + 2 * dec, "flash_attention_bwd_sm90": enc + 2 * dec,
+            "rmsnorm": 2 * (2 * enc + 3 * dec) + 2, "rmsnorm_bwd": 2 * enc + 3 * dec + 2,
+            "rglru_scan": 0, "rglru_scan_bwd": 0}
+
+
+def _xlstm_train_launches(blocks):
+    """xlstm-1.3b's launches per step under remat "full" per period: no K1;
+    K2 twice per block (mLSTM: the norm at d_model and the group norm at
+    the inner width; sLSTM: both at d_model), again in the recompute, and
+    once before the head."""
+    return {"flash_attention": 0, "flash_attention_sm90": 0, "flash_attention_bwd": 0,
+            "flash_attention_bwd_sm90": 0, "rmsnorm": 4 * blocks + 1,
+            "rmsnorm_bwd": 2 * blocks + 1, "rglru_scan": 0, "rglru_scan_bwd": 0}
+
+
+def phase_whisper_train(state):
+    """whisper-medium whole (24 + 24 layers, 0.8 B params; fp32 params,
+    grads, m and v 13 GB): 1500 stub frames (``launch/train.py::_frames``)
+    and 4 x 448 tokens. Per step K1 144 (48 non-causal over the frames, 48
+    causal, 48 non-causal cross-attention with S 448, T 1500), K1's
+    backward 72 (the first non-causal backwards on the card, ragged T),
+    K2 242, K2's backward 122. Then the reduced config card vs CPU."""
+    n = WHISPER_D["layers"]
+    _family_train(state, "whisper_train", WHISPER, WH_TRAIN_SEQ,
+                  _whisper_train_launches(n, n))
+    by = state["whisper_train"]["by_shape"]
+    want = {("flash_attention", (WH_F, WH_F, False)): 2 * FAM_TRAIN_STEPS * n,
+            ("flash_attention", (WH_TRAIN_SEQ, WH_F, False)): 2 * FAM_TRAIN_STEPS * n,
+            ("flash_attention", (WH_TRAIN_SEQ, WH_TRAIN_SEQ, True)): 2 * FAM_TRAIN_STEPS * n,
+            ("flash_attention_bwd", (WH_F, WH_F, False)): FAM_TRAIN_STEPS * n,
+            ("flash_attention_bwd", (WH_TRAIN_SEQ, WH_F, False)): FAM_TRAIN_STEPS * n,
+            ("flash_attention_bwd", (WH_TRAIN_SEQ, WH_TRAIN_SEQ, True)): FAM_TRAIN_STEPS * n,
+            ("rmsnorm", WHISPER_X): FAM_TRAIN_STEPS * (4 * n + 1),
+            ("rmsnorm", WHISPER_DEC_X): FAM_TRAIN_STEPS * (6 * n + 1),
+            ("rmsnorm_bwd", WHISPER_X): FAM_TRAIN_STEPS * (2 * n + 1),
+            ("rmsnorm_bwd", WHISPER_DEC_X): FAM_TRAIN_STEPS * (3 * n + 1)}
+    got = {k: by.get(k, 0) for k in want}
+    assert got == want, f"whisper launches by shape {got}, expected {want}"
+    _train_card_vs_cpu(WHISPER, 32)
+
+
+def phase_vlm_train(state):
+    """internvl2-26b's backbone at full width cut to 4 of its 48 layers (2.70
+    B params, 1.14 B of them the untied embedding and head; fp32 params,
+    grads, m and v 43 GB), 256 stub patches then 4 x 768 tokens through the
+    step that ``launch/train.py`` returns: K1 (a GQA group of 6) 8, K1's
+    backward 4, K2 17, K2's backward 9 per step. Then the reduced config
+    (16 patches) card vs CPU."""
+    _family_train(state, "vlm_train", VLM, VLM_TRAIN_TEXT,
+                  _train_launches(VLM_TRAIN_LAYERS), layers=VLM_TRAIN_LAYERS,
+                  patches=True)
+    _train_card_vs_cpu(VLM, 24)
+
+
+def phase_qwen3moe_train(state):
+    """qwen3-moe-235b-a22b at full width cut to 1 of its 94 layers (3.73 B
+    params in its own bf16 param_dtype: bf16 params and grads, fp32 m and v,
+    about 45 GB; the stacked layer dim is 1), 4 x 1024: the only training
+    path with bf16 params (AdamW's and the clip's bf16 branches). K1 (a GQA
+    group of 16) 2, K1's backward 1 (16 per-head fp32 dK/dV scratches
+    summed per kv head), K2 5, K2's backward 3 per step. Then the reduced
+    config card vs CPU: fp32 params in both, fp32 activations, and bf16
+    activations where every layer's routing ids agree across the two."""
+    _family_train(state, "qwen3moe_train", QWEN3MOE, XLSTM_TRAIN_SEQ,
+                  _train_launches(QWEN3MOE_TRAIN_LAYERS), layers=QWEN3MOE_TRAIN_LAYERS)
+    _train_card_vs_cpu(QWEN3MOE, 64, cfg_kw={"param_dtype": "float32"})
+
+
+def phase_xlstm_train(state):
+    """xlstm-1.3b whole (48 blocks, 6 of them sLSTM; 1.94 B params), 4 x
+    1024: no K1; K2 193 and K2's backward 97 per step, at (4, 1024, 2048)
+    and at the group norm's (4, 1024, 4096). The sLSTM's loop over time
+    runs on the host in the forward, the recompute and the backward, so
+    its step ms and busy share are readings, not faults. Then the reduced
+    config card vs CPU."""
+    n = XLSTM_D["blocks"]
+    _family_train(state, "xlstm_train", XLSTM, XLSTM_TRAIN_SEQ, _xlstm_train_launches(n))
+    by = state["xlstm_train"]["by_shape"]
+    n_s = n // 8
+    n_m = n - n_s
+    want = {("rmsnorm", XLSTM_TRAIN_X): FAM_TRAIN_STEPS * (2 * (n_m + 2 * n_s) + 1),
+            ("rmsnorm", QWEN3MOE_TRAIN_X): FAM_TRAIN_STEPS * 2 * n_m,
+            ("rmsnorm_bwd", XLSTM_TRAIN_X): FAM_TRAIN_STEPS * (n_m + 2 * n_s + 1),
+            ("rmsnorm_bwd", QWEN3MOE_TRAIN_X): FAM_TRAIN_STEPS * n_m}
+    got = {k: by.get(k, 0) for k in want}
+    assert got == want, f"xlstm launches by shape {got}, expected {want}"
+    _train_card_vs_cpu(XLSTM, 32)
+
+
 # -- phase 5: training ----------------------------------------------------------
 def _train_argv(*extra, arch=TRAIN_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
     return ["--arch", arch, "--batch", str(batch), "--seq", str(seq),
@@ -1834,9 +2185,11 @@ def _run_training(state, key, arch, batch, seq, want, remat="full"):
 
 
 def _train_launches(n):
-    """qwen2.5-3b's launches per step, remat "full" or "dots" alike: K1 and
-    K2 run again in the backward (attention and the norms are recomputed;
-    "dots" keeps only the projections' outputs)."""
+    """The launches per step of a decoder of ``n`` layers with one attention
+    and two norms each (qwen2.5-3b, and the internvl2-26b and qwen3-moe
+    training phases), remat "full" or "dots" alike: K1 and K2 run again in
+    the backward (attention and the norms are recomputed; "dots" keeps only
+    the projections' outputs)."""
     return {"flash_attention": 2 * n, "flash_attention_sm90": 2 * n,
             "flash_attention_bwd": n, "flash_attention_bwd_sm90": n,
             "rmsnorm": 4 * n + 1, "rmsnorm_bwd": 2 * n + 1, "rglru_scan": 0,
@@ -1916,6 +2269,13 @@ _GROUPS = (("K1 forward (attn_fwd)", ("attn_fwd",)),
            ("copies and dtype casts", ("copy",)))
 
 
+def _kernel_group(name):
+    """The ``_GROUPS`` entry of a kernel's name."""
+    key = name.lower()
+    return next((g for g, pats in _GROUPS if any(p in key for p in pats)),
+                "other kernels (elementwise, reductions)")
+
+
 def _train_profile(state, arch):
     """One more training step under torch.profiler: card busy time and idle
     share, device time by kernel group (by name) and by the port's
@@ -1935,12 +2295,8 @@ def _train_profile(state, arch):
     groups = {name: 0.0 for name, _ in _GROUPS}
     groups["other kernels (elementwise, reductions)"] = 0.0
     for e in events:
-        if not _is_kernel(e, DeviceType):
-            continue
-        key = e.key.lower()
-        name = next((g for g, pats in _GROUPS if any(p in key for p in pats)),
-                    "other kernels (elementwise, reductions)")
-        groups[name] += e.self_device_time_total / 1e3
+        if _is_kernel(e, DeviceType):
+            groups[_kernel_group(e.key)] += e.self_device_time_total / 1e3
     # a range's kernel time: the device time of the kernels its CPU side
     # launched; its device-side span also holds the gaps between them
     ranges = {e.key: {"kernels_ms": e.device_time_total / 1e3, "calls": e.count}
@@ -2182,24 +2538,34 @@ def phase_ckpt_resume(state):
     assert counts["rmsnorm"] > 0 and counts["rmsnorm_bwd"] > 0, counts
 
 
-def _train_card_vs_cpu(arch, seq):
-    """The reduced ``arch`` (head dim 16: K1's forward and backward take the
-    SIMT kernels) with the same weights and batch on the card and on the
-    CPU: the loss and every leaf's gradient, relative L2 within 1e-4 with
-    fp32 activations; with bf16 within 3e-2, or the CPU's own distance
-    between its bf16 and fp32 gradients where that is larger. Returns the
+def _train_card_vs_cpu(arch, seq, cfg_kw=None):
+    """The reduced ``arch`` (config fields replaced by ``cfg_kw``; head dim
+    16: K1's forward and backward take the SIMT kernels) with the same
+    weights and batch on the card and on the CPU: the loss and every leaf's
+    gradient, relative L2 within 1e-4 with fp32 activations; with bf16
+    within 3e-2, or the CPU's own distance between its bf16 and fp32
+    gradients where that is larger. The audio and VLM families' batches
+    carry their stub frames or patches (bf16 standard normals). A MoE's
+    bf16 run is compared only where every layer's routing ids agree on the
+    two devices (a near-tie of two gates may round apart). Returns the
     launch counts."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, moe
 
-    base = get_arch(arch, reduced=True)
+    base = get_arch(arch, reduced=True).replace(**(cfg_kw or {}))
     rng = np.random.default_rng(3)
     batch = {k: torch.as_tensor(rng.integers(0, base.vocab_size, (2, seq)))
              for k in ("tokens", "labels")}
+    extra = {"audio": ("frames", base.num_frames),
+             "vlm": ("patches", base.num_patches)}.get(base.family)
+    if extra:
+        name, n = extra
+        batch[name] = torch.as_tensor(
+            rng.standard_normal((2, n, base.d_model))).to(torch.bfloat16)
     p_cpu = build_model(base).init(0, device="cpu")
 
     def copy(tree, dev):
@@ -2210,12 +2576,25 @@ def _train_card_vs_cpu(arch, seq):
         return tree.detach().to(dev, copy=True).requires_grad_(True)
 
     def grads(cfg, dev):
+        """(loss, the leaves' gradients in fp32 on the CPU, the routing ids
+        of every MoE call in order, the backward's recomputes included)."""
         params = copy(p_cpu, dev)
         leaves = _leaves(params)
-        loss = build_model(cfg).loss_fn(params, {k: v.to(dev)
-                                                 for k, v in batch.items()})
-        return loss.item(), [g.cpu().float() for g in
-                             torch.autograd.grad(loss, leaves)]
+        ids, orig = [], moe.route
+
+        def route(p, x, c):
+            res = orig(p, x, c)
+            ids.append(res[1].cpu())
+            return res
+
+        moe.route = route
+        try:
+            loss = build_model(cfg).loss_fn(params, {k: v.to(dev)
+                                                     for k, v in batch.items()})
+            gs = torch.autograd.grad(loss, leaves)
+        finally:
+            moe.route = orig
+        return loss.item(), [g.cpu().float() for g in gs], ids
 
     def rel(a, b):
         return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
@@ -2225,27 +2604,38 @@ def _train_card_vs_cpu(arch, seq):
     reset_launch_counts()
     for dtype in ("float32", "bfloat16"):
         cfg = base.replace(dtype=dtype)
-        gl, gg = grads(cfg, "cuda")
-        cl, cg = cpu32 if dtype == "float32" else grads(cfg, "cpu")
+        gl, gg, g_ids = grads(cfg, "cuda")
+        cl, cg, c_ids = cpu32 if dtype == "float32" else grads(cfg, "cpu")
         rels = [rel(a, b) for a, b in zip(gg, cg)]
         if dtype == "float32":
             tols = [1e-4] * len(rels)
         else:
             tols = [max(3e-2, rel(a, b)) for a, b in zip(cg, cpu32[1])]
+        routes_agree = (len(g_ids) == len(c_ids)
+                        and all(torch.equal(a, b) for a, b in zip(g_ids, c_ids)))
         out[dtype] = {"loss_card": gl, "loss_cpu": cl,
                       "loss_rel": abs(gl - cl) / abs(cl),
                       "grad_rel_l2": rels, "tols": tols}
+        if g_ids:
+            out[dtype]["routing_ids_agree"] = routes_agree
+            out[dtype]["routing_calls"] = len(g_ids)
+        if dtype == "bfloat16" and not routes_agree:
+            out[dtype]["compared"] = False   # a routing split: not the same function
+            continue
         if out[dtype]["loss_rel"] > min(tols):
             fails.append(f"{dtype} loss {gl} vs {cl}")
         fails += [f"{dtype} leaf {i}: {r} > {t}" for i, (r, t) in
                   enumerate(zip(rels, tols)) if r > t]
     counts = launch_counts()
     emit(train_card_vs_cpu={"arch": f"{arch} reduced", "batch": [2, seq],
-                            **out, "launches": counts})
+                            "extra": sorted(set(batch) - {"tokens", "labels"}),
+                            "cfg_kw": cfg_kw, **out, "launches": counts})
     assert not fails, fails
-    assert counts["flash_attention"] > 0 and counts["flash_attention_sm90"] == 0, (
+    assert out["float32"].get("routing_ids_agree", True), "fp32 routing split"
+    attends = base.family != "ssm"
+    assert (counts["flash_attention"] > 0) == attends and counts["flash_attention_sm90"] == 0, (
         f"reduced {arch}: K1 launches {counts}, expected SIMT only")
-    assert (counts["flash_attention_bwd"] > 0
+    assert ((counts["flash_attention_bwd"] > 0) == attends
             and counts["flash_attention_bwd_sm90"] == 0), (
         f"reduced {arch}: K1 backward launches {counts}, expected SIMT only")
     assert counts["rmsnorm"] > 0 and counts["rmsnorm_bwd"] > 0
@@ -2308,7 +2698,12 @@ PATH_NAME = {ARCH: ARCH, HYB_ARCH: HYB_ARCH, "train": f"train {TRAIN_ARCH}",
              "whisper_enc": f"{WHISPER} encoder", "whisper_cross": f"{WHISPER} cross",
              "whisper_self": f"{WHISPER} decoder self", WHISPER: WHISPER,
              XLSTM: XLSTM,
-             "moe16b_train": f"train {MOE16B} ({MOE_TRAIN['layers']} of 28 layers)"}
+             "moe16b_train": f"train {MOE16B} ({MOE_TRAIN['layers']} of 28 layers)",
+             "whisper_train": f"train {WHISPER}",
+             "vlm_train": f"train {VLM} ({VLM_TRAIN_LAYERS} of 48 layers, 256 patches)",
+             "qwen3moe_train": f"train {QWEN3MOE} ({QWEN3MOE_TRAIN_LAYERS} of 94 layers, "
+                               "bf16 params)",
+             "xlstm_train": f"train {XLSTM}"}
 ERR_SUFFIX = {ARCH: "", HYB_ARCH: "_hybrid", "train": "_train",
               "hybrid_train": "_hybrid_train", DENSE14B: "_qwen14b",
               GRANITE: "_granite", MOE16B: "_moe16b", QWEN3MOE: "_qwen3moe",
@@ -2318,13 +2713,14 @@ ERR_SUFFIX = {ARCH: "", HYB_ARCH: "_hybrid", "train": "_train",
 
 
 def _time_flash(state, gen, path, b, s, h, kvh, d, t, window, iters, causal=True,
-                launches=None):
+                launches=None, err_key=None):
     """K1's row at q (b,s,h,d), k/v (b,t,kvh,d), bf16, ``causal`` (SDPA then
     runs with ``is_causal`` alike), ``window``: the sm90 kernel that the
     serving path runs, and beside it the earlier SIMT kernel at the same
     shape (``previous_ms``, launched directly through its route; not on
     the main path). ``launches``: the path's launches at this shape, where
-    the path runs K1 at more than one (else all of the path's)."""
+    the path runs K1 at more than one (else all of the path's); ``err_key``:
+    the check's key in ``state["serving_err"]`` (else the path's)."""
     import torch
     import torch.nn.functional as F
 
@@ -2377,7 +2773,8 @@ def _time_flash(state, gen, path, b, s, h, kvh, d, t, window, iters, causal=True
             "replaces": "src/repro/kernels/flash_attention.py:76",
             "launches": (run["launches"]["flash_attention_sm90"] if launches is None
                          else launches),
-            "max_abs_err": state["serving_err"]["flash_attention" + ERR_SUFFIX[path]],
+            "max_abs_err": state["serving_err"][
+                err_key or "flash_attention" + ERR_SUFFIX[path]],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms, "host_ms": host_ms,
             "ms_second_pass": ms_again, "previous_ms": previous_ms,
@@ -2394,8 +2791,9 @@ def _time_flash(state, gen, path, b, s, h, kvh, d, t, window, iters, causal=True
             "library_max_abs_err": lib_err}
 
 
-def _time_rmsnorm(state, gen, path, shape):
-    """K2's row at x ``shape`` bf16 (w bf16)."""
+def _time_rmsnorm(state, gen, path, shape, launches=None, err_key=None):
+    """K2's row at x ``shape`` bf16 (w bf16); ``launches`` and ``err_key``
+    as ``_time_flash``'s."""
     import torch
     import torch.nn.functional as F
 
@@ -2417,8 +2815,9 @@ def _time_rmsnorm(state, gen, path, shape):
     return {"name": "rmsnorm", "route": "triton", "path": PATH_NAME[path],
             "source": "src/repro_torch/kernels/rmsnorm.py",
             "replaces": "src/repro/kernels/rmsnorm.py:20",
-            "launches": state[path]["launches"]["rmsnorm"],
-            "max_abs_err": state["serving_err"]["rmsnorm" + ERR_SUFFIX[path]],
+            "launches": (state[path]["launches"]["rmsnorm"] if launches is None
+                         else launches),
+            "max_abs_err": state["serving_err"][err_key or "rmsnorm" + ERR_SUFFIX[path]],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms, "host_ms": host_ms,
             "shape": {"x": list(shape), "dtype": "bfloat16"},
@@ -2489,10 +2888,14 @@ def _time_rglru_backward(state, gen, b, s, c):
             "library": _NO_SCAN_LIBRARY}
 
 
-def _time_attention_backward(state, gen, path, b, s, h, kvh, d, window, iters):
-    """K1's backward kernel at q (b,s,h,d), k/v (b,s,kvh,d) bf16, causal with
-    ``window`` (0: none), as training calls it (``flash_attention_backward``
-    from the forward's out and LSE); beside it its plain version, the
+def _time_attention_backward(state, gen, path, b, s, h, kvh, d, window, iters, *,
+                             t=None, causal=True, launches=None, err_key=None,
+                             calls_per_step=None):
+    """K1's backward kernel at q (b,s,h,d), k/v (b,t,kvh,d) bf16 (t: s when
+    None), ``causal`` (SDPA's alike) with ``window`` (0: none), as training
+    calls it (``flash_attention_backward`` from the forward's out and LSE);
+    ``launches``, ``err_key`` (in ``state["grad_err"]``) and
+    ``calls_per_step`` override the path's. Beside it its plain version, the
     recompute ``flash_attention_bwd`` (``plain_ms``), SDPA's backward under
     the same mask (SDPA forward + backward minus its forward, KV heads
     expanded) and ``previous_ms``, the code the training path ran before:
@@ -2506,23 +2909,25 @@ def _time_attention_backward(state, gen, path, b, s, h, kvh, d, window, iters):
     from repro_torch.models.common import flash_attention_bwd
 
     bf = torch.bfloat16
-    per_set = 2 * (3 * b * s * h * d + 2 * b * s * kvh * d) + 4 * b * h * s
+    t = s if t is None else t
+    per_set = 2 * (3 * b * s * h * d + 2 * b * t * kvh * d) + 4 * b * h * s
     sets = []
     for _ in range(_n_sets(per_set)):
-        q, k, v = (_randn(gen, (b, s, n, d), bf) for n in (h, kvh, kvh))
-        out, lse = fa.flash_attention(q, k, v, causal=True, window=window)
+        q = _randn(gen, (b, s, h, d), bf)
+        k, v = (_randn(gen, (b, t, kvh, d), bf) for _ in range(2))
+        out, lse = fa.flash_attention(q, k, v, causal=causal, window=window)
         sets.append((q, k, v, out, lse, _randn(gen, (b, s, h, d), bf)))
 
     def kern(q, k, v, out, lse, g):
-        return fa.flash_attention_backward(q, k, v, out, lse, g, causal=True,
+        return fa.flash_attention_backward(q, k, v, out, lse, g, causal=causal,
                                            window=window)
 
     def simt(q, k, v, out, lse, g):
-        return fa.run_backward_kernel("simt", q, k, v, out, lse, g, causal=True,
+        return fa.run_backward_kernel("simt", q, k, v, out, lse, g, causal=causal,
                                       window=window)
 
     def recompute(q, k, v, out, lse, g):
-        return flash_attention_bwd(q, k, v, out, lse, g, causal=True, window=window)
+        return flash_attention_bwd(q, k, v, out, lse, g, causal=causal, window=window)
 
     ms = _time_ms(kern, sets, iters)
     host_ms = _time_ms(kern, sets, iters, queued=False)
@@ -2543,16 +2948,16 @@ def _time_attention_backward(state, gen, path, b, s, h, kvh, d, window, iters):
     # SDPA's is_causal has no window, so a window takes an explicit boolean
     # mask (True = attend)
     qpos = torch.arange(s, device="cuda")[:, None]
-    kpos = torch.arange(s, device="cuda")[None, :]
+    kpos = torch.arange(t, device="cuda")[None, :]
     mask = (qpos >= kpos) & (kpos > qpos - window) if window else None
 
     def sdpa(q, k, v):
         if mask is None:
-            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
     def plain(q, k, v):
-        return fa.flash_attention_plain(q, k, v, causal=True, window=window)[0]
+        return fa.flash_attention_plain(q, k, v, causal=causal, window=window)[0]
 
     def fwd_bwd(f):
         return lambda q, k, v, g: torch.autograd.grad(f(q, k, v), (q, k, v), g)
@@ -2575,38 +2980,43 @@ def _time_attention_backward(state, gen, path, b, s, h, kvh, d, window, iters):
             materialised="autograd through flash_attention_plain (materialised "
                          "scores), forward+backward minus forward")
         del pl
-    pairs = sum(min(i + 1, window or s) for i in range(s))
+    pairs = fa.attention_pairs(s, t, causal, window)
     ops = 2.5 * 4 * d * pairs * b * h
-    nbytes = per_set + 2 * (b * s * h * d + 2 * b * s * kvh * d)
+    nbytes = per_set + 2 * (b * s * h * d + 2 * b * t * kvh * d)
     bound_ms, bound_by = _bound(nbytes, ops, "bfloat16")
-    err_key = {"train": "flash_attention_backward",
-               "hybrid_train": "flash_attention_backward_hybrid",
-               "moe16b_train": "flash_attention_backward_moe16b_train"}[path]
+    err_key = err_key or {"train": "flash_attention_backward",
+                          "hybrid_train": "flash_attention_backward_hybrid",
+                          "moe16b_train": "flash_attention_backward_moe16b_train"}[path]
     return {"name": "flash_attention_backward", "route": "cuda",
             "path": PATH_NAME[path],
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
             "replaces": "src/repro/kernels/ops.py:42 (_fa_bwd: the XLA recompute "
                         "src/repro/models/common.py:265 _flash_vjp_bwd)",
-            "launches": state[path]["launches"]["flash_attention_bwd_sm90"],
+            "launches": (state[path]["launches"]["flash_attention_bwd_sm90"]
+                         if launches is None else launches),
             "max_abs_err": state["grad_err"][err_key],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms, "host_ms": host_ms,
             "ms_second_pass": ms_again, **row,
             "tflops": ops / (ms * 1e-3) / 1e12, "bound_fraction": bound_ms / ms,
-            "calls_per_step": {"train": QWEN["layers"], "hybrid_train": 8,
-                               "moe16b_train": MOE_TRAIN["layers"]}[path],
-            "shape": {"q": [b, s, h, d], "kv": [b, s, kvh, d], "dtype": "bfloat16",
-                      "causal": True, "window": window},
+            "calls_per_step": (calls_per_step if calls_per_step is not None else
+                               {"train": QWEN["layers"], "hybrid_train": 8,
+                                "moe16b_train": MOE_TRAIN["layers"]}[path]),
+            "shape": {"q": [b, s, h, d], "kv": [b, t, kvh, d], "dtype": "bfloat16",
+                      "causal": causal, "window": window},
             "library": "F.scaled_dot_product_attention forward+backward minus "
                        "forward, KV heads expanded"
-                       + (", windowed causal boolean mask" if window else "")}
+                       + (", windowed causal boolean mask" if window else "")
+                       + ("" if causal else ", is_causal=False")}
 
 
-def _time_rmsnorm_backward(state, gen, path, shape, calls_per_step):
+def _time_rmsnorm_backward(state, gen, path, shape, calls_per_step, launches=None,
+                           err_key=None):
     """K2's backward kernels (``rmsnorm_grad``) at x ``shape`` bf16, w bf16;
     beside its plain version ``rmsnorm_backward`` (``previous_ms``, the code
     the training path ran before; also ``plain_ms``) and ``F.rms_norm``'s
-    backward (forward+backward minus forward)."""
+    backward (forward+backward minus forward). ``launches`` and ``err_key``
+    (in ``state["grad_err"]``) override the path's."""
     import torch
     import torch.nn.functional as F
 
@@ -2642,8 +3052,9 @@ def _time_rmsnorm_backward(state, gen, path, shape, calls_per_step):
             "replaces": "src/repro/kernels/rmsnorm.py:20 (its gradient: the "
                         "reference differentiates src/repro/models/common.py:103 "
                         "rms_norm)",
-            "launches": state[path]["launches"]["rmsnorm_bwd"],
-            "max_abs_err": state["grad_err"][
+            "launches": (state[path]["launches"]["rmsnorm_bwd"] if launches is None
+                         else launches),
+            "max_abs_err": state["grad_err"][err_key or
                 {"train": "rmsnorm_backward",
                  "hybrid_train": "rmsnorm_backward_hybrid",
                  # the same shape as qwen2.5-3b's training, (4, 1024, 2048)
@@ -3944,6 +4355,7 @@ def phase_times(state):
         _time_rmsnorm_backward(state, moe, "moe16b_train", MOE16B_TRAIN_X,
                                2 * MOE_TRAIN["layers"] + 1),
     ]
+    kernels += _family_train_rows(state)
     emit(rmsnorm_decode_shape=_time_rmsnorm(state, gen, ARCH, (BATCH, 1, 4096)))
     emit(times={"card": state["card"], "peak_bytes_per_s": PEAK_BYTES_PER_S,
                 "peak_ops_per_s": PEAK_OPS_PER_S,
@@ -3954,7 +4366,67 @@ def phase_times(state):
                                 ("floor_share", state[k]["floor_ms"]
                                  / state[k]["step_ms"]),
                                 ("model_flops_share", state[k]["model_flops_share"]))}})
+    emit(times_family_train={
+        "card": state["card"],
+        **{k: {m: state[k][m] for m in ("step_ms", "busy_share",
+                                        "busy_share_of_median_step", "peak_mem_gib")}
+           for k in ("whisper_train", "vlm_train", "qwen3moe_train", "xlstm_train")}})
     state["kernels"] = kernels + [state["wave_kernel"]]
+
+
+def _family_train_rows(state):
+    """K1, K1's backward, K2 and K2's backward at the shapes of the four
+    families' training steps, from a generator of their own; each row's
+    launches, and calls per step, are its shape's in that run
+    (``_tally_by_shape``; the VLM's last norm, for one, runs on the 768
+    token positions alone)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(43)
+
+    def n(key, kind, shape):
+        return state[key]["by_shape"].get((kind, shape), 0)
+
+    def attn(key, shape, fkey, bkey):
+        b, s, h, kv, d, t, win = shape
+        causal, iters = win is not None, 20 if s == WH_F else 50
+        fwd = n(key, "flash_attention_sm90", (s, t, causal))
+        bwd = n(key, "flash_attention_bwd_sm90", (s, t, causal))
+        return [_time_flash(state, gen, key, b, s, h, kv, d, t, win or 0, iters=iters,
+                            causal=causal, launches=fwd, err_key=fkey),
+                _time_attention_backward(state, gen, key, b, s, h, kv, d, win or 0, iters,
+                                         t=t, causal=causal, launches=bwd, err_key=bkey,
+                                         calls_per_step=bwd // FAM_TRAIN_STEPS)]
+
+    def norm(key, x, fkey, bkey):
+        bwd = n(key, "rmsnorm_bwd", x)
+        return [_time_rmsnorm(state, gen, key, x, launches=n(key, "rmsnorm", x),
+                              err_key=fkey),
+                _time_rmsnorm_backward(state, gen, key, x, bwd // FAM_TRAIN_STEPS,
+                                       launches=bwd, err_key=bkey)]
+
+    # the xLSTM's two widths share their shapes, and so their checks, with
+    # deepseek-moe-16b's and qwen3-moe's training norms
+    return (attn("whisper_train", WHISPER_ENC_ATTN, "flash_attention_whisper_enc",
+                 "flash_attention_backward_whisper_enc")
+            + attn("whisper_train", WHISPER_TRAIN_CROSS, "flash_attention_whisper_train_cross",
+                   "flash_attention_backward_whisper_cross")
+            + attn("whisper_train", WHISPER_TRAIN_SELF, "flash_attention_whisper_train_self",
+                   "flash_attention_backward_whisper_self")
+            + norm("whisper_train", WHISPER_X, "rmsnorm_whisper",
+                   "rmsnorm_backward_whisper_enc")
+            + norm("whisper_train", WHISPER_DEC_X, "rmsnorm_whisper_dec",
+                   "rmsnorm_backward_whisper_dec")
+            + attn("vlm_train", VLM_TRAIN_ATTN, "flash_attention_vlm_train",
+                   "flash_attention_backward_vlm_train")
+            + norm("vlm_train", VLM_TRAIN_X, "rmsnorm_vlm_train", "rmsnorm_backward_vlm_train")
+            + attn("qwen3moe_train", QWEN3MOE_TRAIN_ATTN, "flash_attention_qwen3moe_train",
+                   "flash_attention_backward_qwen3moe_train")
+            + norm("qwen3moe_train", QWEN3MOE_TRAIN_X, "rmsnorm_qwen3moe_train",
+                   "rmsnorm_backward_qwen3moe_train")
+            + norm("xlstm_train", XLSTM_TRAIN_X, "rmsnorm_moe16b_train", "rmsnorm_backward")
+            + norm("xlstm_train", QWEN3MOE_TRAIN_X, "rmsnorm_qwen3moe_train",
+                   "rmsnorm_backward_qwen3moe_train"))
 
 
 if __name__ == "__main__":

@@ -213,10 +213,11 @@ def _train(args, dev, mesh, sizes, lead: bool, on_step) -> dict:
     batch = None
     try:
         for step, batch in pf:
+            # the frames join every batch, the one returned included
+            batch = {**batch, **frames}
             if step >= args.steps:
                 break
             t0 = time.perf_counter()
-            batch = {**batch, **frames}
             if on_mesh:
                 batch = rows_to_dtensor(batch, mesh, args.batch)
             params, opt, metrics = step_fn(params, opt, batch)
