@@ -8,7 +8,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100, the CUDA
 toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
 
 1. the card's name and power limit; float32 matmuls and convolutions in full
-   float32 (TF32 off);
+   float32 (TF32 off); the caching allocator's expandable segments, as the
+   entry points set them (``device.resolve_device``), unless
+   ``PYTORCH_ALLOC_CONF`` or ``PYTORCH_CUDA_ALLOC_CONF`` is set;
 2. build the kernels from the checkout (K1 flash attention's four sources:
    the forward's sm90 kernel for bf16 at head dim 64-256 and SIMT kernel for
    the rest, the backward's sm90 kernel for bf16 at head dim 64, 128 and 256
@@ -197,7 +199,51 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    profile again under remat "dots" per period; the reduced
    recurrentgemma-2b (head dim 16, SIMT routes; 64 tokens past its window
    of 32) on the card against the CPU at qwen2.5-3b's bounds;
-7. the simulator (``repro_torch.core``, on the host): paper Fig. 8 (the six
+7. the repo's four shape cells (``configs/base.py``: prefill_32k,
+   decode_32k, long_500k, train_4k) at full width and depth through the
+   same entry points, each at one card's share: one data replica of the
+   dry run's 16x16 mesh, so a batch of the global batch / 16 (long_500k's
+   global batch of 1 stays 1) with the whole model on the card; one
+   ``cell`` line each with its batch, lengths, peak GiB, times and the
+   card. First their kernels against the plain versions at the cells'
+   shapes (``_cell_checks``, the end of phase 2): K1 at prefill_32k's
+   causal q (2, 32768, 32, 128) over 32,784 and 32,768 keys and at
+   long_500k's q (1, 524288, 10, 256) with window 2048, every head of
+   three or four query tiles of 128 rows (the first, the middle or those
+   either side of the window's edge, the last) against the plain
+   arithmetic over the keys they see, on fp32 copies, out and LSE (the
+   whole score matrix is 275 GB), every launch sm90; K1 and its backward
+   at train_4k's microbatch (2, 4096, 16 on 2 kv heads, 128); K3 at (1,
+   524288, 2560) from h0 = 0 equal to its blocked mirror and a second
+   call to the bit; K2 at (2, 32768, 4096), (8, 1, 4096), (1, 524288,
+   2560) and (2, 4096, 2048), its backward at the last. Then
+   ``phase_prefill_32k``: llama3-8b, 2 x 32,768 through ``serve.setup``
+   and ``serve.generate`` after a warm-up of the same batch and one step,
+   then 16 decode steps over the 32,784-position cache (K1 32 per
+   prefill, all sm90; K2 65 per step), prefill ms, decode ms/token, peak
+   GiB, and teacher forcing (row 0's first decode logits against a
+   batch-1 prefill over the prompt and its token, 3e-2);
+   ``phase_decode_32k``: the same params, 8 rows of 32,768-token prompts
+   in a 32,784-position cache, filled a row at a time with the bf16 cache
+   (32.0 GiB) and with the int8 cache of ``kv_quant`` (16.3 GiB), then 16 decode steps timed with CUDA events and one
+   profiled, for each cache; the two caches' first decode logits on the
+   same rows and tokens within ``INT8_VS_BF16_LIMIT`` (8e-2, about 3x
+   the card's sound reading), and a planted fault beyond it (the codes
+   read with the previous position's scales); the int8 cache's layer-0
+   codes against the bf16 cache's values there within
+   ``INT8_CODE_LIMITS`` (rms and bias in units of the scale), and the
+   same values quantised with a truncating and a flooring round beyond
+   them; ``phase_long_500k``:
+   recurrentgemma-2b, 1 x 524,288 (the ring buffer of 2,048 slots wraps
+   256 times), 16 decode steps from position 524,288 (K1 8, K3 18 per
+   prefill), teacher forcing at 1e-1; ``phase_train_4k``: qwen2.5-3b, 16 x
+   4096 on one fixed batch, ``--microbatch`` from
+   ``launch/dryrun.py::pick_microbatch`` for one data replica (8 slices of
+   2 rows), 3 steps through ``launch/train.py`` with ``--dp-sync gspmd``
+   (launches per step 8x those of a 2-row step; step ms, tokens/s, the
+   ``model_flops_6nd`` share, peak GiB; one more step profiled), then with
+   ``--dp-sync themis``, held to it at ``phase_themis_train``'s limits;
+8. the simulator (``repro_torch.core``, on the host): paper Fig. 8 (the six
    Table-2 topologies x 100-1000 MB all-reduce under baseline/FIFO,
    themis/FIFO and themis/SCF through ``simulate_scheduled``) and Fig. 12
    (four workloads, compute calibrated to the paper's Ideal, then
@@ -239,7 +285,7 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    at 640, a second card call equal to the bit; its ms (median of CUDA
    events), stage-ops per second and bound beside the host's
    ``simulate_compiled`` and CPU times;
-8. each kernel's time at the serving and training shapes with CUDA events, beside its
+9. each kernel's time at the serving and training shapes with CUDA events, beside its
    bound, its plain version's time and one PyTorch library call's time
    where one computes the same function (``ms`` with the launch queue
    filled first, so the card's time alone; ``host_ms`` as issued one call
@@ -261,10 +307,13 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    norm widths; internvl2-26b's q (4,1024,48,128) on 8 kv heads and x
    (4,1024,6144); qwen3-moe's q (4,1024,64,128) on 4 and x (4,1024,4096);
    xlstm-1.3b's x (4,1024,2048) and (4,1024,4096)), each row's launches its
-   shape's in that run; and each training step's floor
+   shape's in that run; the kernels at the shape cells' shapes (phase 7;
+   there the plain K1 runs by blocks of query rows and the plain K3 is its
+   blocked mirror, one call each, and SDPA cannot take long_500k's
+   window); and each training step's floor
    (its FLOPs at the bf16 peak) and ``model_flops_6nd`` share beside the
    measured step time;
-9. the dry run (``python -m repro_torch.launch.dryrun``, meta tensors on a
+10. the dry run (``python -m repro_torch.launch.dryrun``, meta tensors on a
    fake process group, host only; ``phase_dryrun``), one subprocess per
    cell, all at once, on the 16x16 production mesh: llama3-8b train_4k,
    qwen2.5-3b train_4k with ``--dp-sync themis``, deepseek-moe-16b
@@ -416,6 +465,37 @@ FAM_NORM_GRAD_KEYS = {WHISPER_X: "rmsnorm_backward_whisper_enc",
 # the checkpoint phase: qwen2.5-3b at full width cut to 2 layers
 CKPT_LAYERS, CKPT_BATCH, CKPT_STEPS = 2, 2, 4
 GRAD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": 2e-2}
+# the repo's four shape cells (configs/base.py: PREFILL_32K, DECODE_32K,
+# LONG_500K, TRAIN_4K) at one card's share: one data replica of the dry
+# run's 16x16 mesh, a batch of global batch / 16 (long_500k's global batch
+# of 1 stays 1), the whole model on the card; each serving cell then
+# decodes CELL_GEN tokens
+CELL_REPLICAS, CELL_GEN = 16, 16
+P32K_B, P32K_S, D32K_B, L500K_S, T4K_B, T4K_S, T4K_STEPS = 2, 32768, 8, 524288, 16, 4096, 3
+# K1's (b, s, h, kv, d, t, window) on the cells' paths: llama3-8b's
+# prefill_32k (t: the cache, 16 decode positions past the prompt),
+# recurrentgemma-2b's long_500k, one microbatch of 2 rows of qwen2.5-3b's
+# train_4k; and K2's x
+P32K_ATTN = (P32K_B, P32K_S, 32, 8, 128, P32K_S + CELL_GEN, 0)
+L500K_ATTN = (1, L500K_S, HYB["h"], HYB["kv"], HYB["d"], L500K_S, HYB["window"])
+T4K_ATTN = (2, T4K_S, QWEN["h"], QWEN["kv"], QWEN["d"], T4K_S, 0)
+P32K_X, L500K_X, T4K_X = (P32K_B, P32K_S, 4096), (1, L500K_S, HYB["d_model"]), (2, T4K_S, 2048)
+# the int8 KV cache's first decode logits against the bf16 cache's on the
+# same rows and tokens (relative L2): about 3x the card's sound reading of
+# 0.0276, below the reading with every position's codes read with the
+# previous position's scales, a fault that phase_decode_32k plants (0.444
+# on an H100; 0.589 at the reduced config, tests/test_torch_long_context.py)
+INT8_VS_BF16_LIMIT = 8e-2
+# the int8 codes of layer 0 against the bf16 cache's values there, e = code
+# - x / scale in units of the scale (``_int8_code_error``): (rms, |bias|)
+# limits between the sound quantiser's readings and those of a truncating
+# and a flooring round (llama3-8b on an H100: rms 0.315, bias -0.004;
+# truncating 0.497, -0.397; flooring 0.498, 0.0003. The reduced config:
+# 0.320, under 0.012; 0.467, -0.356; 0.467-0.470, under 0.01, as
+# tests/test_torch_long_context.py prints them). A truncating round moves
+# the logits' gap only from 0.0172 to 0.0198 at the reduced config, so
+# this gate and not the logits' holds the quantiser
+INT8_CODE_LIMITS = (0.4, 0.1)
 # the simulator: paper Fig. 8's all-reduce sizes (MB = 1e6 bytes) and Fig. 12's
 # reported speed-ups over the baseline (Sec. 6.2: Themis, and the Ideal that
 # calibrate_compute fits each workload's compute time to)
@@ -502,14 +582,22 @@ def main() -> int:
         print("chip_smoke: repro_torch not found; run from a checkout of the "
               "repository", file=sys.stderr)
         return 2
-    from repro_torch.device import nvidia_smi
+    from repro_torch.device import nvidia_smi, resolve_device
 
+    # the entry points' allocator setting, before the first allocation
+    resolve_device("cuda")
     card = nvidia_smi()
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.empty(1, device="cuda")
+    expandable = sorted({str(seg.get("is_expandable"))
+                         for seg in torch.cuda.memory_snapshot()})
     emit(settings={"cuda.matmul.allow_tf32": False, "cudnn.allow_tf32": False,
-                   "torch": torch.__version__, "cuda": torch.version.cuda})
+                   "torch": torch.__version__, "cuda": torch.version.cuda,
+                   "alloc_conf": {k: os.environ.get(k) for k in
+                                  ("PYTORCH_ALLOC_CONF", "PYTORCH_CUDA_ALLOC_CONF")},
+                   "segments_expandable": expandable})
 
     state: dict = {"card": card, "kernels": []}
     failed = []
@@ -530,6 +618,7 @@ def main() -> int:
               phase_train_card_vs_cpu, phase_ckpt_resume, phase_hybrid_train,
               phase_hybrid_train_profile, phase_hybrid_train_dots,
               phase_hybrid_train_dots_profile, phase_hybrid_train_card_vs_cpu,
+              phase_prefill_32k, phase_decode_32k, phase_long_500k, phase_train_4k,
               phase_simulator, phase_faults, phase_tenancy, phase_traffic,
               phase_fleet, phase_verify, phase_wave, phase_dryrun, phase_times)
     for phase in phases:
@@ -770,6 +859,116 @@ def phase_kernels(state):
     torch.cuda.empty_cache()
     state["grad_err"] = _grad_checks(gen)
     torch.cuda.empty_cache()
+    _cell_checks(state)
+    torch.cuda.empty_cache()
+
+
+def _attention_rows(q, k, v, r0, r1, window):
+    """K1's plain arithmetic (fp32 copies of the inputs, fp32 scores,
+    ``-1e30`` masks, as ``flash_attention_plain``) for the query rows r0 ..
+    r1-1 of a causal call with ``window`` (0: none), over only the keys
+    those rows see: (out (B, r1-r0, H, d) fp32, LSE (B, H, r1-r0)). The
+    shape cells' whole score matrices do not fit the card (prefill_32k's
+    is 275 GB in fp32)."""
+    from repro_torch.models.common import _flash_fwd_impl
+
+    k0 = max(0, r0 - window + 1) if window else 0
+    q, k, v = (x.float() for x in (q[:, r0:r1], k[:, k0:r1], v[:, k0:r1]))
+    return _flash_fwd_impl(q, k, v, r0 - k0, True, window, r1 - r0, r1 - k0)
+
+
+def _cell_checks(state):
+    """The kernels at the shape cells' shapes, against their plain versions
+    at the tolerances above, from a generator of their own (every earlier
+    check keeps its inputs). K1 at prefill_32k's causal q (2, 32768, 32,
+    128) over 32,784 keys (the cache) and over 32,768, and at long_500k's
+    q (1, 524288, 10, 256) with window 2048: every head of the first query
+    tile of 128 rows, a middle one (at long_500k the two either side of
+    2,048, the window's edge) and the last, which reads every key tile the
+    mask leaves, against ``_attention_rows``, out and LSE; each launch on
+    the sm90 route. K1 and K1's backward at train_4k's microbatch, q (2,
+    4096, 16, 128) on 2 kv heads, in bf16 as ``_grad_checks`` holds them.
+    K3 at (1, 524288, 2560) from h0 = 0, as long_500k's prefill runs it,
+    equal to ``rglru_scan_blocked_plain`` and to a second call to the bit
+    (the sequential loop would take a million launches). K2 at the cells'
+    widths and decode_32k's (8, 1, 4096); its backward at train_4k's."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import rmsnorm as rn
+
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    bf, errs, checks = torch.bfloat16, state["serving_err"], []
+    p32k_tiles = (0, P32K_S // 2, P32K_S - 128)
+    window = HYB["window"]
+    for key, shape, tiles in (
+            ("flash_attention_prefill_32k", P32K_ATTN, p32k_tiles),
+            ("flash_attention_prefill_32k", P32K_ATTN[:5] + (P32K_S, 0), p32k_tiles),
+            ("flash_attention_long_500k", L500K_ATTN,
+             (0, window - 128, window, L500K_S - 128))):
+        b, s, h, kv, d, t, win = shape
+        q = _randn(gen, (b, s, h, d), bf)
+        k, v = _randn(gen, (b, t, kv, d), bf), _randn(gen, (b, t, kv, d), bf)
+        before = launch_counts()["flash_attention_sm90"]
+        out, lse = fa.flash_attention(q, k, v, causal=True, window=win)
+        torch.cuda.synchronize()
+        sm90 = launch_counts()["flash_attention_sm90"] - before
+        rows = []
+        for r0 in tiles:
+            p_out, p_lse = _attention_rows(q, k, v, r0, r0 + 128, win)
+            name = f"flash_attention{shape} bfloat16 rows {r0}-{r0 + 128}"
+            rows.append({"rows": [r0, r0 + 128],
+                         "max_abs_err": _check(name, out[:, r0:r0 + 128], p_out,
+                                               TOL["bfloat16"], errs.setdefault(key, [])),
+                         "lse_max_abs_err": _check(name + " lse", lse[:, :, r0:r0 + 128],
+                                                   p_lse, TOL["float32"], [])})
+            del p_out, p_lse
+        checks.append({"kernel": "flash_attention", "route": fa.route(bf, d),
+                       "sm90_launches": sm90, "shape": [b, s, h, kv, d, t],
+                       "window": win, "causal": True, "dtype": "bfloat16",
+                       "vs": "_attention_rows on fp32 copies", "tiles": rows,
+                       "tol": TOL["bfloat16"], "lse_tol": TOL["float32"]})
+        assert sm90 == 1, f"flash_attention{shape}: {sm90} sm90 launches"
+        del q, k, v, out, lse
+        torch.cuda.empty_cache()
+    checks.append(_flash_check(gen, T4K_ATTN, "bfloat16",
+                               errs.setdefault("flash_attention_train_4k", [])))
+    check, state["grad_err"]["flash_attention_backward_train_4k"] = _flash_grad_check(
+        gen, T4K_ATTN, "bfloat16")
+    checks.append(check)
+    assert check["backward_route"] == "sm90", check["backward_route"]
+    a, bb, _ = _scan_inputs(gen, *L500K_X)
+    h0 = torch.zeros((1, L500K_X[2]), device="cuda")
+    out = rg.rglru_scan(a, bb, h0)
+    torch.cuda.synchronize()
+    mirror = rg.rglru_scan_blocked_plain(a, bb, h0)
+    equal, again = torch.equal(out, mirror), torch.equal(out, rg.rglru_scan(a, bb, h0))
+    errs["rglru_scan_long_500k"] = [_max_err(out, mirror)]
+    checks.append({"kernel": "rglru_scan", "shape": list(L500K_X), "h0": "zeros",
+                   "dtype": "float32", "equal_to_blocked_mirror": equal,
+                   "equal_across_calls": again})
+    assert equal and again, ("rglru_scan long_500k", equal, again)
+    del a, bb, h0, out, mirror
+    for shape, key in ((P32K_X, "rmsnorm_prefill_32k"), ((D32K_B, 1, 4096), "rmsnorm_decode_32k"),
+                       (L500K_X, "rmsnorm_long_500k"), (T4K_X, "rmsnorm_train_4k")):
+        x, w = _randn(gen, shape, bf), _randn(gen, shape[-1:], bf)
+        y = rn.rmsnorm(x, w, 1e-6)
+        torch.cuda.synchronize()
+        e = _check(f"rmsnorm{shape} bfloat16", y, rn.rmsnorm_plain(x, w, 1e-6),
+                   TOL["bfloat16"], errs.setdefault(key, []))
+        checks.append({"kernel": "rmsnorm", "shape": list(shape), "dtype": "bfloat16",
+                       "max_abs_err": e, "tol": TOL["bfloat16"]})
+        del x, w, y
+    check, state["grad_err"]["rmsnorm_backward_train_4k"] = _rmsnorm_grad_check(
+        gen, T4K_X, "bfloat16")
+    checks.append(check)
+    emit(cell_kernel_checks=checks)
+    for key in ("flash_attention_prefill_32k", "flash_attention_long_500k",
+                "flash_attention_train_4k", "rglru_scan_long_500k", "rmsnorm_prefill_32k",
+                "rmsnorm_decode_32k", "rmsnorm_long_500k", "rmsnorm_train_4k"):
+        errs[key] = max(errs[key])
 
 
 def _flash_check(gen, shape, dn, errs):
@@ -896,7 +1095,6 @@ def _grad_checks(gen):
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.models.common import flash_attention_bwd
 
     checks = []
@@ -983,43 +1181,58 @@ def _grad_checks(gen):
                                        ((TRAIN_BATCH, TRAIN_SEQ, 2048), "float32"),
                                        (HYB_TRAIN_X, "bfloat16")] + [
             (x, dn) for x in FAM_NORM_GRAD_KEYS for dn in ("bfloat16", "float32")]:
-        dt = _dtype(dn)
-        x = _randn(gen, shape, dt).requires_grad_(True)
-        w = _randn(gen, shape[-1:], dt).requires_grad_(True)
-        dy = _randn(gen, shape, dt)
-        got = torch.autograd.grad(ops.rmsnorm(x, w, 1e-6), (x, w), dy)
-        want = torch.autograd.grad(rn.rmsnorm_plain(x, w, 1e-6), (x, w), dy)
-        plain = rn.rmsnorm_backward(x.detach(), w.detach(), dy, 1e-6)
-        refs = {"": want, " vs rmsnorm_backward": plain}
-        fp32_readings = None
-        if dn == "float32":
-            # the kernel sums dw in fp64 and rounds once, where the fp32
-            # versions sum 4,096 rows in fp32: fp32 also holds the kernel to
-            # both versions on fp64 copies of the inputs (they then compute
-            # in fp64), and reports the fp32 versions' distances to those
-            want64, plain64 = _rmsnorm_grads_fp64(x, w, dy)
-            refs.update({" vs fp64 autograd": want64,
-                         " vs fp64 rmsnorm_backward": plain64})
-            fp32_readings = {"autograd32_vs_fp64": _rmsnorm_readings(want, want64),
-                             "plain32_vs_fp64": _rmsnorm_readings(plain, plain64)}
-        torch.cuda.synchronize()
-        errs = {label: [] for label in refs}
-        for label, ref in refs.items():
-            for n, a, r in zip(("dx", "dw"), got, ref):
-                _grad_close(f"rmsnorm{shape} {dn} {n}{label}", a, r, dn, errs[label])
+        check, err = _rmsnorm_grad_check(gen, shape, dn)
         key = {(TRAIN_BATCH, TRAIN_SEQ, 2048): "rmsnorm_backward",
                HYB_TRAIN_X: "rmsnorm_backward_hybrid", **FAM_NORM_GRAD_KEYS}.get(shape)
         if dn == "bfloat16" and key:
-            worst[key] = max(e["max_abs_err"] for v in errs.values() for e in v)
-        checks.append({"kernel": "rmsnorm", "route": "triton",
-                       "backward_route": "triton", "shape": list(shape), "dtype": dn,
-                       "grads": errs[""], "vs_plain_backward": errs[" vs rmsnorm_backward"],
-                       "vs_fp64": (errs[" vs fp64 autograd"]
-                                   + errs[" vs fp64 rmsnorm_backward"]
-                                   if fp32_readings else None),
-                       "fp32_readings": fp32_readings, "tol": GRAD_TOL[dn]})
+            worst[key] = err
+        checks.append(check)
     emit(grad_checks=checks)
     return worst
+
+
+def _rmsnorm_grad_check(gen, shape, dn):
+    """K2's gradients through ``ops.rmsnorm`` (its backward kernels) at x
+    ``shape`` in ``dn``: against autograd through ``rmsnorm_plain`` and
+    against ``rmsnorm_backward`` on the same inputs, in fp32 also against
+    both on fp64 copies. Returns the check's line and its largest error."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rn
+
+    dt = _dtype(dn)
+    x = _randn(gen, shape, dt).requires_grad_(True)
+    w = _randn(gen, shape[-1:], dt).requires_grad_(True)
+    dy = _randn(gen, shape, dt)
+    got = torch.autograd.grad(ops.rmsnorm(x, w, 1e-6), (x, w), dy)
+    want = torch.autograd.grad(rn.rmsnorm_plain(x, w, 1e-6), (x, w), dy)
+    plain = rn.rmsnorm_backward(x.detach(), w.detach(), dy, 1e-6)
+    refs = {"": want, " vs rmsnorm_backward": plain}
+    fp32_readings = None
+    if dn == "float32":
+        # the kernel sums dw in fp64 and rounds once, where the fp32
+        # versions sum 4,096 rows in fp32: fp32 also holds the kernel to
+        # both versions on fp64 copies of the inputs (they then compute
+        # in fp64), and reports the fp32 versions' distances to those
+        want64, plain64 = _rmsnorm_grads_fp64(x, w, dy)
+        refs.update({" vs fp64 autograd": want64,
+                     " vs fp64 rmsnorm_backward": plain64})
+        fp32_readings = {"autograd32_vs_fp64": _rmsnorm_readings(want, want64),
+                         "plain32_vs_fp64": _rmsnorm_readings(plain, plain64)}
+    torch.cuda.synchronize()
+    errs = {label: [] for label in refs}
+    for label, ref in refs.items():
+        for n, a, r in zip(("dx", "dw"), got, ref):
+            _grad_close(f"rmsnorm{shape} {dn} {n}{label}", a, r, dn, errs[label])
+    worst = max(e["max_abs_err"] for v in errs.values() for e in v)
+    return {"kernel": "rmsnorm", "route": "triton",
+            "backward_route": "triton", "shape": list(shape), "dtype": dn,
+            "grads": errs[""], "vs_plain_backward": errs[" vs rmsnorm_backward"],
+            "vs_fp64": (errs[" vs fp64 autograd"]
+                        + errs[" vs fp64 rmsnorm_backward"]
+                        if fp32_readings else None),
+            "fp32_readings": fp32_readings, "tol": GRAD_TOL[dn]}, worst
 
 
 def _rmsnorm_grads_fp64(x, w, dy):
@@ -1061,13 +1274,18 @@ def _sass_counts(so):
 
 
 # -- phase 3 and 4: the two serving paths ---------------------------------------
-def _serve(state, arch, prompt, expect, layers=0, on_reset=None):
+def _serve(state, arch, prompt, expect, layers=0, on_reset=None, rows=BATCH,
+           full_warmup=False):
     """Serve ``arch`` at full width (``layers`` > 0: cut to that depth):
-    BATCH x ``prompt`` tokens (with the family's patches or frames,
+    ``rows`` x ``prompt`` tokens (with the family's patches or frames,
     ``serve.synthetic_batch``), GEN decode steps, launch counts per step
     held to ``expect`` (kind -> counts); the peak memory of the counted
     run. ``on_reset()`` is called where the counts are set to 0, after the
-    warm-up, just before the counted run."""
+    warm-up, just before the counted run. The warm-up serves 64 tokens and
+    2 steps; with ``full_warmup`` the whole batch and one step, so each
+    kernel's first launch at the counted shapes falls outside the timed
+    run, and that step's logits and its fed token are kept
+    (``first_step``)."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -1077,8 +1295,15 @@ def _serve(state, arch, prompt, expect, layers=0, on_reset=None):
     torch.cuda.empty_cache()
     server = serve.setup(arch, layers=layers, device="cuda", seed=0)
     cfg = server.cfg
-    batch = serve.synthetic_batch(cfg, BATCH, prompt, device="cuda")
-    serve.generate(server, {**batch, "tokens": batch["tokens"][:, :64]}, 2)  # warm-up
+    batch = serve.synthetic_batch(cfg, rows, prompt, device="cuda")
+    first_step = None
+    if full_warmup:
+        warm = serve.generate(server, batch, 1)
+        first_step = {"ids": warm["ids"], "logits": warm["last_logits"].float()}
+        del warm
+        torch.cuda.empty_cache()
+    else:
+        serve.generate(server, {**batch, "tokens": batch["tokens"][:, :64]}, 2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     snaps = []
@@ -1099,7 +1324,7 @@ def _serve(state, arch, prompt, expect, layers=0, on_reset=None):
                 "published_layers": get_arch(arch).num_layers,
                 "params": sum(p.numel() for p in _leaves(server.params)),
                 "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
-                "vocab": cfg.vocab_size, "batch": BATCH, "prompt_len": prompt,
+                "vocab": cfg.vocab_size, "batch": rows, "prompt_len": prompt,
                 "gen": GEN, "prefill_ms": res["prefill_ms"],
                 "decode_ms_per_token": res["decode_ms_per_token"],
                 "launches_total": total,
@@ -1117,7 +1342,8 @@ def _serve(state, arch, prompt, expect, layers=0, on_reset=None):
             "decode_ms_per_token": res["decode_ms_per_token"],
             "prefill_ms": res["prefill_ms"], "expect": expect,
             "prefill_logits": res["prefill_logits"].float(),
-            "last_logits": res["last_logits"].float()}
+            "last_logits": res["last_logits"].float(), "peak_gib": peak_gib,
+            "per_step": per_step, "first_step": first_step}
 
 
 NO_BACKWARD = {"flash_attention_bwd": 0, "flash_attention_bwd_sm90": 0,
@@ -1138,13 +1364,19 @@ def phase_serve(state):
     state[ARCH] = _serve(state, ARCH, PROMPT, _dense_launches(32))
 
 
-def phase_hybrid_serve(state):
+def _hybrid_launches():
+    """recurrentgemma-2b's 26 layers: K1 once per attention layer (8, all
+    sm90) and K3 once per recurrent layer (18) in the prefill, neither in a
+    decode step; K2 twice per layer and once before the head in both."""
     n, attn, rec = 26, 8, 18
-    state[HYB_ARCH] = _serve(state, HYB_ARCH, HYB_PROMPT, {
-        "prefill": {"flash_attention": attn, "flash_attention_sm90": attn,
-                    "rmsnorm": 2 * n + 1, "rglru_scan": rec, **NO_BACKWARD},
-        "decode": {"flash_attention": 0, "flash_attention_sm90": 0,
-                   "rmsnorm": 2 * n + 1, "rglru_scan": 0, **NO_BACKWARD}})
+    return {"prefill": {"flash_attention": attn, "flash_attention_sm90": attn,
+                        "rmsnorm": 2 * n + 1, "rglru_scan": rec, **NO_BACKWARD},
+            "decode": {"flash_attention": 0, "flash_attention_sm90": 0,
+                       "rmsnorm": 2 * n + 1, "rglru_scan": 0, **NO_BACKWARD}}
+
+
+def phase_hybrid_serve(state):
+    state[HYB_ARCH] = _serve(state, HYB_ARCH, HYB_PROMPT, _hybrid_launches())
 
 
 @contextlib.contextmanager
@@ -2119,11 +2351,12 @@ def _step_floor_flop(cfg, batch, seq):
     return (3 * dense + recompute + attn_fwd * (n_attn * (1 + 2.5) + n_attn_remat))
 
 
-def _run_training(state, key, arch, batch, seq, want, remat="full"):
-    """Full ``arch`` through ``launch/train.py --dp-sync gspmd`` under remat
-    policy ``remat``: TRAIN_STEPS steps on one fixed batch, launches per
-    step held to ``want``; keeps the trainer in ``state["trainer"]`` for the
-    profile."""
+def _run_training(state, key, arch, batch, seq, want, remat="full", steps=TRAIN_STEPS,
+                  extra=()):
+    """Full ``arch`` through ``launch/train.py --dp-sync gspmd`` (and the
+    arguments ``extra``) under remat policy ``remat``: ``steps`` steps on
+    one fixed batch, launches per step held to ``want``; keeps the trainer
+    in ``state["trainer"]`` for the profile."""
     import statistics
 
     import torch
@@ -2136,9 +2369,9 @@ def _run_training(state, key, arch, batch, seq, want, remat="full"):
     state.pop("trainer", None)         # the previous run's, if a phase failed
     torch.cuda.empty_cache()
     reset_launch_counts()
-    res = train.main(_train_argv("--steps", str(TRAIN_STEPS), "--dp-sync", "gspmd",
-                                 "--remat-policy", remat, arch=arch, batch=batch,
-                                 seq=seq),
+    res = train.main(_train_argv("--steps", str(steps), "--dp-sync", "gspmd",
+                                 "--remat-policy", remat, *extra, arch=arch,
+                                 batch=batch, seq=seq),
                      on_step=lambda step, m: snaps.append(launch_counts()))
     total = launch_counts()
     per_step, prev = [], {k: 0 for k in total}
@@ -2156,7 +2389,7 @@ def _run_training(state, key, arch, batch, seq, want, remat="full"):
            "vocab": cfg.vocab_size, "params": n_params, "remat": cfg.remat_policy,
            "batch": batch, "seq": seq, "dp_sync": "gspmd",
            "losses": losses, "gnorms": res["gnorms"], "lrs": res["lrs"],
-           "step_ms": res["step_ms"], "step_ms_median_2_6": step_ms,
+           "step_ms": res["step_ms"], f"step_ms_median_2_{steps}": step_ms,
            "tokens_per_s": res["tokens_per_step"] / (step_ms / 1e3),
            "peak_mem_gib": res["peak_mem_bytes"] / 2**30,
            "launches_per_step": per_step, "launches_total": total,
@@ -2180,7 +2413,7 @@ def _run_training(state, key, arch, batch, seq, want, remat="full"):
     assert losses[-1] < losses[0], f"loss did not fall: {losses}"
     for i, c in enumerate(per_step):
         assert c == want, f"step {i + 1}: launches {c}, expected {want}"
-    assert len(per_step) == TRAIN_STEPS
+    assert len(per_step) == steps
     torch.cuda.synchronize()
 
 
@@ -2359,7 +2592,24 @@ def phase_themis_train(state):
         del res
     torch.cuda.empty_cache()
     cfg = get_arch(TRAIN_ARCH).replace(num_layers=THEMIS_LAYERS)
-    init = _leaves(build_model(cfg).init(0, "cuda"))
+    gap = _themis_gap(runs, final, build_model(cfg))
+    emit(themis_train={"arch": TRAIN_ARCH, "layers": THEMIS_LAYERS,
+                       "d_model": cfg.d_model, "chunks": 16,
+                       "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, **runs, **gap,
+                       "card": state["card"]})
+    _themis_gate(gap)
+
+
+def _themis_gap(runs, final, api):
+    """The Themis run against the GSPMD run from the same seed and batch:
+    the largest relative gap of their losses and of their gnorms; over
+    the param leaves (``final``: each run's, on the host) the largest L2
+    of their difference over the L2 of the GSPMD run's update from
+    ``api``'s params of seed 0, and the largest element gap over the peak
+    lr."""
+    import torch
+
+    init = _leaves(api.init(0, "cuda"))
     lr_max = max(runs["gspmd"]["lrs"])
     diff_over_update, max_abs_over_lr = 0.0, 0.0
     for a, b, c in zip(final["themis"], final["gspmd"], init):
@@ -2373,16 +2623,15 @@ def phase_themis_train(state):
     rel = {k: max(abs(x - y) / abs(y) for x, y in zip(runs["themis"][k],
                                                        runs["gspmd"][k]))
            for k in ("losses", "gnorms")}
-    emit(themis_train={"arch": TRAIN_ARCH, "layers": THEMIS_LAYERS,
-                       "d_model": cfg.d_model, "chunks": 16,
-                       "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, **runs,
-                       "rel_diff": rel,
-                       "params_diff_over_update": diff_over_update,
-                       "params_max_abs_over_lr": max_abs_over_lr,
-                       "card": state["card"]})
+    return {"rel_diff": rel, "params_diff_over_update": diff_over_update,
+            "params_max_abs_over_lr": max_abs_over_lr}
+
+
+def _themis_gate(gap):
+    """``phase_themis_train``'s limits on ``_themis_gap``'s readings."""
+    rel = gap["rel_diff"]
     assert rel["losses"] <= 1e-5 and rel["gnorms"] <= 1e-5, rel
-    assert diff_over_update <= 1e-4 and max_abs_over_lr <= 1e-2, (
-        diff_over_update, max_abs_over_lr)
+    assert gap["params_diff_over_update"] <= 1e-4 and gap["params_max_abs_over_lr"] <= 1e-2, gap
 
 
 def phase_sharded_train(state):
@@ -2653,24 +2902,346 @@ def phase_hybrid_train_card_vs_cpu(state):
     assert counts["rglru_scan"] > 0 and counts["rglru_scan_bwd"] > 0, counts
 
 
+# -- the shape cells --------------------------------------------------------------
+def _cell_share(shape):
+    """(batch, seq) of a shape cell (``configs/base.py``) at one card's
+    share: one data replica of the dry run's 16x16 mesh."""
+    return max(shape.global_batch // CELL_REPLICAS, 1), shape.seq_len
+
+
+def _cell_teacher_forcing(run, prompt):
+    """Row 0's first decode logits (``_serve``'s full warm-up) against the
+    last logits of a batch-1 prefill over the prompt and the token that
+    step was fed: (relative L2, max abs error)."""
+    import torch
+
+    server, first = run["server"], run["first_step"]
+    toks = torch.cat([run["tokens"][:1], first["ids"][:1, :1]], dim=1)
+    logits, caches = server.prefill(server.params, {"tokens": toks}, prompt + 1)
+    want, got = logits[0, -1].float(), first["logits"][0, 0]
+    del logits, caches
+    torch.cuda.empty_cache()
+    return ((got - want).norm() / want.norm()).item(), _max_err(got, want)
+
+
+def _serve_cell(state, name, arch, shape, expect, limit):
+    """A serving cell at one card's share through ``_serve`` with a full
+    warm-up, its launches per step held to ``expect``; teacher forcing at
+    ``limit``. Prints the cell's line; keeps the run (with its server)."""
+    b, s = _cell_share(shape)
+    run = _serve(state, arch, s, expect, rows=b, full_warmup=True)
+    state[name] = run
+    rel, err = _cell_teacher_forcing(run, s)
+    pre, dec = run["per_step"][0][1], run["per_step"][1][1]
+    emit(cell={"cell": name, "arch": arch, "layers": run["server"].cfg.num_layers,
+               "batch": b, "global_batch": shape.global_batch, "prompt_len": s, "gen": GEN,
+               "decode_positions": [s, s + GEN - 1], "prefill_ms": run["prefill_ms"],
+               "decode_ms_per_token": run["decode_ms_per_token"],
+               "decode_tokens_per_s": b * 1e3 / run["decode_ms_per_token"],
+               "peak_gib": run["peak_gib"], "launches_prefill": pre,
+               "launches_per_decode_step": dec,
+               "teacher_forcing": {"rel_l2": rel, "max_abs_err": err, "limit": limit,
+                                   "tokens": s + 1},
+               "cut": None, "card": state["card"]})
+    assert rel <= limit, f"{name}: teacher forcing rel L2 {rel} > {limit}"
+
+
+def phase_prefill_32k(state):
+    """prefill_32k at one card's share: llama3-8b whole, 2 x 32,768 (a global
+    batch of 32 over 16 replicas) through ``serve.setup`` and
+    ``serve.generate`` after a warm-up of the same batch and one step, then
+    16 greedy decode steps over the 32,784-position cache: K1 32 per
+    prefill, all sm90, none per decode step; K2 65 per step. Teacher
+    forcing at ``phase_teacher_forcing``'s 3e-2. Keeps the server for
+    ``phase_decode_32k``."""
+    from repro_torch.configs.base import PREFILL_32K
+
+    assert _cell_share(PREFILL_32K) == (P32K_B, P32K_S)
+    _serve_cell(state, "prefill_32k", ARCH, PREFILL_32K, _dense_launches(32), 3e-2)
+
+
+def _fill_cache(prefill, params, cfg, tokens, max_len, group):
+    """A cache of ``max_len`` positions for every row of ``tokens``, filled
+    by prefilling ``group`` rows at a time and copying each group's rows in
+    (the whole batch's prefill temporaries do not fit beside the cache):
+    (cache, each row's last prefill logits)."""
+    import torch
+
+    from repro_torch.models.transformer import init_cache
+
+    b = tokens.shape[0]
+    with torch.inference_mode():
+        cache = init_cache(cfg, b, max_len, device="cuda")
+        last = []
+        for i in range(0, b, group):
+            logits, part = prefill(params, {"tokens": tokens[i:i + group]}, max_len)
+            for k, v in cache.items():
+                v[:, i:i + group].copy_(part[k])
+            last.append(logits[:, -1].float())
+            del logits, part
+    return cache, torch.cat(last)
+
+
+def _planted_quantize(x, rnd):
+    """``models/transformer.py::_kv_quantize`` with ``rnd`` in place of its
+    round-half-to-even: a planted fault for the int8 gates."""
+    import torch
+
+    scale = torch.clamp(x.abs().amax(-1), min=1e-6) / 127.0
+    q = torch.clamp(rnd(x / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def _int8_code_error(codes, scales, x):
+    """Int8 codes against the values ``x`` they encode, in units of each
+    position's scale, e = code - x / scale: (rms of e, the bias mean(e *
+    sign(x)), whether both lie within INT8_CODE_LIMITS)."""
+    import torch
+
+    e = codes.float() - x.float() / scales.float()[..., None]
+    rms = e.square().mean().sqrt().item()
+    bias = (e * torch.sign(x.float())).mean().item()
+    rms_limit, bias_limit = INT8_CODE_LIMITS
+    return rms, bias, rms <= rms_limit and abs(bias) <= bias_limit
+
+
+def _int8_code_gate(cache, x0, s):
+    """Layer 0 of the int8 ``cache`` against ``x0``, the bf16 cache's layer
+    0 (k and v of the same prompts, which the cache's type does not reach),
+    over the prompt's ``s`` positions: the sound codes within
+    INT8_CODE_LIMITS, the same values quantised with a truncating and a
+    flooring round beyond them. Returns the readings."""
+    import torch
+
+    out = {}
+    for key, x in x0.items():
+        out[key] = _int8_code_error(cache[key][0, :, :s], cache[key + "_scale"][0, :, :s], x)
+        for name, rnd in (("trunc", torch.trunc), ("floor", torch.floor)):
+            out[f"{key} {name}"] = _int8_code_error(*_planted_quantize(x, rnd), x)
+    bad = [k for k, r in out.items() if r[2] != (" " not in k)]
+    assert not bad, f"int8 codes: {bad} on the wrong side of {INT8_CODE_LIMITS}: {out}"
+    return out
+
+
+def phase_decode_32k(state):
+    """decode_32k at one card's share: llama3-8b whole (the served params of
+    ``phase_prefill_32k``), 8 rows (128 / 16) of 32,768-token prompts in a
+    cache of 32,784 positions, once with the bf16 cache (32.0 GiB) and
+    once with the int8 cache of ``kv_quant`` (16.3 GiB), the same params,
+    each filled a row at a time (so layer 0's k and v are the same bits
+    in both). Each cache's first decode step
+    is fed the bf16 prompts' greedy tokens, its logits compared across the
+    caches (relative L2 within INT8_VS_BF16_LIMIT, a planted fault beyond
+    it) and the int8 codes of layer 0 held to the bf16 cache's values
+    (``_int8_code_gate``); then 16 greedy steps at positions
+    32,768-32,783 timed with CUDA events, launches per step K1 0 and K2
+    65; one more step profiled (busy share)."""
+    import torch
+
+    from repro_torch.configs.base import DECODE_32K
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.train.serve import make_serve_fns
+
+    b, s = _cell_share(DECODE_32K)
+    assert (b, s) == (D32K_B, P32K_S)
+    server = (state.get("prefill_32k", {}).pop("server", None)
+              or serve.setup(ARCH, device="cuda", seed=0))
+    torch.cuda.empty_cache()
+    tokens = serve.synthetic_batch(server.cfg, b, s, seed=1, device="cuda")["tokens"]
+    max_len, want = s + GEN, _dense_launches(32)["decode"]
+    first, tok0 = {}, None
+    for kv_quant in (False, True):
+        cfg = server.cfg.replace(kv_quant=kv_quant)
+        prefill, decode = make_serve_fns(build_model(cfg), "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cache, last = _fill_cache(prefill, server.params, cfg, tokens, max_len, 1)
+        torch.cuda.synchronize()
+        fill_s = time.perf_counter() - t0
+        cache_gib = sum(v.numel() * v.element_size() for v in cache.values()) / 2**30
+        if kv_quant:
+            codes = _int8_code_gate(cache, x0, s)
+            del x0
+        else:
+            x0 = {k: cache[k][0, :, :s].clone() for k in ("k", "v")}
+        if tok0 is None:
+            tok0 = last.argmax(-1)
+        del last
+        torch.cuda.empty_cache()
+        # warm-up; the step returns the cache, so take the logits alone
+        first[kv_quant] = decode(server.params, cache, tok0, s)[0][:, 0].float()
+        snaps = []
+        reset_launch_counts()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        tok = tok0
+        t0.record()
+        for i in range(GEN):
+            tok = decode(server.params, cache, tok, s + i)[0][:, 0].argmax(-1)
+            snaps.append(launch_counts())
+        t1.record()
+        t1.synchronize()
+        ms = t0.elapsed_time(t1) / GEN
+        per_step = [{k: c[k] - p.get(k, 0) for k in c} for p, c in zip([{}] + snaps, snaps)]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prof = _profile_step(lambda _: decode(server.params, cache, tok, s + GEN - 1), None)
+        if kv_quant:
+            # a planted fault the logits gate must catch: every position's
+            # codes read with the previous position's scales
+            rolled = {**cache, **{k: torch.roll(cache[k], 1, dims=2)
+                                  for k in ("k_scale", "v_scale")}}
+            planted = decode(server.params, rolled, tok0, s)[0][:, 0].float()
+            del rolled
+        name = "decode_32k " + ("int8" if kv_quant else "bf16")
+        emit(cell={"cell": name, "arch": ARCH,
+                   "kv_cache": "int8 codes, bf16 scales" if kv_quant else "bf16",
+                   "batch": b, "global_batch": DECODE_32K.global_batch, "prompt_len": s,
+                   "cache_positions": max_len, "gen": GEN,
+                   "decode_positions": [s, s + GEN - 1], "fill_group": 1,
+                   "fill_seconds": fill_s, "cache_gib": cache_gib,
+                   "decode_ms_per_token": ms, "decode_tokens_per_s": b * 1e3 / ms,
+                   "peak_gib": peak, "launches_per_decode_step": per_step[0],
+                   "profiled_step": prof, "busy_share": 1.0 - prof["idle_share"],
+                   "cut": None, "card": state["card"]})
+        state[name] = {"ms": ms, "peak_gib": peak, "busy_share": 1.0 - prof["idle_share"],
+                       "launches": snaps[-1]}
+        assert all(c == want for c in per_step), f"{name}: launches {per_step}, expected {want}"
+        del cache, prefill, decode
+        torch.cuda.empty_cache()
+    rel, planted_rel = (((x - first[False]).norm() / first[False].norm()).item()
+                        for x in (first[True], planted))
+    emit(int8_vs_bf16={"arch": ARCH, "rows": b, "position": s, "rel_l2": rel,
+                       "max_abs_err": _max_err(first[True], first[False]),
+                       "limit": INT8_VS_BF16_LIMIT,
+                       "planted_scales_one_position_off_rel_l2": planted_rel,
+                       "layer0_codes_rms_bias_ok": codes, "code_limits": INT8_CODE_LIMITS,
+                       "card": state["card"]})
+    del server, first, planted
+    torch.cuda.empty_cache()
+    assert rel <= INT8_VS_BF16_LIMIT < planted_rel, \
+        f"int8 vs bf16 cache: rel L2 {rel}, planted fault {planted_rel}"
+
+
+def phase_long_500k(state):
+    """long_500k at one card's share: recurrentgemma-2b whole, 1 x 524,288
+    (a global batch of 1) through ``serve.setup`` and ``serve.generate``
+    after a warm-up of the same prompt and one step; the hybrid's prefill
+    keeps its ring buffer of 2,048 slots (it wraps 256 times) and the
+    RG-LRU states; 16 decode steps from position 524,288. K1 8 per prefill
+    (windowed, all sm90), K3 18, K2 53 per step. Teacher forcing at the
+    hybrid's bf16 bound of 1e-1 (``phase_hybrid_teacher_forcing``)."""
+    import torch
+
+    from repro_torch.configs.base import LONG_500K
+
+    assert _cell_share(LONG_500K) == (1, L500K_S)
+    torch.cuda.empty_cache()
+    try:
+        _serve_cell(state, "long_500k", HYB_ARCH, LONG_500K, _hybrid_launches(), 1e-1)
+    finally:
+        state.get("long_500k", {}).pop("server", None)
+        torch.cuda.empty_cache()
+
+
+def phase_train_4k(state):
+    """train_4k at one card's share: qwen2.5-3b whole, 16 x 4096 (256 / 16)
+    on one fixed batch, gradients accumulated over ``pick_microbatch``'s
+    slices (computed here for one data replica, {"data": 16, "model": 1}:
+    8 slices of 2 rows), T4K_STEPS steps through ``launch/train.py
+    --microbatch`` with ``--dp-sync gspmd`` (launches per step 8x a step of
+    2 rows; one more step profiled), then with ``--dp-sync themis`` from the
+    same seed and batch, held to the GSPMD run at ``phase_themis_train``'s
+    limits."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import ParallelConfig, get_arch
+    from repro_torch.configs.base import TRAIN_4K
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.launch.dryrun import pick_microbatch
+    from repro_torch.models import build_model
+
+    torch.cuda.empty_cache()
+    b, s = _cell_share(TRAIN_4K)
+    cfg = get_arch(TRAIN_ARCH)
+    axes = {"data": CELL_REPLICAS, "model": 1}
+    mb = pick_microbatch(cfg, TRAIN_4K, axes, ParallelConfig(data=CELL_REPLICAS))
+    carry = cfg.num_layers * b * s * cfg.d_model * 2
+    emit(train_4k_microbatch={"arch": TRAIN_ARCH, "mesh": axes, "batch": b, "seq": s,
+                              "carry_bytes": carry, "target_bytes": 2 * 2**30,
+                              "microbatch": mb, "rows_per_slice": b // mb})
+    assert (b, s, b // mb) == (T4K_B, T4K_S, T4K_ATTN[0])
+    want = {k: v * mb for k, v in _train_launches(QWEN["layers"]).items()}
+    extra = ("--microbatch", str(mb))
+    _run_training(state, "train_4k", TRAIN_ARCH, b, s, want, steps=T4K_STEPS, extra=extra)
+    runs, final = {}, {}
+    res = state["trainer"]
+    runs["gspmd"] = {k: res[k] for k in ("losses", "gnorms", "lrs", "step_ms")}
+    final["gspmd"] = [p.detach().cpu() for p in _leaves(res["params"])]
+    # one more GSPMD step profiled from the raw CUDA events (the profiler's
+    # Python event tree of a step of 8 slices takes long to build)
+    prof = _profile_step(lambda b: res["step_fn"](res["params"], res["opt"], b), res["batch"])
+    emit(profile_train={"arch": TRAIN_ARCH, "cell": "train_4k", **prof, "card": state["card"]})
+    del res, state["trainer"]
+    torch.cuda.empty_cache()
+    snaps = []
+    reset_launch_counts()
+    res = train.main(_train_argv("--steps", str(T4K_STEPS), "--dp-sync", "themis", *extra,
+                                 batch=b, seq=s),
+                     on_step=lambda step, m: snaps.append(launch_counts()))
+    runs["themis"] = {k: res[k] for k in ("losses", "gnorms", "lrs", "step_ms")}
+    themis_peak = res["peak_mem_bytes"] / 2**30
+    final["themis"] = [p.detach().cpu() for p in _leaves(res["params"])]
+    del res
+    torch.cuda.empty_cache()
+    per_step = [{k: c[k] - p.get(k, 0) for k in c} for p, c in zip([{}] + snaps, snaps)]
+    gap = _themis_gap(runs, final, build_model(cfg))
+    del final
+    run = state["train_4k"]
+    themis_ms = statistics.median(runs["themis"]["step_ms"][1:])
+    emit(cell={"cell": "train_4k", "arch": TRAIN_ARCH, "layers": cfg.num_layers, "batch": b,
+               "global_batch": TRAIN_4K.global_batch, "seq": s, "microbatch": mb,
+               "steps": T4K_STEPS,
+               "gspmd": {"step_ms_median_2_on": run["step_ms"],
+                         "tokens_per_s": b * s * 1e3 / run["step_ms"],
+                         "model_flops_6nd_share": run["model_flops_share"],
+                         "floor_share": run["floor_ms"] / run["step_ms"],
+                         "peak_gib": run["peak_mem_gib"],
+                         "launches_per_step": run["per_step"][0],
+                         "busy_share_profiled_step": 1.0 - prof["idle_share"],
+                         "losses": runs["gspmd"]["losses"]},
+               "themis": {"step_ms_median_2_on": themis_ms,
+                          "tokens_per_s": b * s * 1e3 / themis_ms, "peak_gib": themis_peak,
+                          "launches_per_step": per_step[0],
+                          "losses": runs["themis"]["losses"], **gap},
+               "cut": None, "card": state["card"]})
+    state["train_4k"].update(themis_step_ms=themis_ms, themis_peak_gib=themis_peak,
+                             busy_share=1.0 - prof["idle_share"], microbatch=mb)
+    assert all(c == want for c in per_step), f"themis launches {per_step}, expected {want}"
+    _themis_gate(gap)
+
+
 # -- phase 6 ---------------------------------------------------------------------
 def _n_sets(set_bytes):
     """Input sets to cycle so that together they hold twice the L2."""
     return max(4, math.ceil(2 * L2_BYTES / set_bytes))
 
 
-def _time_ms(fn, inputs, iters, *, queued=True):
+def _time_ms(fn, inputs, iters, *, queued=True, warmup=3):
     """Mean ms per call over ``iters`` calls cycling through ``inputs`` (at
     least ``_n_sets`` of them, twice the L2 in all, so each call reads its
-    inputs cold; the warm-up uses the last sets, the timed calls start at
-    the first).
+    inputs cold; the ``warmup`` calls use the last sets, the timed calls
+    start at the first).
 
     ``queued``: a sleep kernel holds the card while the host enqueues every
     call, so the events time the card alone; without it they also count the
     gaps where the card waits for the host to launch the next call."""
     import torch
 
-    for i in range(1, 4):
+    for i in range(1, warmup + 1):
         fn(*inputs[-i])
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2703,7 +3274,13 @@ PATH_NAME = {ARCH: ARCH, HYB_ARCH: HYB_ARCH, "train": f"train {TRAIN_ARCH}",
              "vlm_train": f"train {VLM} ({VLM_TRAIN_LAYERS} of 48 layers, 256 patches)",
              "qwen3moe_train": f"train {QWEN3MOE} ({QWEN3MOE_TRAIN_LAYERS} of 94 layers, "
                                "bf16 params)",
-             "xlstm_train": f"train {XLSTM}"}
+             "xlstm_train": f"train {XLSTM}",
+             "prefill_32k": f"{ARCH} prefill_32k ({P32K_B} x {P32K_S})",
+             "decode_32k": f"{ARCH} decode_32k ({D32K_B} rows, bf16 cache of "
+                           f"{P32K_S + CELL_GEN} positions)",
+             "long_500k": f"{HYB_ARCH} long_500k (1 x {L500K_S})",
+             "train_4k": f"train {TRAIN_ARCH} train_4k ({T4K_B} x {T4K_S}, "
+                         "8 microbatches)"}
 ERR_SUFFIX = {ARCH: "", HYB_ARCH: "_hybrid", "train": "_train",
               "hybrid_train": "_hybrid_train", DENSE14B: "_qwen14b",
               GRANITE: "_granite", MOE16B: "_moe16b", QWEN3MOE: "_qwen3moe",
@@ -2713,14 +3290,21 @@ ERR_SUFFIX = {ARCH: "", HYB_ARCH: "_hybrid", "train": "_train",
 
 
 def _time_flash(state, gen, path, b, s, h, kvh, d, t, window, iters, causal=True,
-                launches=None, err_key=None):
+                launches=None, err_key=None, plain_rows=0, no_library=None):
     """K1's row at q (b,s,h,d), k/v (b,t,kvh,d), bf16, ``causal`` (SDPA then
     runs with ``is_causal`` alike), ``window``: the sm90 kernel that the
     serving path runs, and beside it the earlier SIMT kernel at the same
     shape (``previous_ms``, launched directly through its route; not on
     the main path). ``launches``: the path's launches at this shape, where
     the path runs K1 at more than one (else all of the path's); ``err_key``:
-    the check's key in ``state["serving_err"]`` (else the path's)."""
+    the check's key in ``state["serving_err"]`` (else the path's).
+
+    At the shape cells' lengths, whose whole score matrix does not fit the
+    card: ``plain_rows`` > 0 times the plain version's arithmetic over
+    blocks of that many query rows and the keys each sees
+    (``_attention_rows``), one call, and leaves out the SIMT kernel;
+    ``no_library``, the reason SDPA cannot run the shape, leaves out
+    ``library_ms``."""
     import torch
     import torch.nn.functional as F
 
@@ -2739,28 +3323,38 @@ def _time_flash(state, gen, path, b, s, h, kvh, d, t, window, iters, causal=True
 
     ms = _time_ms(kern, sets, iters)
     host_ms = _time_ms(kern, sets, iters, queued=False)
-    previous_ms = _time_ms(simt, sets, max(5, iters // 4))
+    previous_ms = None if plain_rows else _time_ms(simt, sets, max(5, iters // 4))
     ms_again = _time_ms(kern, sets, iters)
-    plain_ms = _time_ms(lambda q, k, v: fa.flash_attention_plain(
-        q, k, v, causal=causal, window=window), sets, 5)
-    # SDPA with the KV heads expanded; is_causal has no window, so a window
-    # takes an explicit boolean mask (True = attend)
-    qpos = torch.arange(s, device="cuda")[:, None]
-    kpos = torch.arange(t, device="cuda")[None, :]
-    mask = (qpos >= kpos) & (kpos > qpos - window) if window else None
-    lib_sets = [(q.transpose(1, 2).contiguous(),
-                 k.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous(),
-                 v.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous())
-                for q, k, v in sets]
+    if plain_rows:
+        def plain(q, k, v):
+            for r in range(0, s, plain_rows):
+                _attention_rows(q, k, v, r, min(r + plain_rows, s), window)
 
-    def lib(q, k, v):
-        if mask is None:
-            return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        plain_ms = _time_ms(plain, sets, 1, warmup=1)
+    else:
+        plain_ms = _time_ms(lambda q, k, v: fa.flash_attention_plain(
+            q, k, v, causal=causal, window=window), sets, 5)
+    lib_ms = lib_err = None
+    if no_library is None:
+        # SDPA with the KV heads expanded; is_causal has no window, so a
+        # window takes an explicit boolean mask (True = attend)
+        qpos = torch.arange(s, device="cuda")[:, None]
+        kpos = torch.arange(t, device="cuda")[None, :]
+        mask = (qpos >= kpos) & (kpos > qpos - window) if window else None
+        lib_sets = [(q.transpose(1, 2).contiguous(),
+                     k.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous(),
+                     v.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous())
+                    for q, k, v in sets]
 
-    lib_ms = _time_ms(lib, lib_sets, iters)
-    lib_err = _max_err(lib(*lib_sets[0]).transpose(1, 2), kern(*sets[0])[0])
-    prev_err = _max_err(simt(*sets[0])[0], kern(*sets[0])[0])
+        def lib(q, k, v):
+            if mask is None:
+                return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+        lib_ms = _time_ms(lib, lib_sets, iters)
+        lib_err = _max_err(lib(*lib_sets[0]).transpose(1, 2), kern(*sets[0])[0])
+        del lib_sets
+    prev_err = None if plain_rows else _max_err(simt(*sets[0])[0], kern(*sets[0])[0])
     w = window or t
     # unmasked (q, k) pairs
     pairs = sum(min(i + 1, t, w) for i in range(s)) if causal else s * t
@@ -2781,13 +3375,17 @@ def _time_flash(state, gen, path, b, s, h, kvh, d, t, window, iters, causal=True
             "previous_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "previous_max_abs_diff": prev_err,
             "tflops": ops / (ms * 1e-3) / 1e12,
-            "previous_tflops": ops / (previous_ms * 1e-3) / 1e12,
+            "previous_tflops": previous_ms and ops / (previous_ms * 1e-3) / 1e12,
             "bound_fraction": bound_ms / ms,
             "shape": {"q": [b, s, h, d], "kv": [b, t, kvh, d],
                       "dtype": "bfloat16", "causal": causal, "window": window},
-            "library": "F.scaled_dot_product_attention, KV heads expanded"
-                       + (", windowed causal boolean mask" if window else "")
-                       + ("" if causal else ", is_causal=False"),
+            "plain": (f"flash_attention_plain's arithmetic over blocks of {plain_rows} "
+                      "query rows and the keys each sees (_attention_rows), one call"
+                      if plain_rows else "flash_attention_plain"),
+            "library": no_library or (
+                "F.scaled_dot_product_attention, KV heads expanded"
+                + (", windowed causal boolean mask" if window else "")
+                + ("" if causal else ", is_causal=False")),
             "library_max_abs_err": lib_err}
 
 
@@ -2829,16 +3427,21 @@ _NO_SCAN_LIBRARY = ("none: no single PyTorch call computes this recurrence "
                     "that underflows)")
 
 
-def _time_rglru(state, gen, path, b, s, c, with_h0):
+def _time_rglru(state, gen, path, b, s, c, with_h0, err_key=None, blocked_plain=False):
     """K3's row at a, b (b,s,c) fp32, with h0 (b,c) as prefill calls it or
-    without, as training does."""
+    without, as training does. ``blocked_plain``: the plain version timed
+    is the blocked mirror, one call (the sequential loop takes 2 launches a
+    step: over a million at long_500k's length)."""
     from repro_torch.kernels import rglru as rg
 
     sets = [_scan_inputs(gen, b, s, c)[:3 if with_h0 else 2]
             for _ in range(_n_sets(4 * (2 * b * s * c + b * c)))]
     ms = _time_ms(rg.rglru_scan, sets, 20)
     host_ms = _time_ms(rg.rglru_scan, sets, 20, queued=False)
-    plain_ms = _time_ms(rg.rglru_scan_plain, sets, 2)
+    if blocked_plain:
+        plain_ms = _time_ms(rg.rglru_scan_blocked_plain, sets, 1, warmup=1)
+    else:
+        plain_ms = _time_ms(rg.rglru_scan_plain, sets, 2)
     # a and b read once, h0 read once, h written once; a multiply and an add
     # per element
     nbytes = 4 * (3 * b * s * c + (b * c if with_h0 else 0))
@@ -2847,10 +3450,13 @@ def _time_rglru(state, gen, path, b, s, c, with_h0):
             "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
             "replaces": "src/repro/kernels/rglru.py:50",
             "launches": state[path]["launches"]["rglru_scan"],
-            "max_abs_err": state["serving_err"][{HYB_ARCH: "rglru_scan",
-                                                 "hybrid_train": "rglru_scan_hybrid_train"}[path]],
+            "max_abs_err": state["serving_err"][err_key or {
+                HYB_ARCH: "rglru_scan", "hybrid_train": "rglru_scan_hybrid_train"}[path]],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "host_ms": host_ms,
+            "bound_fraction": bound_ms / ms,
+            "plain": ("rglru_scan_blocked_plain, one call" if blocked_plain
+                      else "rglru_scan_plain"),
             "shape": {"a": [b, s, c], "h0": [b, c] if with_h0 else None,
                       "dtype": "float32"},
             "library": _NO_SCAN_LIBRARY}
@@ -4356,6 +4962,7 @@ def phase_times(state):
                                2 * MOE_TRAIN["layers"] + 1),
     ]
     kernels += _family_train_rows(state)
+    kernels += _cell_rows(state)
     emit(rmsnorm_decode_shape=_time_rmsnorm(state, gen, ARCH, (BATCH, 1, 4096)))
     emit(times={"card": state["card"], "peak_bytes_per_s": PEAK_BYTES_PER_S,
                 "peak_ops_per_s": PEAK_OPS_PER_S,
@@ -4372,6 +4979,54 @@ def phase_times(state):
                                         "busy_share_of_median_step", "peak_mem_gib")}
            for k in ("whisper_train", "vlm_train", "qwen3moe_train", "xlstm_train")}})
     state["kernels"] = kernels + [state["wave_kernel"]]
+
+
+def _cell_rows(state):
+    """K1, K2, K3 and the backwards at the shape cells' shapes, from a
+    generator of their own; each row's launches are its shape's in the
+    cell's counted run (serving: a prefill and 16 decode steps; decode_32k:
+    the bf16 cache's 16 timed steps; train_4k: the GSPMD run's steps)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    p32k = state["prefill_32k"]["per_step"][0][1]       # the prefill's launches
+    l500k = state["long_500k"]["per_step"][0][1]
+    mb = state["train_4k"]["microbatch"]
+    b, s, h, kv, d, _, _ = P32K_ATTN
+    # over 32,768 keys: SDPA's is_causal aligns its mask top-left only where
+    # q and k are equally long; the path's 16 more cache positions lie past
+    # every query's mask, and the kernel check covers them (T = 32,784)
+    k1_32k = _time_flash(state, gen, "prefill_32k", b, s, h, kv, d, s, 0, iters=10,
+                         launches=p32k["flash_attention_sm90"],
+                         err_key="flash_attention_prefill_32k", plain_rows=512)
+    k1_32k["note"] = (f"the path's k/v hold {P32K_S + CELL_GEN} positions; timed at "
+                      f"{P32K_S}, where SDPA's causal mask is the same")
+    return [
+        k1_32k,
+        _time_rmsnorm(state, gen, "prefill_32k", P32K_X, launches=p32k["rmsnorm"],
+                      err_key="rmsnorm_prefill_32k"),
+        _time_rmsnorm(state, gen, "decode_32k", (D32K_B, 1, 4096),
+                      launches=state["decode_32k bf16"]["launches"]["rmsnorm"],
+                      err_key="rmsnorm_decode_32k"),
+        _time_flash(state, gen, "long_500k", *L500K_ATTN, iters=10,
+                    launches=l500k["flash_attention_sm90"],
+                    err_key="flash_attention_long_500k", plain_rows=2048,
+                    no_library="none: SDPA takes a window only as a dense boolean "
+                               f"mask of {L500K_S} x {L500K_S} (275 GB); is_causal "
+                               "has no window"),
+        _time_rmsnorm(state, gen, "long_500k", L500K_X, launches=l500k["rmsnorm"],
+                      err_key="rmsnorm_long_500k"),
+        _time_rglru(state, gen, "long_500k", *L500K_X, True,
+                    err_key="rglru_scan_long_500k", blocked_plain=True),
+        _time_flash(state, gen, "train_4k", *T4K_ATTN, iters=20,
+                    err_key="flash_attention_train_4k"),
+        _time_attention_backward(state, gen, "train_4k", *T4K_ATTN[:5], 0, 20,
+                                 err_key="flash_attention_backward_train_4k",
+                                 calls_per_step=QWEN["layers"] * mb),
+        _time_rmsnorm(state, gen, "train_4k", T4K_X, err_key="rmsnorm_train_4k"),
+        _time_rmsnorm_backward(state, gen, "train_4k", T4K_X, (2 * QWEN["layers"] + 1) * mb,
+                               err_key="rmsnorm_backward_train_4k"),
+    ]
 
 
 def _family_train_rows(state):
