@@ -14,8 +14,8 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
 2. build the kernels from the checkout (K1 flash attention's four sources:
    the forward's sm90 kernel for bf16 at head dim 64-256 and SIMT kernel for
    the rest, the backward's sm90 kernel for bf16 at head dim 64, 128 and 256
-   and SIMT kernel for the rest; and K3 the RG-LRU scan, forward and
-   backward; with ``nvcc`` for
+   and SIMT kernel for the rest; K3 the RG-LRU scan, forward and
+   backward; and the sLSTM recurrence; with ``nvcc`` for
    sm_90a, one process each, started together; K2 RMSNorm's forward and
    backward with Triton), report each library's ptxas lines and its HGMMA /
    UTMALDG / SYNCS instruction counts from ``cuobjdump -sass``, and hold
@@ -51,7 +51,14 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    (1,257,3,3,128,129)), and
    on views of a packed projection with a strided cotangent, each check
    naming its backward route; K2's backward also at the families' training
-   widths (4,1500,1024), (4,448,1024), (4,1024,6144) and (4,1024,4096); the sm90 d-256 backward twice on the same
+   widths (4,1500,1024), (4,448,1024), (4,1024,6144) and (4,1024,4096); the
+   sLSTM kernel against ``slstm_scan_plain`` (``_slstm_checks``: fp32 max abs
+   within 1e-5, bf16 relative L2 of h and of the last c within 2e-2) at
+   xlstm-1.3b's gx (4, 2048, 8192) and the decode step's S = 1, in bf16 and
+   fp32, from zeros and from a state, equal to a second call to the bit,
+   and at long_500k's (1, 524288, 8192) on its first and last 4,096 steps,
+   the last from the kernel's own state at step 520,192, with the kernel
+   run in those two pieces equal to one run to the bit; the sm90 d-256 backward twice on the same
    inputs, equal to the bit (K2's fp32 gradients also against autograd through
    ``rmsnorm_plain`` and against ``rmsnorm_backward`` on fp64 copies of the
    inputs, since the kernel sums dw in fp64; the fp32 versions' distances
@@ -113,7 +120,10 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    non-causal encoder, 24 non-causal cross-attention with S 432 and T
    1500, 24 causal self-attention; all sm90, tallied by shape), K2 122 per
    prefill and 73 per decode step; xlstm-1.3b whole (48 blocks, 4 x 2048
-   tokens: 8 mLSTM chunks and 12,288 sLSTM steps), no K1, K2 97 per step,
+   tokens: 8 mLSTM chunks, each sLSTM block's 2,048 steps one kernel
+   launch), no K1, K2 97 and the sLSTM kernel 6 per prefill and per decode
+   step, its prefill ms printed beside the 4,616 ms the sLSTM's Python loop
+   took (``XLSTM_LOOP_PREFILL_MS``),
    checked against teacher forcing in bf16 (1e-1) and fp32 (3e-2); each of
    these five also served on the one-rank NCCL mesh right after its
    single-device run, on the same weights with no copy
@@ -129,7 +139,8 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    memory of both; then four more families train through
    ``launch/train.py --dp-sync gspmd --fixed-batch`` for 4 steps at batch
    4 (``phase_whisper_train``, ``phase_vlm_train``,
-   ``phase_qwen3moe_train``, ``phase_xlstm_train``): whisper-medium whole
+   ``phase_qwen3moe_train``, ``phase_xlstm_train``; the sLSTM kernel has no
+   backward yet, so training runs its plain loop): whisper-medium whole
    over 1500 stub frames and 448 tokens (per step K1 144: 48 non-causal
    encoder, 48 non-causal cross-attention, 48 causal self-attention; K1's
    backward 72, the non-causal ones the first on the card; K2 242, K2's
@@ -138,8 +149,10 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    ``step_fn`` the driver returns (the driver, like the reference's, draws
    no patches; K1 8, K1's backward 4, K2 17, K2's backward 9),
    qwen3-moe-235b-a22b at 1 of 94 layers in its bf16 params (3.73 B; K1 2,
-   K1's backward 1, K2 5, K2's backward 3) and xlstm-1.3b whole at 4 x 1024
-   (no K1; K2 193 and its backward 97, tallied by width): finite losses,
+   K1's backward 1, K2 5, K2's backward 3) and xlstm-1.3b at full width cut
+   to 8 of its 48 blocks, one period, at 4 x 1024 (no K1, no sLSTM kernel;
+   K2 33 and its backward 17, tallied by width; the cut keeps the script
+   within its time beside the long_500k_xlstm cell): finite losses,
    the last below the first, the launches per step held to those counts,
    every K1 and K1-backward launch on the sm90 route, step ms (median of
    steps 2-4), tokens/s, peak GiB, the parameter count, and one more step
@@ -236,7 +249,14 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    them; ``phase_long_500k``:
    recurrentgemma-2b, 1 x 524,288 (the ring buffer of 2,048 slots wraps
    256 times), 16 decode steps from position 524,288 (K1 8, K3 18 per
-   prefill), teacher forcing at 1e-1; ``phase_train_4k``: qwen2.5-3b, 16 x
+   prefill), teacher forcing at 1e-1; ``phase_long_500k_xlstm``: xlstm-1.3b
+   whole, 1 x 524,288 after a short warm-up (each mLSTM block runs 2,048
+   chunks, 32 at a time; the sLSTM kernel 6 and K2 97 per prefill and per
+   decode step), 16 decode steps, teacher forcing at 1e-1 as a decode of
+   the prompt's last token from a prefill of the rest against the counted
+   prefill's logits, the counted prefill split by CUDA events into the
+   mLSTM chunk loops and the sLSTM kernel calls, and the card's busy share
+   from a profiled prefill of 32,768 tokens; ``phase_train_4k``: qwen2.5-3b, 16 x
    4096 on one fixed batch, ``--microbatch`` from
    ``launch/dryrun.py::pick_microbatch`` for one data replica (8 slices of
    2 rows), 3 steps through ``launch/train.py`` with ``--dp-sync gspmd``
@@ -307,7 +327,11 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    norm widths; internvl2-26b's q (4,1024,48,128) on 8 kv heads and x
    (4,1024,6144); qwen3-moe's q (4,1024,64,128) on 4 and x (4,1024,4096);
    xlstm-1.3b's x (4,1024,2048) and (4,1024,4096)), each row's launches its
-   shape's in that run; the kernels at the shape cells' shapes (phase 7;
+   shape's in that run; the sLSTM kernel at xlstm-1.3b's gx (4, 2048, 8192)
+   and long_500k's (1, 524288, 8192) in bf16, beside the plain loop over
+   its first 2,048 steps, its bound with µs per step, and cuDNN's LSTM
+   through ``torch.nn.LSTM(bias=False)`` (W_ih the identity, W_hh the dense
+   expansion of r_gates; its c in bf16; cuDNN refuses the long shape); the kernels at the shape cells' shapes (phase 7;
    there the plain K1 runs by blocks of query rows and the plain K3 is its
    blocked mirror, one call each, and SDPA cannot take long_500k's
    window); and each training step's floor
@@ -385,6 +409,16 @@ QWEN3MOE_D = dict(h=64, kv=4, d=128, d_model=4096)
 VLM_D = dict(h=48, kv=8, d=128, d_model=6144, patches=256)
 WHISPER_D = dict(h=16, kv=16, d=64, d_model=1024, frames=1500, prompt=432, layers=24)
 XLSTM_D = dict(d_model=2048, inner=4096, prompt=2048, blocks=48)
+# xlstm-1.3b's 4 x 2048 prefill with the sLSTM as a Python loop over time
+# (this script on an H100 80GB HBM3 at 700 W, before the sLSTM kernel),
+# printed beside the kernel's
+XLSTM_LOOP_PREFILL_MS = 4616
+# the sLSTM kernel on xlstm-1.3b's paths: gx (B, S, 4 x d_model), r_gates (4
+# heads, 512, 2048); its gates against slstm_scan_plain: fp32 max abs, bf16
+# relative L2 of h and of the last c
+SLSTM_HEADS = 4
+XLSTM_GX = (BATCH, XLSTM_D["prompt"], 4 * XLSTM_D["d_model"])
+SLSTM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # deepseek-moe-16b's training step: full width cut to 4 of its 28 layers
 # (2.77 B params: fp32 params, grads, m and v 44 GB), 4 x 1024, 3 steps;
 # K1 at q, k/v (4, 1024, 16, 128) (a GQA group of 1), K2 at (4, 1024, 2048)
@@ -416,7 +450,7 @@ XLSTM_X = (BATCH, XLSTM_D["prompt"], XLSTM_D["inner"])
 # its 94 layers (bf16 params); xlstm-1.3b whole at 1024 tokens
 FAM_TRAIN_BATCH, FAM_TRAIN_STEPS = 4, 4
 WH_TRAIN_SEQ, VLM_TRAIN_LAYERS, VLM_TRAIN_TEXT = 448, 4, 768
-QWEN3MOE_TRAIN_LAYERS, XLSTM_TRAIN_SEQ = 1, 1024
+QWEN3MOE_TRAIN_LAYERS, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_BLOCKS = 1, 1024, 8
 VLM_TRAIN_POS = VLM_D["patches"] + VLM_TRAIN_TEXT
 # K1's (b, s, h, kv, d, t, window) in those steps (window None: non-causal);
 # the encoder's is WHISPER_ENC_ATTN
@@ -480,6 +514,13 @@ P32K_ATTN = (P32K_B, P32K_S, 32, 8, 128, P32K_S + CELL_GEN, 0)
 L500K_ATTN = (1, L500K_S, HYB["h"], HYB["kv"], HYB["d"], L500K_S, HYB["window"])
 T4K_ATTN = (2, T4K_S, QWEN["h"], QWEN["kv"], QWEN["d"], T4K_S, 0)
 P32K_X, L500K_X, T4K_X = (P32K_B, P32K_S, 4096), (1, L500K_S, HYB["d_model"]), (2, T4K_S, 2048)
+# xlstm-1.3b's long_500k: the sLSTM kernel's gx, checked against the plain
+# loop on the first and the last SLSTM_WINDOW steps (the loop over all
+# 524,288 steps would take some 6 M launches)
+L500K_GX, SLSTM_WINDOW = (1, L500K_S, 4 * XLSTM_D["d_model"]), 4096
+# the prompt of the profiled xlstm-1.3b prefill (1/16 of long_500k's, the
+# same blocks and chunk loop)
+XLSTM_PROFILE_S = L500K_S // 16
 # the int8 KV cache's first decode logits against the bf16 cache's on the
 # same rows and tokens (relative L2): about 3x the card's sound reading of
 # 0.0276, below the reading with every position's codes read with the
@@ -618,7 +659,8 @@ def main() -> int:
               phase_train_card_vs_cpu, phase_ckpt_resume, phase_hybrid_train,
               phase_hybrid_train_profile, phase_hybrid_train_dots,
               phase_hybrid_train_dots_profile, phase_hybrid_train_card_vs_cpu,
-              phase_prefill_32k, phase_decode_32k, phase_long_500k, phase_train_4k,
+              phase_prefill_32k, phase_decode_32k, phase_long_500k,
+              phase_long_500k_xlstm, phase_train_4k,
               phase_simulator, phase_faults, phase_tenancy, phase_traffic,
               phase_fleet, phase_verify, phase_wave, phase_dryrun, phase_times)
     for phase in phases:
@@ -686,7 +728,7 @@ def phase_kernels(state):
     from repro_torch.kernels import rmsnorm as rn
 
     sources = ["flash_attention_sm90", "flash_attention", "flash_attention_bwd_sm90",
-               "flash_attention_bwd", "rglru_scan"]
+               "flash_attention_bwd", "rglru_scan", "slstm_scan"]
     t0 = time.perf_counter()
     libs = _build.build(sources)
     build_s = time.perf_counter() - t0
@@ -861,6 +903,8 @@ def phase_kernels(state):
     torch.cuda.empty_cache()
     _cell_checks(state)
     torch.cuda.empty_cache()
+    _slstm_checks(state)
+    torch.cuda.empty_cache()
 
 
 def _attention_rows(q, k, v, r0, r1, window):
@@ -969,6 +1013,107 @@ def _cell_checks(state):
                 "flash_attention_train_4k", "rglru_scan_long_500k", "rmsnorm_prefill_32k",
                 "rmsnorm_decode_32k", "rmsnorm_long_500k", "rmsnorm_train_4k"):
         errs[key] = max(errs[key])
+
+
+def _slstm_inputs(gen, b, s, dt, with_state):
+    """xlstm-1.3b's sLSTM inputs: gx (b, s, 8192) normal in ``dt``, r_gates
+    (4, 512, 2048) at the init's scale (fan-in 512) in ``dt``, and h0 (b, 2048)
+    in (-1, 1) in ``dt`` and c0 (b, 2048) normal in fp32, or None."""
+    import torch
+
+    d, nh = XLSTM_D["d_model"], SLSTM_HEADS
+    dh = d // nh
+    gx = _randn(gen, (b, s, 4 * d), dt)
+    r = (torch.randn((nh, dh, 4 * dh), generator=gen, device="cuda") / math.sqrt(dh)).to(dt)
+    if not with_state:
+        return gx, r, None, None
+    h0 = torch.tanh(torch.randn((b, d), generator=gen, device="cuda")).to(dt)
+    return gx, r, h0, torch.randn((b, d), generator=gen, device="cuda")
+
+
+def _rel_l2(got, want):
+    return ((got.double() - want.double()).norm() / want.double().norm()).item()
+
+
+def _slstm_gate(name, got, want, dn):
+    """The kernel's (h, last h, last c) against the plain loop's: fp32 max
+    abs within 1e-5; bf16 relative L2 of h and of the last c within 2e-2.
+    Returns the readings; raises beyond the gate."""
+    tol = SLSTM_TOL[dn]
+    r = {"h_max_abs_err": _max_err(got[0], want[0]),
+         "h_last_max_abs_err": _max_err(got[1], want[1]),
+         "c_last_max_abs_err": _max_err(got[2], want[2]),
+         "h_rel_l2": _rel_l2(got[0], want[0]), "c_last_rel_l2": _rel_l2(got[2], want[2])}
+    keys = (("h_max_abs_err", "h_last_max_abs_err", "c_last_max_abs_err")
+            if dn == "float32" else ("h_rel_l2", "c_last_rel_l2"))
+    if max(r[k] for k in keys) > tol:
+        raise AssertionError(f"{name}: {r} beyond {tol} on {keys}")
+    return r
+
+
+def _slstm_checks(state):
+    """The sLSTM kernel against ``slstm_scan_plain`` at xlstm-1.3b's shapes,
+    from a generator of its own (every earlier check keeps its inputs):
+    serving's gx (4, 2048, 8192) and the decode step's S = 1, in bf16 and
+    fp32, from zeros and from a state, each also equal to a second call to
+    the bit; long_500k's (1, 524288, 8192) in both dtypes on windows (the
+    first SLSTM_WINDOW steps from zeros; the last from the kernel's own state
+    at step 524,288 - SLSTM_WINDOW, which a run of the kernel over the steps
+    before gives), and the kernel over all steps equal to the bit to the
+    same two pieces run one after the other."""
+    import torch
+
+    from repro_torch.kernels import slstm as sl
+
+    gen = torch.Generator(device="cuda").manual_seed(59)
+    checks, errs = [], state["serving_err"]
+    for dn in ("bfloat16", "float32"):
+        for with_state in (False, True):
+            for s in (XLSTM_GX[1], 1):
+                inputs = _slstm_inputs(gen, BATCH, s, _dtype(dn), with_state)
+                got = sl.slstm_scan(*inputs)
+                torch.cuda.synchronize()
+                name = f"slstm_scan{(BATCH, s, XLSTM_GX[2])} {dn} state={with_state}"
+                r = _slstm_gate(name, got, sl.slstm_scan_plain(*inputs), dn)
+                again = all(torch.equal(a, b) for a, b in zip(got, sl.slstm_scan(*inputs)))
+                checks.append({"kernel": "slstm_scan", "shape": [BATCH, s, XLSTM_GX[2]],
+                               "state": with_state, "dtype": dn, **r,
+                               "tol": SLSTM_TOL[dn], "equal_across_calls": again})
+                if dn == "bfloat16" and s > 1:
+                    errs.setdefault("slstm_scan_xlstm", []).append(r["h_max_abs_err"])
+                assert again, (name, "second call differs")
+                del inputs, got
+    cut = L500K_S - SLSTM_WINDOW
+    for dn in ("bfloat16", "float32"):
+        gx, r, _, _ = _slstm_inputs(gen, 1, L500K_S, _dtype(dn), False)
+        whole = sl.slstm_scan(gx, r)
+        head = sl.slstm_scan(gx[:, :SLSTM_WINDOW], r)
+        first = sl.slstm_scan(gx[:, :cut], r)
+        tail = sl.slstm_scan(gx[:, cut:], r, first[1], first[2])
+        torch.cuda.synchronize()
+        pieces = (torch.equal(whole[0][:, :cut], first[0])
+                  and torch.equal(whole[0][:, cut:], tail[0])
+                  and torch.equal(whole[1], tail[1]) and torch.equal(whole[2], tail[2])
+                  and torch.equal(head[0], whole[0][:, :SLSTM_WINDOW]))
+        h_cut, c_cut = first[1], first[2]
+        del first
+        name = f"slstm_scan{L500K_GX} {dn}"
+        first_w = _slstm_gate(name + " first window", head,
+                              sl.slstm_scan_plain(gx[:, :SLSTM_WINDOW], r), dn)
+        last_w = _slstm_gate(name + " last window", tail,
+                             sl.slstm_scan_plain(gx[:, cut:], r, h_cut, c_cut), dn)
+        checks.append({"kernel": "slstm_scan", "shape": list(L500K_GX), "dtype": dn,
+                       "h0": "zeros", "window": SLSTM_WINDOW, "first_window": first_w,
+                       "last_window": {"from_step": cut, **last_w},
+                       "tol": SLSTM_TOL[dn], "pieces_equal_to_whole": pieces})
+        if dn == "bfloat16":
+            errs["slstm_scan_long_500k"] = max(first_w["h_max_abs_err"],
+                                               last_w["h_max_abs_err"])
+        assert pieces, (name, "the kernel in two pieces differs from one run")
+        del gx, r, whole, head, tail, h_cut, c_cut
+        torch.cuda.empty_cache()
+    emit(slstm_checks=checks)
+    errs["slstm_scan_xlstm"] = max(errs["slstm_scan_xlstm"])
 
 
 def _flash_check(gen, shape, dn, errs):
@@ -1355,9 +1500,11 @@ def _dense_launches(n):
     on the sm90 kernel), none in a decode step; K2 twice per layer and once
     before the head in both."""
     return {"prefill": {"flash_attention": n, "flash_attention_sm90": n,
-                        "rmsnorm": 2 * n + 1, "rglru_scan": 0, **NO_BACKWARD},
+                        "rmsnorm": 2 * n + 1, "rglru_scan": 0, "slstm_scan": 0,
+                        **NO_BACKWARD},
             "decode": {"flash_attention": 0, "flash_attention_sm90": 0,
-                       "rmsnorm": 2 * n + 1, "rglru_scan": 0, **NO_BACKWARD}}
+                       "rmsnorm": 2 * n + 1, "rglru_scan": 0, "slstm_scan": 0,
+                       **NO_BACKWARD}}
 
 
 def phase_serve(state):
@@ -1370,9 +1517,11 @@ def _hybrid_launches():
     decode step; K2 twice per layer and once before the head in both."""
     n, attn, rec = 26, 8, 18
     return {"prefill": {"flash_attention": attn, "flash_attention_sm90": attn,
-                        "rmsnorm": 2 * n + 1, "rglru_scan": rec, **NO_BACKWARD},
+                        "rmsnorm": 2 * n + 1, "rglru_scan": rec, "slstm_scan": 0,
+                        **NO_BACKWARD},
             "decode": {"flash_attention": 0, "flash_attention_sm90": 0,
-                       "rmsnorm": 2 * n + 1, "rglru_scan": 0, **NO_BACKWARD}}
+                       "rmsnorm": 2 * n + 1, "rglru_scan": 0, "slstm_scan": 0,
+                       **NO_BACKWARD}}
 
 
 def phase_hybrid_serve(state):
@@ -1908,9 +2057,11 @@ def phase_whisper_serve(state):
     with _tally_by_shape() as tally:
         state[WHISPER] = _serve(state, WHISPER, WH_S, on_reset=tally.counts.clear, expect={
             "prefill": {"flash_attention": 3 * n, "flash_attention_sm90": 3 * n,
-                        "rmsnorm": 5 * n + 2, "rglru_scan": 0, **NO_BACKWARD},
+                        "rmsnorm": 5 * n + 2, "rglru_scan": 0, "slstm_scan": 0,
+                        **NO_BACKWARD},
             "decode": {"flash_attention": 0, "flash_attention_sm90": 0,
-                       "rmsnorm": 3 * n + 1, "rglru_scan": 0, **NO_BACKWARD}})
+                       "rmsnorm": 3 * n + 1, "rglru_scan": 0, "slstm_scan": 0,
+                       **NO_BACKWARD}})
     # the counted run's sm90 launches by (S, T, causal) (the tally was
     # cleared with the counts, after the warm-up)
     k1 = {shape: m for (kind, shape), m in tally.counts.items()
@@ -1936,18 +2087,30 @@ def phase_whisper_checks(state):
     _card_vs_cpu(WHISPER, 24)
 
 
+def _xlstm_launches():
+    """xlstm-1.3b's 48 blocks (6 periods of 7 mLSTM blocks and one sLSTM
+    block): no K1 (the family has no attention); K2 twice per block and once
+    before the head, and the sLSTM kernel once per sLSTM block, in the
+    prefill and in each decode step alike."""
+    n = XLSTM_D["blocks"]
+    step = {"flash_attention": 0, "flash_attention_sm90": 0, "rmsnorm": 2 * n + 1,
+            "rglru_scan": 0, "slstm_scan": n // 8, **NO_BACKWARD}
+    return {"prefill": step, "decode": step}
+
+
 def phase_xlstm_serve(state):
     """xlstm-1.3b at its published width and depth (48 blocks: 6 periods of
     7 mLSTM blocks and one sLSTM block; d_model 2048, 4 heads: mLSTM head
     dim 1024, sLSTM 512; vocab 50304; 1.94 B params, 7.8 GB in fp32): 4 x
-    2048 tokens (8 chunks of 256 in each mLSTM block, 12,288 sLSTM steps),
-    16 decode steps. No K1 (the family has no attention) and no kernel of
-    its own in the reference: K2 97 per prefill and per decode step."""
-    n = XLSTM_D["blocks"]
-    no_k1 = {"flash_attention": 0, "flash_attention_sm90": 0,
-             "rmsnorm": 2 * n + 1, "rglru_scan": 0, **NO_BACKWARD}
-    state[XLSTM] = _serve(state, XLSTM, XLSTM_D["prompt"],
-                          {"prefill": no_k1, "decode": no_k1})
+    2048 tokens (8 chunks of 256 in each mLSTM block, the sLSTM's 2,048 steps
+    in one kernel launch a block), 16 decode steps. No K1 and no Pallas
+    kernel of the reference: K2 97 and the sLSTM kernel 6 per prefill and
+    per decode step. Prints the prefill ms beside the sLSTM's Python
+    loop's (``XLSTM_LOOP_PREFILL_MS``)."""
+    state[XLSTM] = _serve(state, XLSTM, XLSTM_D["prompt"], _xlstm_launches())
+    emit(xlstm_prefill={"prefill_ms": state[XLSTM]["prefill_ms"],
+                        "loop_prefill_ms": XLSTM_LOOP_PREFILL_MS,
+                        "card": state["card"]})
 
 
 def phase_xlstm_sharded_serve(state):
@@ -2223,7 +2386,7 @@ def _whisper_train_launches(enc, dec):
             "flash_attention_sm90": 2 * (enc + 2 * dec),
             "flash_attention_bwd": enc + 2 * dec, "flash_attention_bwd_sm90": enc + 2 * dec,
             "rmsnorm": 2 * (2 * enc + 3 * dec) + 2, "rmsnorm_bwd": 2 * enc + 3 * dec + 2,
-            "rglru_scan": 0, "rglru_scan_bwd": 0}
+            "rglru_scan": 0, "rglru_scan_bwd": 0, "slstm_scan": 0}
 
 
 def _xlstm_train_launches(blocks):
@@ -2233,7 +2396,8 @@ def _xlstm_train_launches(blocks):
     once before the head."""
     return {"flash_attention": 0, "flash_attention_sm90": 0, "flash_attention_bwd": 0,
             "flash_attention_bwd_sm90": 0, "rmsnorm": 4 * blocks + 1,
-            "rmsnorm_bwd": 2 * blocks + 1, "rglru_scan": 0, "rglru_scan_bwd": 0}
+            "rmsnorm_bwd": 2 * blocks + 1, "rglru_scan": 0, "rglru_scan_bwd": 0,
+            "slstm_scan": 0}
 
 
 def phase_whisper_train(state):
@@ -2290,14 +2454,19 @@ def phase_qwen3moe_train(state):
 
 
 def phase_xlstm_train(state):
-    """xlstm-1.3b whole (48 blocks, 6 of them sLSTM; 1.94 B params), 4 x
-    1024: no K1; K2 193 and K2's backward 97 per step, at (4, 1024, 2048)
-    and at the group norm's (4, 1024, 4096). The sLSTM's loop over time
-    runs on the host in the forward, the recompute and the backward, so
-    its step ms and busy share are readings, not faults. Then the reduced
-    config card vs CPU."""
-    n = XLSTM_D["blocks"]
-    _family_train(state, "xlstm_train", XLSTM, XLSTM_TRAIN_SEQ, _xlstm_train_launches(n))
+    """xlstm-1.3b at full width cut to XLSTM_TRAIN_BLOCKS of its 48 blocks (one
+    period: 7 mLSTM blocks and one sLSTM block), 4 x 1024: no K1; K2 33 and
+    K2's backward 17 per step, at (4, 1024, 2048) and at the group norm's
+    (4, 1024, 4096); no sLSTM kernel (it has no backward yet: under
+    autograd the model runs the plain loop). That loop runs on the host in
+    the forward, the recompute and the backward, so its step ms and busy
+    share are readings, not faults; the depth is cut to keep the script
+    within its time with xlstm-1.3b's long_500k cell (the whole model took
+    94.7 s of a run of this script on an H100 80GB HBM3 at 700 W). Then the
+    reduced config card vs CPU."""
+    n = XLSTM_TRAIN_BLOCKS
+    _family_train(state, "xlstm_train", XLSTM, XLSTM_TRAIN_SEQ, _xlstm_train_launches(n),
+                  layers=n)
     by = state["xlstm_train"]["by_shape"]
     n_s = n // 8
     n_m = n - n_s
@@ -2426,7 +2595,7 @@ def _train_launches(n):
     return {"flash_attention": 2 * n, "flash_attention_sm90": 2 * n,
             "flash_attention_bwd": n, "flash_attention_bwd_sm90": n,
             "rmsnorm": 4 * n + 1, "rmsnorm_bwd": 2 * n + 1, "rglru_scan": 0,
-            "rglru_scan_bwd": 0}
+            "rglru_scan_bwd": 0, "slstm_scan": 0}
 
 
 def _hybrid_train_launches():
@@ -2438,7 +2607,7 @@ def _hybrid_train_launches():
     return {"flash_attention": 2 * attn, "flash_attention_sm90": 2 * attn,
             "flash_attention_bwd": attn, "flash_attention_bwd_sm90": attn,
             "rmsnorm": 2 * blocks + 1 + 2 * 3 * periods, "rmsnorm_bwd": 2 * blocks + 1,
-            "rglru_scan": rec + 2 * periods, "rglru_scan_bwd": rec}
+            "rglru_scan": rec + 2 * periods, "rglru_scan_bwd": rec, "slstm_scan": 0}
 
 
 def phase_train(state):
@@ -2498,6 +2667,7 @@ _GROUPS = (("K1 forward (attn_fwd)", ("attn_fwd",)),
             ("_rmsnorm_bwd_kernel", "_rmsnorm_dw_kernel")),
            ("K3 (rglru_scan_fwd)", ("rglru_scan_fwd",)),
            ("K3 backward (rglru_scan_bwd)", ("rglru_scan_bwd",)),
+           ("sLSTM (slstm_scan_kernel)", ("slstm_scan_kernel",)),
            ("GEMMs (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
            ("copies and dtype casts", ("copy",)))
 
@@ -2916,6 +3086,8 @@ def _cell_teacher_forcing(run, prompt):
     import torch
 
     server, first = run["server"], run["first_step"]
+    if first is None:
+        return _prefix_teacher_forcing(run, prompt)
     toks = torch.cat([run["tokens"][:1], first["ids"][:1, :1]], dim=1)
     logits, caches = server.prefill(server.params, {"tokens": toks}, prompt + 1)
     want, got = logits[0, -1].float(), first["logits"][0, 0]
@@ -2924,13 +3096,36 @@ def _cell_teacher_forcing(run, prompt):
     return ((got - want).norm() / want.norm()).item(), _max_err(got, want)
 
 
-def _serve_cell(state, name, arch, shape, expect, limit):
+def _prefix_teacher_forcing(run, prompt):
+    """Teacher forcing where ``_serve`` ran no full warm-up: row 0's last
+    prefill logits in the counted run against a decode step of its last
+    prompt token from a batch-1 prefill over the tokens before it:
+    (relative L2, max abs error)."""
+    import torch
+
+    server = run["server"]
+    toks = run["tokens"][:1]
+    _, caches = server.prefill(server.params, {"tokens": toks[:, :-1]}, prompt)
+    step, _ = server.decode(server.params, caches, toks[:, -1], prompt - 1)
+    got, want = step[0, 0].float(), run["prefill_logits"][0, -1]
+    del step, caches
+    torch.cuda.empty_cache()
+    return ((got - want).norm() / want.norm()).item(), _max_err(got, want)
+
+
+def _serve_cell(state, name, arch, shape, expect, limit, *, full_warmup=True,
+                on_reset=None, before_tf=None):
     """A serving cell at one card's share through ``_serve`` with a full
-    warm-up, its launches per step held to ``expect``; teacher forcing at
-    ``limit``. Prints the cell's line; keeps the run (with its server)."""
+    warm-up (``full_warmup``; without it, a short one), its launches per step
+    held to ``expect``, ``on_reset`` passed on; then ``before_tf()``, where
+    given, and teacher forcing at ``limit`` (``_cell_teacher_forcing``).
+    Prints the cell's line; keeps the run (with its server)."""
     b, s = _cell_share(shape)
-    run = _serve(state, arch, s, expect, rows=b, full_warmup=True)
+    run = _serve(state, arch, s, expect, rows=b, full_warmup=full_warmup,
+                 on_reset=on_reset)
     state[name] = run
+    if before_tf:
+        before_tf()
     rel, err = _cell_teacher_forcing(run, s)
     pre, dec = run["per_step"][0][1], run["per_step"][1][1]
     emit(cell={"cell": name, "arch": arch, "layers": run["server"].cfg.num_layers,
@@ -3144,6 +3339,108 @@ def phase_long_500k(state):
         torch.cuda.empty_cache()
 
 
+def phase_long_500k_xlstm(state):
+    """long_500k at one card's share for xlstm-1.3b: whole (48 blocks), 1 x
+    524,288 (a global batch of 1), nothing cut, through ``serve.setup`` and
+    ``serve.generate`` after a short warm-up (64 tokens, 2 steps: a full one
+    would add a third prefill): each mLSTM block runs 2,048 chunks of 256,
+    32 at a time, each sLSTM block's 524,288 steps are one kernel launch;
+    16 decode steps from position 524,288. K2 97 and the sLSTM kernel
+    6 per prefill and per decode step. Teacher forcing at the reference's
+    bf16 bound of 1e-1 (``phase_xlstm_checks``), by
+    ``_prefix_teacher_forcing``. CUDA events around each mLSTM chunk loop and
+    each sLSTM kernel call of the counted prefill split its time
+    (``_XlstmSpans``); the card's busy share comes from a prefill of
+    XLSTM_PROFILE_S tokens under ``_profile_step`` (reading back the whole
+    prompt's launches from the profiler took minutes)."""
+    import torch
+
+    from repro_torch.configs.base import LONG_500K
+
+    assert _cell_share(LONG_500K) == (1, L500K_S)
+    torch.cuda.empty_cache()
+    spans = _XlstmSpans()
+    try:
+        with spans:
+            _serve_cell(state, "long_500k_xlstm", XLSTM, LONG_500K, _xlstm_launches(), 1e-1,
+                        full_warmup=False, on_reset=spans.start, before_tf=spans.stop)
+            run = state["long_500k_xlstm"]
+            split = spans.summary(run["prefill_ms"])
+            server, toks = run["server"], run["tokens"][:, :XLSTM_PROFILE_S]
+            spans.start()
+            prof = _profile_step(lambda _: server.prefill(
+                server.params, {"tokens": toks}, XLSTM_PROFILE_S), None)
+            spans.stop()
+        emit(long_500k_xlstm_prefill={
+            "prompt_len": L500K_S, "prefill_ms": run["prefill_ms"], **split,
+            "profiled": {"prompt_len": XLSTM_PROFILE_S, "wall_ms": prof["wall_ms_per_step"],
+                         "busy_ms": prof["device_busy_ms_per_step"],
+                         "busy_share": 1 - prof["idle_share"],
+                         "device_launches": prof["device_launches_per_step"],
+                         **spans.summary(prof["wall_ms_per_step"]),
+                         "groups_ms": prof["groups_ms"], "top": prof["top"][:8]},
+            "card": state["card"]})
+    finally:
+        state.get("long_500k_xlstm", {}).pop("server", None)
+        torch.cuda.empty_cache()
+
+
+class _XlstmSpans:
+    """While open, CUDA events around each mLSTM chunk loop
+    (``models/xlstm.py::_mlstm_chunk_scan``) and each sLSTM kernel call of
+    more than one step (``kernels.slstm.slstm_scan``), recorded between
+    ``start()`` and ``stop()``. ``summary(wall_ms)``: the device-timeline ms
+    between each pair, summed by kind, and their shares of ``wall_ms`` (the
+    host-bound chunk loop's span is its host time; the kernel's its device
+    time)."""
+
+    def __init__(self):
+        self.on, self.spans = False, {"mlstm_chunk_loop": [], "slstm_kernel": []}
+
+    def start(self):
+        self.on = True
+        for v in self.spans.values():
+            v.clear()
+
+    def stop(self):
+        self.on = False
+
+    def _timed(self, key, fn, steps):
+        import torch
+
+        def call(*a, **kw):
+            if not (self.on and steps(*a) > 1):
+                return fn(*a, **kw)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            res = fn(*a, **kw)
+            e1.record()
+            self.spans[key].append((e0, e1))
+            return res
+        return call
+
+    def __enter__(self):
+        from repro_torch.kernels import slstm as sl
+        from repro_torch.models import xlstm as txl
+
+        self.saved = txl._mlstm_chunk_scan, sl.slstm_scan
+        txl._mlstm_chunk_scan = self._timed("mlstm_chunk_loop", self.saved[0],
+                                            lambda q, *_: q.shape[1])
+        sl.slstm_scan = self._timed("slstm_kernel", self.saved[1], lambda gx, *_: gx.shape[1])
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import slstm as sl
+        from repro_torch.models import xlstm as txl
+
+        txl._mlstm_chunk_scan, sl.slstm_scan = self.saved
+
+    def summary(self, wall_ms):
+        ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in self.spans.items()}
+        return {"spans_ms": ms, "span_calls": {k: len(v) for k, v in self.spans.items()},
+                "span_shares": {k: v / wall_ms for k, v in ms.items()}}
+
+
 def phase_train_4k(state):
     """train_4k at one card's share: qwen2.5-3b whole, 16 x 4096 (256 / 16)
     on one fixed batch, gradients accumulated over ``pick_microbatch``'s
@@ -3274,11 +3571,12 @@ PATH_NAME = {ARCH: ARCH, HYB_ARCH: HYB_ARCH, "train": f"train {TRAIN_ARCH}",
              "vlm_train": f"train {VLM} ({VLM_TRAIN_LAYERS} of 48 layers, 256 patches)",
              "qwen3moe_train": f"train {QWEN3MOE} ({QWEN3MOE_TRAIN_LAYERS} of 94 layers, "
                                "bf16 params)",
-             "xlstm_train": f"train {XLSTM}",
+             "xlstm_train": f"train {XLSTM} ({XLSTM_TRAIN_BLOCKS} of 48 blocks)",
              "prefill_32k": f"{ARCH} prefill_32k ({P32K_B} x {P32K_S})",
              "decode_32k": f"{ARCH} decode_32k ({D32K_B} rows, bf16 cache of "
                            f"{P32K_S + CELL_GEN} positions)",
              "long_500k": f"{HYB_ARCH} long_500k (1 x {L500K_S})",
+             "long_500k_xlstm": f"{XLSTM} long_500k (1 x {L500K_S})",
              "train_4k": f"train {TRAIN_ARCH} train_4k ({T4K_B} x {T4K_S}, "
                          "8 microbatches)"}
 ERR_SUFFIX = {ARCH: "", HYB_ARCH: "_hybrid", "train": "_train",
@@ -3460,6 +3758,78 @@ def _time_rglru(state, gen, path, b, s, c, with_h0, err_key=None, blocked_plain=
             "shape": {"a": [b, s, c], "h0": [b, c] if with_h0 else None,
                       "dtype": "float32"},
             "library": _NO_SCAN_LIBRARY}
+
+
+SLSTM_PLAIN_STEPS = 2048
+
+
+def _dense_r(r):
+    """r_gates (nh, dh, 4dh) as the recurrent matrix (4D, D) of
+    ``torch.nn.LSTM``: row h * 4dh + e (the flat gate order) holds head h's
+    column e over h_{t-1}'s channels h * dh .. h * dh + dh - 1."""
+    import torch
+
+    return torch.block_diag(*[r[h].t() for h in range(r.shape[0])])
+
+
+def _time_slstm(state, path, b, s, iters, launches, err_key):
+    """The sLSTM kernel's row at gx (b, s, 8192) bf16 from zeros, as a prefill
+    calls it, from a generator of its own: the kernel (input sets cycled
+    past the L2; one set at long_500k's 8.6 GB), the plain loop at
+    SLSTM_PLAIN_STEPS steps only (at long_500k the whole loop would take
+    some 6 M launches), the bound (gx read once, h written once, r_gates read
+    once; the products' FLOPs at the bf16 peak) with its µs per step, and as
+    the library call cuDNN's LSTM through ``torch.nn.LSTM(bias=False)``:
+    W_ih the identity (gx as its input), W_hh ``_dense_r(r_gates)``, the
+    same cell with its gates in i, f, g, o order, but its c held in bf16."""
+    import torch
+
+    from repro_torch.kernels import slstm as sl
+
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    bf, d, nh = torch.bfloat16, XLSTM_D["d_model"], SLSTM_HEADS
+    dh = d // nh
+    long = s > SLSTM_PLAIN_STEPS
+    sets = [_slstm_inputs(gen, b, s, bf, False)[:2]
+            for _ in range(1 if long else _n_sets(2 * b * s * 4 * d))]
+    ms = _time_ms(sl.slstm_scan, sets, iters, warmup=1)
+    host_ms = None if long else _time_ms(sl.slstm_scan, sets, iters, queued=False)
+    gx0, r0 = sets[0]
+    plain_ms = _time_ms(sl.slstm_scan_plain,
+                        [(gx0[:, :SLSTM_PLAIN_STEPS].contiguous(), r0)], 1, warmup=1)
+    nbytes = 2 * (b * s * 4 * d + b * s * d + nh * dh * 4 * dh)
+    bound_ms, bound_by = _bound(nbytes, sl.flops(b, s, nh, dh), "bfloat16")
+    lib_ms, lib_note, lib_gap = None, None, None
+    try:
+        lstm = torch.nn.LSTM(4 * d, d, bias=False, batch_first=True, device="cuda",
+                             dtype=bf)
+        with torch.no_grad():
+            lstm.weight_ih_l0.copy_(torch.eye(4 * d, device="cuda", dtype=bf))
+            lstm.weight_hh_l0.copy_(_dense_r(r0))
+            lstm.flatten_parameters()
+            lib_ms = _time_ms(lambda gx, r: lstm(gx), sets, iters, warmup=1)
+            lib_gap = _rel_l2(lstm(gx0)[0][:, :SLSTM_PLAIN_STEPS],
+                              sl.slstm_scan(gx0, r0)[0][:, :SLSTM_PLAIN_STEPS])
+        del lstm
+    except RuntimeError as e:     # the yardstick only: the port never calls it
+        lib_note = f"cuDNN LSTM failed: {str(e)[:200]}"
+    del sets, gx0, r0
+    torch.cuda.empty_cache()
+    return {"name": "slstm_scan", "route": "cuda", "path": PATH_NAME[path],
+            "source": "src/repro_torch/kernels/csrc/slstm_scan.cu",
+            "replaces": "none: the reference's jax.lax.scan of _slstm_cell, "
+                        "src/repro/models/xlstm.py:229 (cell :198)",
+            "launches": launches, "max_abs_err": state["serving_err"][err_key],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "host_ms": host_ms, "bound_fraction": bound_ms / ms,
+            "us_per_step": ms * 1e3 / s, "bound_us_per_step": bound_ms * 1e3 / s,
+            "plain": f"slstm_scan_plain over the first {SLSTM_PLAIN_STEPS} steps",
+            "plain_us_per_step": plain_ms * 1e3 / SLSTM_PLAIN_STEPS,
+            "shape": {"gx": [b, s, 4 * d], "r_gates": [nh, dh, 4 * dh], "h0": None,
+                      "dtype": "bfloat16"},
+            "library": lib_note or ("torch.nn.LSTM(bias=False) on cuDNN, W_ih = I, W_hh "
+                                    "the dense (4D, D) expansion of r_gates; its c in bf16"),
+            "library_h_rel_l2_first_steps": lib_gap}
 
 
 def _time_rglru_backward(state, gen, b, s, c):
@@ -4948,6 +5318,9 @@ def phase_times(state):
                     launches=by_shape["self"]),
         _time_rmsnorm(state, fam, WHISPER, WHISPER_X),
         _time_rmsnorm(state, fam, XLSTM, XLSTM_X),
+        _time_slstm(state, XLSTM, *XLSTM_GX[:2], iters=20,
+                    launches=state[XLSTM]["per_step"][0][1]["slstm_scan"],
+                    err_key="slstm_scan_xlstm"),
     ]
     # K1, K2 and their backwards at deepseek-moe-16b's training shapes, from
     # a generator of their own
@@ -5026,6 +5399,9 @@ def _cell_rows(state):
         _time_rmsnorm(state, gen, "train_4k", T4K_X, err_key="rmsnorm_train_4k"),
         _time_rmsnorm_backward(state, gen, "train_4k", T4K_X, (2 * QWEN["layers"] + 1) * mb,
                                err_key="rmsnorm_backward_train_4k"),
+        _time_slstm(state, "long_500k_xlstm", *L500K_GX[:2], iters=2,
+                    launches=state["long_500k_xlstm"]["per_step"][0][1]["slstm_scan"],
+                    err_key="slstm_scan_long_500k"),
     ]
 
 

@@ -10,14 +10,16 @@ chunks a carried matrix state C (NH, dh, dh) and normalizer n (NH, dh):
     h_t = (C_t q_t) / max(|n_t . q_t|, 1)
 
 with sigmoid input and forget gates, as in the reference. sLSTM is a
-per-head recurrent cell, a loop over time here (``jax.lax.scan`` in the
-reference), with an O(1) decode state. The layers of each period (7 mLSTM
+per-head recurrent cell over time (``jax.lax.scan`` in the reference; here
+the kernel ``kernels.slstm.slstm_scan`` where no gradient flows, the plain
+step loop under autograd), with an O(1) decode state. The layers of each period (7 mLSTM
 blocks stacked, then one sLSTM block) are stacked again over the periods
 under ``"periods"``, in the reference's layout.
 
-No kernel of the reference is in this family: on a CUDA tensor it runs K2
-(``rms_norm``), twice per block and once before the head; the rest is
-plain PyTorch.
+No Pallas kernel of the reference is in this family: on a CUDA tensor it
+runs K2 (``rms_norm``), twice per block and once before the head, and the
+sLSTM recurrence kernel once per sLSTM block of a prefill or decode step;
+the rest is plain PyTorch.
 
 Under a ``mesh_context`` with a ``DeviceMesh`` the reference's constraint
 points apply (``up`` and the sLSTM's input gates on "tp", the block outputs
@@ -25,8 +27,8 @@ and the embeddings on "dp", the logits' vocab on "tp"). Between them each
 block runs on local rows with its channels whole (``_rows_local``): the tp
 split of ``up`` does not line up with its two halves, the mLSTM's head-wise
 products need whole heads (xlstm-1.3b's 4 heads do not divide a tp of 16),
-its group norm whole rows, and the sLSTM's loop over time runs as plain
-tensor ops, one gather before it and one wrap after. The states are
+its group norm whole rows, and the sLSTM's scan over time runs on plain
+tensors, one gather before it and one wrap after. The states are
 DTensors on ``cache_pspec``'s placements, gathered whole over "model" per
 block and written back into their own shards.
 
@@ -44,6 +46,7 @@ from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import slstm
 from repro_torch.models import transformer as tr
 from repro_torch.models.common import (
     _replicated_local,
@@ -58,6 +61,7 @@ from repro_torch.models.common import (
 from repro_torch.models.recurrent import _store, causal_conv1d, conv1d_step
 
 CHUNK = 256
+CHUNK_GROUP = 32      # chunks whose state-free work runs as one batch
 
 
 def _dims(cfg: ModelConfig):
@@ -90,8 +94,21 @@ def init_mlstm(gen, cfg: ModelConfig, dtype=torch.float32, device=None,
 def _mlstm_chunk_scan(q, k, v, i, logf, C0, n0):
     """Chunkwise mLSTM. q,k,v: (B,S,NH,dh); i,logf: (B,S,NH) fp32.
     C0: (B,NH,dh,dh), n0: (B,NH,dh) fp32. Returns (h (B,S,NH,dh), C, n).
-    The last chunk is zero-padded to CHUNK positions, as in the reference."""
+    The last chunk is zero-padded to CHUNK positions, as in the reference.
+
+    The reference's loop over chunks computes, per chunk, the intra-chunk
+    attention, the inter-chunk read of the carried (C, n) and the chunk's
+    contribution to (C, n). Only the carry is sequential, so the chunks run
+    CHUNK_GROUP at a time: each group's intra-chunk terms and contributions
+    as batched ops, then the carry through the group chunk by chunk (a
+    multiply and an add for each of C and n), then the group's inter-chunk
+    reads against the carries entering its chunks, batched. Every value is
+    the reference's formula for its chunk. The host issues a seventh of the
+    launches a chunk-by-chunk loop did (a 32,768-token xlstm-1.3b prefill
+    on an H100 80GB HBM3 at 700 W: 32,763 device launches against 233,524,
+    chip_smoke.py's profile)."""
     b, s, nh, dh = q.shape
+    dt = q.dtype
     L = min(CHUNK, s)
     nc = -(-s // L)
     pad = nc * L - s
@@ -101,32 +118,38 @@ def _mlstm_chunk_scan(q, k, v, i, logf, C0, n0):
     mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))
     C, n = C0, n0
     hs = []
-    for ci in range(nc):
-        sl = slice(ci * L, (ci + 1) * L)
-        qc, kc, vc, ic, lfc = q[:, sl], k[:, sl], v[:, sl], i[:, sl], logf[:, sl]
-        cl = torch.cumsum(lfc, dim=1)                  # (B,L,NH) log cumulative decay
-        qk = torch.einsum("blhd,bmhd->bhlm", qc, kc).float()
-        clt = cl.transpose(1, 2)                       # (B,NH,L)
+    for g0 in range(0, nc, CHUNK_GROUP):
+        g = min(CHUNK_GROUP, nc - g0)
+        sl = slice(g0 * L, (g0 + g) * L)
+        qc, kc, vc = (x[:, sl].reshape(b, g, L, nh, dh) for x in (q, k, v))
+        ic, lfc = (x[:, sl].reshape(b, g, L, nh) for x in (i, logf))
+        cl = torch.cumsum(lfc, dim=2)                  # (B,G,L,NH) log cumulative decay
+        qk = torch.einsum("bglhd,bgmhd->bghlm", qc, kc).float()
+        clt = cl.transpose(2, 3)                       # (B,G,NH,L)
         # above the diagonal the decay may overflow to inf; the mask picks
         # zero there (a multiply by the mask would make inf * 0 = nan)
-        decay = torch.exp(clt[:, :, :, None] - clt[:, :, None, :])
-        A = qk * decay * ic.transpose(1, 2)[:, :, None, :].float()
-        A = torch.where(mask[None, None], A, 0.0)
-        h_intra = torch.einsum("bhlm,bmhd->blhd", A.to(qc.dtype), vc)
-        d_intra = A.sum(-1).transpose(1, 2)                        # (B,L,NH)
-        ecl = torch.exp(cl)                                        # (B,L,NH)
-        h_inter = torch.einsum("blhd,bhde->blhe", qc, C.to(qc.dtype)) * \
-            ecl[..., None].to(qc.dtype)
-        d_inter = torch.einsum("blhd,bhd->blh", qc.float(), n) * ecl
+        decay = torch.exp(clt[..., :, None] - clt[..., None, :])
+        A = qk * decay * ic.transpose(2, 3)[..., None, :].float()
+        A = torch.where(mask, A, 0.0)
+        h_intra = torch.einsum("bghlm,bgmhd->bglhd", A.to(dt), vc)
+        d_intra = A.sum(-1).transpose(2, 3)                        # (B,G,L,NH)
+        ecl = torch.exp(cl)                                        # (B,G,L,NH)
+        e_end = torch.exp(cl[:, :, -1])                            # (B,G,NH)
+        w_end = torch.exp(cl[:, :, -1:] - cl) * ic.float()
+        dC = torch.einsum("bglh,bglhd,bglhe->bghde", w_end, kc.float(), vc.float())
+        dn = torch.einsum("bglh,bglhd->bghd", w_end, kc.float())
+        Cs, ns = [], []                                # the carry entering each chunk
+        for j in range(g):
+            Cs.append(C)
+            ns.append(n)
+            C = e_end[:, j, :, None, None] * C + dC[:, j]
+            n = e_end[:, j, :, None] * n + dn[:, j]
+        h_inter = torch.einsum("bglhd,bghde->bglhe", qc, torch.stack(Cs, 1).to(dt)) * \
+            ecl[..., None].to(dt)
+        d_inter = torch.einsum("bglhd,bghd->bglh", qc.float(), torch.stack(ns, 1)) * ecl
         denom = torch.clamp_min(torch.abs(d_intra + d_inter), 1.0)
         h = (h_intra.float() + h_inter.float()) / denom[..., None]
-        e_end = torch.exp(cl[:, -1])                               # (B,NH)
-        w_end = torch.exp(cl[:, -1][:, None] - cl) * ic.float()
-        C = e_end[:, :, None, None] * C + torch.einsum(
-            "blh,blhd,blhe->bhde", w_end, kc.float(), vc.float())
-        n = e_end[:, :, None] * n + torch.einsum(
-            "blh,blhd->bhd", w_end, kc.float())
-        hs.append(h.to(qc.dtype))
+        hs.append(h.to(dt).reshape(b, g * L, nh, dh))
     h = torch.cat(hs, dim=1)
     return h[:, :s], C, n
 
@@ -258,24 +281,12 @@ def init_slstm(gen, cfg: ModelConfig, dtype=torch.float32, device=None,
     }
 
 
-def _slstm_cell(gx, h_prev, c_prev, r_gates, nh, dh):
-    """gx: (B,4D) precomputed input gates; h_prev (B,D) and r_gates in the
-    activations' dtype, c_prev (B,D) fp32. Returns (h, c)."""
-    b = gx.shape[0]
-    gr = torch.einsum("bhd,hde->bhe", h_prev.reshape(b, nh, dh), r_gates)
-    g = gx + gr.reshape(b, -1)
-    i, f, z, o = torch.chunk(g, 4, dim=-1)
-    c = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(z)
-    h = torch.sigmoid(o) * torch.tanh(c)
-    return h, c
-
-
 def apply_slstm(p, x, cfg: ModelConfig, *, state=None):
-    """x: (B,S,D) -> x + the block's output; the cell runs step by step over
-    S. ``state`` ({"h", "c" fp32}) is read and written in place. On
-    DTensors the loop runs on local rows: ``gx`` gathered to whole channels
-    once before it, the output wrapped once after (``_rows_local``), so no
-    DTensor op runs per step."""
+    """x: (B,S,D) -> x + the block's output; the cell runs over the S steps
+    (``_slstm_loop``). ``state`` ({"h", "c" fp32}) is read and written in
+    place. On DTensors the scan runs on local rows: ``gx`` gathered to whole
+    channels once before it, the output wrapped once after
+    (``_rows_local``), so no DTensor op runs per step."""
     dt = x.dtype
     xn = rows_whole(rms_norm(x, p["ln"].to(dt), cfg.norm_eps))
     gx = constrain(xn @ p["w_gates"].to(dt), "dp", None, "tp")    # (B,S,4D)
@@ -286,27 +297,28 @@ def apply_slstm(p, x, cfg: ModelConfig, *, state=None):
 
 def _slstm_loop(p, gx, state, cfg: ModelConfig):
     """The sLSTM cell over the S steps of gx (B,S,4D) on plain tensors;
-    returns h (B,S,D) and writes ``state`` in place."""
+    returns h (B,S,D) and writes ``state`` in place.
+
+    The route is fixed by autograd, not by failure: where no gradient flows
+    (serving, sharded serving on local rows, the S = 1 decode step, the dry
+    run's prefill) the whole scan is one ``kernels.slstm.slstm_scan``, the
+    hand-written kernel on the card; under autograd it is
+    ``slstm_scan_plain``, the step loop, until the kernel has a backward."""
     dt = gx.dtype
-    b, s, d4 = gx.shape
-    d = d4 // 4
-    nh = cfg.num_heads
-    dh = d // nh
-    if state is None:
-        h = torch.zeros((b, d), dtype=dt, device=gx.device)
-        c = torch.zeros((b, d), dtype=torch.float32, device=gx.device)
-    else:
-        h, c = state["h"].to(dt), state["c"]
     r_gates = p["r_gates"].to(dt)          # cast once, not on every step
-    hs = []
-    for t in range(s):
-        h2, c = _slstm_cell(gx[:, t], h, c.float(), r_gates, nh, dh)
-        h = h2.to(dt)
-        hs.append(h)
+    h0, c0 = (None, None) if state is None else (state["h"].to(dt), state["c"])
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (gx, r_gates, h0, c0))
+    if grad:
+        hseq, h, c = slstm.slstm_scan_plain(gx, r_gates, h0, c0)
+    else:
+        hseq, h, c = slstm.slstm_scan(
+            gx.contiguous(), r_gates.contiguous(),
+            *(None if t is None else t.contiguous() for t in (h0, c0)))
     if state is not None:
         state["h"].copy_(h)
         state["c"].copy_(c)
-    return torch.stack(hs, dim=1)
+    return hseq
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int, device=None, lead: tuple = ()):

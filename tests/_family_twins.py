@@ -18,7 +18,7 @@ from repro_torch.models.registry import leaves
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 ZERO_LAUNCHES = {"flash_attention": 0, "rmsnorm": 0, "rglru_scan": 0,
-                 "flash_attention_sm90": 0, "flash_attention_bwd": 0,
+                 "slstm_scan": 0, "flash_attention_sm90": 0, "flash_attention_bwd": 0,
                  "flash_attention_bwd_sm90": 0, "rmsnorm_bwd": 0,
                  "rglru_scan_bwd": 0}
 

@@ -499,6 +499,30 @@ def test_data_parallel_flops_split_exactly(fake_group, arch):
     assert 8 * eight["cost"]["flops"] == one["cost"]["flops"] > 0
 
 
+def test_xlstm_prefill_counts_the_plain_loops_flops(fake_group, monkeypatch):
+    """The xLSTM's prefill runs the sLSTM kernel's meta branch (no loop over
+    time on meta) and counts the FLOPs the plain step loop counted: the
+    reduced xlstm-1.3b's small prefill cell on a (4, 2) mesh, once as it
+    runs and once with the scan routed to ``slstm_scan_plain``. (A mesh of
+    its own: DTensor keeps the groups of a mesh it has seen by the mesh's
+    shape, and ``port_cells`` destroyed the group of its (2, 4) mesh.)"""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import slstm
+    from repro_torch.launch.dryrun import run_cell
+
+    cfg = get_arch("xlstm-1.3b", reduced=True)
+    shape = ShapeConfig("small", kind="prefill", **SMALL)
+    mesh = ((4, 2), ("data", "model"))
+    fake_group(8)
+    kernel = run_cell(cfg, shape, *mesh)
+    tallied = slstm.meta_flops          # the cell's run resets the tally first
+    monkeypatch.setattr(slstm, "slstm_scan", slstm.slstm_scan_plain)
+    loop = run_cell(cfg, shape, *mesh)
+    assert tallied > 0 and slstm.meta_flops == 0
+    assert kernel["cost"]["flops"] == loop["cost"]["flops"] > 0
+
+
 def test_full_size_cell_runs_in_one_process(fake_group):
     """llama3-8b's decode_32k on the 16x16 production mesh: 256 ranks of
     meta tensors in this process; per device under the card's 80 GiB."""

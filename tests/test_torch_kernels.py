@@ -327,7 +327,8 @@ def test_ops_take_plain_paths_on_cpu_and_count_nothing():
                                _f32(jops.rglru_scan(ja * 0.5, jb, jh0)),
                                atol=1e-5, rtol=1e-5)
     assert launch_counts() == {"flash_attention": 0, "rmsnorm": 0,
-                               "rglru_scan": 0, "flash_attention_sm90": 0,
+                               "rglru_scan": 0, "slstm_scan": 0,
+                               "flash_attention_sm90": 0,
                                "flash_attention_bwd": 0,
                                "flash_attention_bwd_sm90": 0, "rmsnorm_bwd": 0,
                                "rglru_scan_bwd": 0}
