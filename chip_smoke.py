@@ -15,7 +15,7 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    the forward's sm90 kernel for bf16 at head dim 64-256 and SIMT kernel for
    the rest, the backward's sm90 kernel for bf16 at head dim 64, 128 and 256
    and SIMT kernel for the rest; K3 the RG-LRU scan, forward and
-   backward; and the sLSTM recurrence; with ``nvcc`` for
+   backward; and the sLSTM recurrence, forward and backward; with ``nvcc`` for
    sm_90a, one process each, started together; K2 RMSNorm's forward and
    backward with Triton), report each library's ptxas lines and its HGMMA /
    UTMALDG / SYNCS instruction counts from ``cuobjdump -sass``, and hold
@@ -58,7 +58,17 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    fp32, from zeros and from a state, equal to a second call to the bit,
    and at long_500k's (1, 524288, 8192) on its first and last 4,096 steps,
    the last from the kernel's own state at step 520,192, with the kernel
-   run in those two pieces equal to one run to the bit; the sm90 d-256 backward twice on the same
+   run in those two pieces equal to one run to the bit; at xlstm-1.3b's
+   training shape (4, 1024, 8192) in bf16 and fp32, from zeros and from a
+   state (``_slstm_bwd_checks``), the saving forward equal to the bit to
+   the forward that saves nothing, its g and c against
+   ``slstm_scan_plain(save=True)``, the sLSTM's backward kernel against
+   ``slstm_scan_bwd_plain`` (relative L2 of dgx, dh0 and dc0: fp32 within
+   1e-4, bf16 within 2e-2) and equal to a second call to the bit, and the
+   gradients of ``ops.slstm_scan`` (dgx, dr_gates, dh0, dc0) against
+   autograd through ``slstm_scan_plain`` on fp32 copies (fp32 relative L2
+   within 1e-4; bf16 within max(3e-2, 2 g), g the plain loop's own bf16
+   gap); the sm90 d-256 backward twice on the same
    inputs, equal to the bit (K2's fp32 gradients also against autograd through
    ``rmsnorm_plain`` and against ``rmsnorm_backward`` on fp64 copies of the
    inputs, since the kernel sums dw in fp64; the fp32 versions' distances
@@ -139,8 +149,7 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    memory of both; then four more families train through
    ``launch/train.py --dp-sync gspmd --fixed-batch`` for 4 steps at batch
    4 (``phase_whisper_train``, ``phase_vlm_train``,
-   ``phase_qwen3moe_train``, ``phase_xlstm_train``; the sLSTM kernel has no
-   backward yet, so training runs its plain loop): whisper-medium whole
+   ``phase_qwen3moe_train``, ``phase_xlstm_train``): whisper-medium whole
    over 1500 stub frames and 448 tokens (per step K1 144: 48 non-causal
    encoder, 48 non-causal cross-attention, 48 causal self-attention; K1's
    backward 72, the non-causal ones the first on the card; K2 242, K2's
@@ -149,10 +158,10 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    ``step_fn`` the driver returns (the driver, like the reference's, draws
    no patches; K1 8, K1's backward 4, K2 17, K2's backward 9),
    qwen3-moe-235b-a22b at 1 of 94 layers in its bf16 params (3.73 B; K1 2,
-   K1's backward 1, K2 5, K2's backward 3) and xlstm-1.3b at full width cut
-   to 8 of its 48 blocks, one period, at 4 x 1024 (no K1, no sLSTM kernel;
-   K2 33 and its backward 17, tallied by width; the cut keeps the script
-   within its time beside the long_500k_xlstm cell): finite losses,
+   K1's backward 1, K2 5, K2's backward 3) and xlstm-1.3b whole (48
+   blocks) at 4 x 1024 (no K1; K2 193 and its backward 97, tallied by
+   width; the sLSTM kernel 12, forward and recompute, and its backward
+   kernel 6): finite losses,
    the last below the first, the launches per step held to those counts,
    every K1 and K1-backward launch on the sm90 route, step ms (median of
    steps 2-4), tokens/s, peak GiB, the parameter count, and one more step
@@ -450,7 +459,7 @@ XLSTM_X = (BATCH, XLSTM_D["prompt"], XLSTM_D["inner"])
 # its 94 layers (bf16 params); xlstm-1.3b whole at 1024 tokens
 FAM_TRAIN_BATCH, FAM_TRAIN_STEPS = 4, 4
 WH_TRAIN_SEQ, VLM_TRAIN_LAYERS, VLM_TRAIN_TEXT = 448, 4, 768
-QWEN3MOE_TRAIN_LAYERS, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_BLOCKS = 1, 1024, 8
+QWEN3MOE_TRAIN_LAYERS, XLSTM_TRAIN_SEQ = 1, 1024
 VLM_TRAIN_POS = VLM_D["patches"] + VLM_TRAIN_TEXT
 # K1's (b, s, h, kv, d, t, window) in those steps (window None: non-causal);
 # the encoder's is WHISPER_ENC_ATTN
@@ -467,6 +476,8 @@ WHISPER_DEC_X = (FAM_TRAIN_BATCH, WH_TRAIN_SEQ, WHISPER_D["d_model"])
 VLM_TRAIN_X = (FAM_TRAIN_BATCH, VLM_TRAIN_POS, VLM_D["d_model"])
 QWEN3MOE_TRAIN_X = (FAM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, QWEN3MOE_D["d_model"])
 XLSTM_TRAIN_X = (FAM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, XLSTM_D["d_model"])
+# the sLSTM kernels' gx (and saved g, dgx) in xlstm-1.3b's training step
+XLSTM_TRAIN_GX = (FAM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, 4 * XLSTM_D["d_model"])
 FAMILY_ATTN = {MOE16B_ATTN: "flash_attention_moe16b",
                QWEN3MOE_ATTN: "flash_attention_qwen3moe",
                VLM_ATTN: "flash_attention_vlm",
@@ -728,7 +739,7 @@ def phase_kernels(state):
     from repro_torch.kernels import rmsnorm as rn
 
     sources = ["flash_attention_sm90", "flash_attention", "flash_attention_bwd_sm90",
-               "flash_attention_bwd", "rglru_scan", "slstm_scan"]
+               "flash_attention_bwd", "rglru_scan", "slstm_scan", "slstm_scan_bwd"]
     t0 = time.perf_counter()
     libs = _build.build(sources)
     build_s = time.perf_counter() - t0
@@ -904,6 +915,8 @@ def phase_kernels(state):
     _cell_checks(state)
     torch.cuda.empty_cache()
     _slstm_checks(state)
+    torch.cuda.empty_cache()
+    _slstm_bwd_checks(state)
     torch.cuda.empty_cache()
 
 
@@ -1114,6 +1127,137 @@ def _slstm_checks(state):
         torch.cuda.empty_cache()
     emit(slstm_checks=checks)
     errs["slstm_scan_xlstm"] = max(errs["slstm_scan_xlstm"])
+
+
+def _slstm_bwd_inputs(gen, dt, with_state):
+    """xlstm-1.3b's sLSTM at its training shape: ``_slstm_inputs`` at gx
+    XLSTM_TRAIN_GX, and the cotangents dy (B, S, D) normal in ``dt`` and,
+    with a state, dh_n in ``dt`` and dc_n fp32 (B, D) normal, else None."""
+    import torch
+
+    b, s, d4 = XLSTM_TRAIN_GX
+    inputs = _slstm_inputs(gen, b, s, dt, with_state)
+    dy = _randn(gen, (b, s, d4 // 4), dt)
+    last = ((_randn(gen, (b, d4 // 4), dt), _randn(gen, (b, d4 // 4), torch.float32))
+            if with_state else (None, None))
+    return inputs, (dy, *last)
+
+
+def _slstm_bwd_checks(state):
+    """The saving forward and the backward kernel at xlstm-1.3b's training
+    shape gx (4, 1024, 8192), in bf16 and fp32, from zeros and from a state
+    (with cotangents on the last h and c), from a generator of their own:
+    the saving forward's h, last h and last c equal to the bit to the
+    forward without saving, its g and c against ``slstm_scan_plain(save=
+    True)`` (``_slstm_gate``'s bounds); the backward against
+    ``slstm_scan_bwd_plain`` on the kernel's g and c (fp32: relative L2 of
+    dgx, dh0 and dc0 at most 1e-4 each; bf16: 2e-2) and equal to the bit on
+    a second call. Then the gradient gate (``_slstm_grad_check``)."""
+    import torch
+
+    from repro_torch.kernels import slstm as sl
+
+    gen = torch.Generator(device="cuda").manual_seed(67)
+    checks, errs = [], state["serving_err"]
+    for dn in ("bfloat16", "float32"):
+        for with_state in (False, True):
+            (gx, r, h0, c0), (dy, dh_n, dc_n) = _slstm_bwd_inputs(gen, _dtype(dn), with_state)
+            name = f"slstm_scan{XLSTM_TRAIN_GX} {dn} state={with_state}"
+            saved = sl.slstm_scan(gx, r, h0, c0, save=True)
+            plain = sl.slstm_scan(gx, r, h0, c0)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(saved[:3], plain))
+            want = sl.slstm_scan_plain(gx, r, h0, c0, save=True)
+            fwd = _slstm_gate(name + " saving forward", saved[:3], want[:3], dn)
+            g_c = _slstm_gate(name + " saved g, c", (saved[3], saved[3], saved[4]),
+                              (want[3], want[3], want[4]), dn)
+            del plain, want
+            args = (saved[3], saved[4], r, dy, c0, dh_n, dc_n)
+            got = sl.slstm_scan_bwd(*args, need_dh0=with_state)
+            torch.cuda.synchronize()
+            ref = sl.slstm_scan_bwd_plain(*args, need_dh0=with_state)
+            again = all(torch.equal(a, b) for a, b in zip(
+                got, sl.slstm_scan_bwd(*args, need_dh0=with_state)) if a is not None)
+            tol = 1e-4 if dn == "float32" else SLSTM_TOL[dn]
+            bwd = {n: {"rel_l2": _rel_l2(a, b), "max_abs_err": _max_err(a, b)}
+                   for n, a, b in zip(("dgx", "dh0", "dc0"), got, ref) if a is not None}
+            checks.append({"kernel": "slstm_scan_bwd", "shape": list(XLSTM_TRAIN_GX),
+                           "state": with_state, "dtype": dn, "saving_forward": fwd,
+                           "saved_g_c": {"g_rel_l2": g_c["h_rel_l2"],
+                                         "g_max_abs_err": g_c["h_max_abs_err"],
+                                         "c_rel_l2": g_c["c_last_rel_l2"],
+                                         "c_max_abs_err": g_c["c_last_max_abs_err"]},
+                           "saving_forward_equal_to_forward": same,
+                           "backward_vs_plain": bwd, "tol_rel_l2": tol,
+                           "equal_across_calls": again})
+            if dn == "bfloat16":
+                errs["slstm_scan_bwd_train"] = max(errs.get("slstm_scan_bwd_train", 0.0),
+                                                   bwd["dgx"]["max_abs_err"])
+                errs["slstm_scan_save_train"] = max(errs.get("slstm_scan_save_train", 0.0),
+                                                    fwd["h_max_abs_err"])
+            assert same, (name, "the saving forward's h, h_n, c_n differ from the forward's")
+            assert again, (name, "backward: second call differs")
+            worst = max(v["rel_l2"] for v in bwd.values())
+            assert worst <= tol, (name, "backward vs slstm_scan_bwd_plain", bwd, tol)
+            del gx, r, h0, c0, dy, dh_n, dc_n, saved, args, got, ref
+            torch.cuda.empty_cache()
+    emit(slstm_bwd_checks=checks)
+    grads = [_slstm_grad_check(gen, dn, with_state)
+             for dn in ("bfloat16", "float32") for with_state in (False, True)]
+    emit(slstm_grad_checks=grads)
+
+
+def _slstm_grad_check(gen, dn, with_state):
+    """The gradients of ``ops.slstm_scan`` (the saving forward, the backward
+    kernel and ``slstm_dr_gates``' product) at XLSTM_TRAIN_GX in ``dn``
+    against torch autograd through ``slstm_scan_plain`` on fp32 copies of
+    the same inputs and cotangents: fp32 relative L2 at most 1e-4 for each
+    of dgx, dr_gates, dh0 and dc0; bf16 within max(3e-2, 2 g), g the same
+    gradient's gap when autograd runs through ``slstm_scan_plain`` in bf16
+    (printed beside)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import slstm as sl
+
+    inputs, cot = _slstm_bwd_inputs(gen, _dtype(dn), with_state)
+    names = ("dgx", "dr_gates", "dh0", "dc0")
+    leaves = [None if x is None else x.requires_grad_(True) for x in inputs]
+    live = [x for x in leaves if x is not None]
+    out = ops.slstm_scan(*leaves)
+    got = torch.autograd.grad(out, live, [c if c is not None else torch.zeros_like(o)
+                                          for o, c in zip(out, cot)])
+    torch.cuda.synchronize()
+
+    def ref_grads(dt):
+        xs = [x.detach().to(torch.float32 if i == 3 else dt).requires_grad_(True)
+              for i, x in enumerate(leaves) if x is not None]
+        full = xs + [None] * (4 - len(xs))
+        o = sl.slstm_scan_plain(*full)
+        cs = [c if c is not None else torch.zeros_like(oo) for oo, c in zip(o, cot)]
+        cs = [c.to(oo.dtype) for oo, c in zip(o, cs)]
+        return torch.autograd.grad(o, xs, cs)
+
+    ref = ref_grads(torch.float32)
+    readings, ok = {}, True
+    if dn == "bfloat16":
+        plain16 = ref_grads(torch.bfloat16)
+    for i, (n, a, w) in enumerate(zip(names, got, ref)):
+        r = {"rel_l2_vs_fp32": _rel_l2(a, w), "max_abs_err_vs_fp32": _max_err(a, w)}
+        if dn == "float32":
+            r["tol"] = 1e-4
+        else:
+            gap = _rel_l2(plain16[i], w)
+            r.update(plain_bf16_rel_l2_vs_fp32=gap, tol=max(3e-2, 2 * gap))
+        ok = ok and r["rel_l2_vs_fp32"] <= r["tol"]
+        readings[n] = r
+    check = {"kernel": "slstm_scan_bwd", "via": "ops.slstm_scan (autograd function)",
+             "shape": list(XLSTM_TRAIN_GX), "state": with_state, "dtype": dn,
+             "grads": readings}
+    assert ok, ("sLSTM gradient gate", check)
+    del inputs, cot, leaves, live, out, got, ref
+    torch.cuda.empty_cache()
+    return check
 
 
 def _flash_check(gen, shape, dn, errs):
@@ -1492,7 +1636,7 @@ def _serve(state, arch, prompt, expect, layers=0, on_reset=None, rows=BATCH,
 
 
 NO_BACKWARD = {"flash_attention_bwd": 0, "flash_attention_bwd_sm90": 0,
-               "rmsnorm_bwd": 0, "rglru_scan_bwd": 0}
+               "rmsnorm_bwd": 0, "rglru_scan_bwd": 0, "slstm_scan_bwd": 0}
 
 
 def _dense_launches(n):
@@ -2197,24 +2341,26 @@ def phase_moe_train(state):
 
 
 class _tally_by_shape:
-    """While open, tally the launches of K1, K1's backward, K2 and K2's
-    backward by shape into ``counts`` (key: (kernel, shape) -> launches),
-    where K1's shape is (S, T, causal) and K2's the x shape; and K1's and
-    its backward's launches on the sm90 route under (kernel + "_sm90", ...).
-    It wraps the module functions that ``kernels/ops.py`` calls and counts
-    the wrappers' own launch counts across each call, so it adds none."""
+    """While open, tally the launches of K1, K1's backward, K2, K2's
+    backward and the sLSTM kernels by shape into ``counts`` (key: (kernel,
+    shape) -> launches), where K1's shape is (S, T, causal), K2's the x
+    shape and the sLSTM's gx's (g's for its backward); and K1's and its
+    backward's launches on the sm90 route under (kernel + "_sm90", ...). It
+    wraps the module functions that ``kernels/ops.py`` calls and counts the
+    wrappers' own launch counts across each call, so it adds none."""
 
     KINDS = (("flash_attention", "flash_attention", "flash_attention"),
              ("flash_attention", "flash_attention_backward", "flash_attention_bwd"),
-             ("rmsnorm", "rmsnorm", "rmsnorm"), ("rmsnorm", "rmsnorm_grad", "rmsnorm_bwd"))
+             ("rmsnorm", "rmsnorm", "rmsnorm"), ("rmsnorm", "rmsnorm_grad", "rmsnorm_bwd"),
+             ("slstm", "slstm_scan", "slstm_scan"), ("slstm", "slstm_scan_bwd", "slstm_scan_bwd"))
 
     def __init__(self):
         self.counts = {}
 
     def __enter__(self):
-        from repro_torch.kernels import flash_attention, launch_counts, rmsnorm
+        from repro_torch.kernels import flash_attention, launch_counts, rmsnorm, slstm
 
-        mods = {"flash_attention": flash_attention, "rmsnorm": rmsnorm}
+        mods = {"flash_attention": flash_attention, "rmsnorm": rmsnorm, "slstm": slstm}
         self.saved = []
         for mod_name, fn_name, kind in self.KINDS:
             mod = mods[mod_name]
@@ -2386,18 +2532,19 @@ def _whisper_train_launches(enc, dec):
             "flash_attention_sm90": 2 * (enc + 2 * dec),
             "flash_attention_bwd": enc + 2 * dec, "flash_attention_bwd_sm90": enc + 2 * dec,
             "rmsnorm": 2 * (2 * enc + 3 * dec) + 2, "rmsnorm_bwd": 2 * enc + 3 * dec + 2,
-            "rglru_scan": 0, "rglru_scan_bwd": 0, "slstm_scan": 0}
+            "rglru_scan": 0, "rglru_scan_bwd": 0, "slstm_scan": 0, "slstm_scan_bwd": 0}
 
 
 def _xlstm_train_launches(blocks):
     """xlstm-1.3b's launches per step under remat "full" per period: no K1;
     K2 twice per block (mLSTM: the norm at d_model and the group norm at
     the inner width; sLSTM: both at d_model), again in the recompute, and
-    once before the head."""
+    once before the head; the sLSTM kernel once per sLSTM block (one in 8)
+    and again in the recompute, its backward kernel once."""
     return {"flash_attention": 0, "flash_attention_sm90": 0, "flash_attention_bwd": 0,
             "flash_attention_bwd_sm90": 0, "rmsnorm": 4 * blocks + 1,
             "rmsnorm_bwd": 2 * blocks + 1, "rglru_scan": 0, "rglru_scan_bwd": 0,
-            "slstm_scan": 0}
+            "slstm_scan": 2 * (blocks // 8), "slstm_scan_bwd": blocks // 8}
 
 
 def phase_whisper_train(state):
@@ -2454,26 +2601,23 @@ def phase_qwen3moe_train(state):
 
 
 def phase_xlstm_train(state):
-    """xlstm-1.3b at full width cut to XLSTM_TRAIN_BLOCKS of its 48 blocks (one
-    period: 7 mLSTM blocks and one sLSTM block), 4 x 1024: no K1; K2 33 and
-    K2's backward 17 per step, at (4, 1024, 2048) and at the group norm's
-    (4, 1024, 4096); no sLSTM kernel (it has no backward yet: under
-    autograd the model runs the plain loop). That loop runs on the host in
-    the forward, the recompute and the backward, so its step ms and busy
-    share are readings, not faults; the depth is cut to keep the script
-    within its time with xlstm-1.3b's long_500k cell (the whole model took
-    94.7 s of a run of this script on an H100 80GB HBM3 at 700 W). Then the
+    """xlstm-1.3b whole (48 blocks: 6 periods of 7 mLSTM blocks and one
+    sLSTM block), 4 x 1024: no K1; K2 193 and K2's backward 97 per step, at
+    (4, 1024, 2048) and at the group norm's (4, 1024, 4096); the sLSTM
+    kernel 12 (each sLSTM block's forward and its recompute, saving g and
+    c) and its backward kernel 6 per step, at gx (4, 1024, 8192). Then the
     reduced config card vs CPU."""
-    n = XLSTM_TRAIN_BLOCKS
-    _family_train(state, "xlstm_train", XLSTM, XLSTM_TRAIN_SEQ, _xlstm_train_launches(n),
-                  layers=n)
+    n = XLSTM_D["blocks"]
+    _family_train(state, "xlstm_train", XLSTM, XLSTM_TRAIN_SEQ, _xlstm_train_launches(n))
     by = state["xlstm_train"]["by_shape"]
     n_s = n // 8
     n_m = n - n_s
     want = {("rmsnorm", XLSTM_TRAIN_X): FAM_TRAIN_STEPS * (2 * (n_m + 2 * n_s) + 1),
             ("rmsnorm", QWEN3MOE_TRAIN_X): FAM_TRAIN_STEPS * 2 * n_m,
             ("rmsnorm_bwd", XLSTM_TRAIN_X): FAM_TRAIN_STEPS * (n_m + 2 * n_s + 1),
-            ("rmsnorm_bwd", QWEN3MOE_TRAIN_X): FAM_TRAIN_STEPS * n_m}
+            ("rmsnorm_bwd", QWEN3MOE_TRAIN_X): FAM_TRAIN_STEPS * n_m,
+            ("slstm_scan", XLSTM_TRAIN_GX): FAM_TRAIN_STEPS * 2 * n_s,
+            ("slstm_scan_bwd", XLSTM_TRAIN_GX): FAM_TRAIN_STEPS * n_s}
     got = {k: by.get(k, 0) for k in want}
     assert got == want, f"xlstm launches by shape {got}, expected {want}"
     _train_card_vs_cpu(XLSTM, 32)
@@ -2595,7 +2739,7 @@ def _train_launches(n):
     return {"flash_attention": 2 * n, "flash_attention_sm90": 2 * n,
             "flash_attention_bwd": n, "flash_attention_bwd_sm90": n,
             "rmsnorm": 4 * n + 1, "rmsnorm_bwd": 2 * n + 1, "rglru_scan": 0,
-            "rglru_scan_bwd": 0, "slstm_scan": 0}
+            "rglru_scan_bwd": 0, "slstm_scan": 0, "slstm_scan_bwd": 0}
 
 
 def _hybrid_train_launches():
@@ -2607,7 +2751,8 @@ def _hybrid_train_launches():
     return {"flash_attention": 2 * attn, "flash_attention_sm90": 2 * attn,
             "flash_attention_bwd": attn, "flash_attention_bwd_sm90": attn,
             "rmsnorm": 2 * blocks + 1 + 2 * 3 * periods, "rmsnorm_bwd": 2 * blocks + 1,
-            "rglru_scan": rec + 2 * periods, "rglru_scan_bwd": rec, "slstm_scan": 0}
+            "rglru_scan": rec + 2 * periods, "rglru_scan_bwd": rec, "slstm_scan": 0,
+            "slstm_scan_bwd": 0}
 
 
 def phase_train(state):
@@ -2668,6 +2813,7 @@ _GROUPS = (("K1 forward (attn_fwd)", ("attn_fwd",)),
            ("K3 (rglru_scan_fwd)", ("rglru_scan_fwd",)),
            ("K3 backward (rglru_scan_bwd)", ("rglru_scan_bwd",)),
            ("sLSTM (slstm_scan_kernel)", ("slstm_scan_kernel",)),
+           ("sLSTM backward (slstm_scan_bwd_kernel)", ("slstm_scan_bwd_kernel",)),
            ("GEMMs (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
            ("copies and dtype casts", ("copy",)))
 
@@ -3571,7 +3717,7 @@ PATH_NAME = {ARCH: ARCH, HYB_ARCH: HYB_ARCH, "train": f"train {TRAIN_ARCH}",
              "vlm_train": f"train {VLM} ({VLM_TRAIN_LAYERS} of 48 layers, 256 patches)",
              "qwen3moe_train": f"train {QWEN3MOE} ({QWEN3MOE_TRAIN_LAYERS} of 94 layers, "
                                "bf16 params)",
-             "xlstm_train": f"train {XLSTM} ({XLSTM_TRAIN_BLOCKS} of 48 blocks)",
+             "xlstm_train": f"train {XLSTM}",
              "prefill_32k": f"{ARCH} prefill_32k ({P32K_B} x {P32K_S})",
              "decode_32k": f"{ARCH} decode_32k ({D32K_B} rows, bf16 cache of "
                            f"{P32K_S + CELL_GEN} positions)",
@@ -3772,6 +3918,25 @@ def _dense_r(r):
     return torch.block_diag(*[r[h].t() for h in range(r.shape[0])])
 
 
+def _cudnn_lstm(r):
+    """``torch.nn.LSTM(bias=False)`` on cuDNN computing the sLSTM's cell
+    over gx (its gates in i, f, g, o order, its c in bf16): W_ih the
+    identity (gx as its input), W_hh ``_dense_r(r)``, the weights frozen.
+    The yardstick only: the port never calls it."""
+    import torch
+
+    nh, dh = r.shape[:2]
+    d = nh * dh
+    lstm = torch.nn.LSTM(4 * d, d, bias=False, batch_first=True, device="cuda",
+                         dtype=r.dtype)
+    for p_ in lstm.parameters():
+        p_.requires_grad_(False)
+    lstm.weight_ih_l0.copy_(torch.eye(4 * d, device="cuda", dtype=r.dtype))
+    lstm.weight_hh_l0.copy_(_dense_r(r))
+    lstm.flatten_parameters()
+    return lstm
+
+
 def _time_slstm(state, path, b, s, iters, launches, err_key):
     """The sLSTM kernel's row at gx (b, s, 8192) bf16 from zeros, as a prefill
     calls it, from a generator of its own: the kernel (input sets cycled
@@ -3801,12 +3966,8 @@ def _time_slstm(state, path, b, s, iters, launches, err_key):
     bound_ms, bound_by = _bound(nbytes, sl.flops(b, s, nh, dh), "bfloat16")
     lib_ms, lib_note, lib_gap = None, None, None
     try:
-        lstm = torch.nn.LSTM(4 * d, d, bias=False, batch_first=True, device="cuda",
-                             dtype=bf)
+        lstm = _cudnn_lstm(r0)
         with torch.no_grad():
-            lstm.weight_ih_l0.copy_(torch.eye(4 * d, device="cuda", dtype=bf))
-            lstm.weight_hh_l0.copy_(_dense_r(r0))
-            lstm.flatten_parameters()
             lib_ms = _time_ms(lambda gx, r: lstm(gx), sets, iters, warmup=1)
             lib_gap = _rel_l2(lstm(gx0)[0][:, :SLSTM_PLAIN_STEPS],
                               sl.slstm_scan(gx0, r0)[0][:, :SLSTM_PLAIN_STEPS])
@@ -3830,6 +3991,105 @@ def _time_slstm(state, path, b, s, iters, launches, err_key):
             "library": lib_note or ("torch.nn.LSTM(bias=False) on cuDNN, W_ih = I, W_hh "
                                     "the dense (4D, D) expansion of r_gates; its c in bf16"),
             "library_h_rel_l2_first_steps": lib_gap}
+
+
+def _time_slstm_train(state):
+    """The sLSTM's two rows in xlstm-1.3b's training step, at gx
+    XLSTM_TRAIN_GX bf16 from zeros, from a generator of their own: the
+    saving forward (``slstm_scan(save=True)``, beside the forward that
+    saves nothing, timed in turn on the same inputs) and the backward
+    kernel without dh0, as training calls them. Each beside its bound (the
+    forward's bytes and products plus g and c written; the backward: g, c,
+    dy and r_gates read, dgx and dc0 written, the product over S - 1
+    steps), its plain loop over all S steps, and cuDNN's LSTM
+    (``_cudnn_lstm``, its c in bf16): forward with the input's gradient
+    recorded, and its backward to the input alone (cuDNN's backward also
+    multiplies by W_ih, one (B S, 4D) x (4D, 4D) product)."""
+    import torch
+
+    from repro_torch.kernels import slstm as sl
+
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    bf, nh = torch.bfloat16, SLSTM_HEADS
+    b, s, d4 = XLSTM_TRAIN_GX
+    d, dh = d4 // 4, d4 // 4 // nh
+    by = state["xlstm_train"]["by_shape"]
+    sets = [_slstm_inputs(gen, b, s, bf, False)[:2] for _ in range(_n_sets(2 * b * s * d4))]
+
+    def save(gx, r):
+        return sl.slstm_scan(gx, r, save=True)
+
+    ms_save = _time_ms(save, sets, 20, warmup=1)
+    ms_fwd = _time_ms(sl.slstm_scan, sets, 20, warmup=1)
+    ms_save_again = _time_ms(save, sets, 20, warmup=1)
+    plain_save_ms = _time_ms(lambda gx, r: sl.slstm_scan_plain(gx, r, save=True),
+                             sets[:1], 1, warmup=1)
+    bsets = []
+    for gx, r in sets:
+        out = save(gx, r)
+        bsets.append((out[3], out[4], r, _randn(gen, (b, s, d), bf)))
+        del out
+
+    def bwd(g, c, r, dy):
+        return sl.slstm_scan_bwd(g, c, r, dy, need_dh0=False)
+
+    ms_bwd = _time_ms(bwd, bsets, 20, warmup=1)
+    host_bwd = _time_ms(bwd, bsets, 20, queued=False)
+    plain_bwd_ms = _time_ms(lambda g, c, r, dy: sl.slstm_scan_bwd_plain(g, c, r, dy,
+                                                                      need_dh0=False),
+                            bsets[:1], 1, warmup=1)
+    lib_fwd = lib_bwd = lib_note = None
+    try:
+        lstm = _cudnn_lstm(sets[0][1])
+        xs = [(gx.detach().requires_grad_(True),) for gx, _ in sets]
+        lib_fwd = _time_ms(lambda x: lstm(x), xs, 20, warmup=1)
+        x0 = xs[0][0]
+        y0 = lstm(x0)[0]
+        dy0 = bsets[0][3]
+        lib_bwd = _time_ms(lambda: torch.autograd.grad(y0, x0, dy0, retain_graph=True),
+                           [()], 20, warmup=1)
+        del lstm, xs, x0, y0
+    except RuntimeError as e:     # the yardstick only: the port never calls it
+        lib_note = f"cuDNN LSTM failed: {str(e)[:200]}"
+    fwd_bytes = 2 * (b * s * d4 + b * s * d + nh * dh * 4 * dh)
+    save_bound = _bound(fwd_bytes + 2 * b * s * d4 + 4 * b * s * d, sl.flops(b, s, nh, dh),
+                        "bfloat16")
+    bwd_bytes = (2 * b * s * d4 + 4 * b * s * d + 2 * nh * dh * 4 * dh + 2 * b * s * d
+                 + 2 * b * s * d4 + 4 * b * d)
+    bwd_bound = _bound(bwd_bytes, sl.flops(b, s - 1, nh, dh), "bfloat16")
+    del sets, bsets
+    torch.cuda.empty_cache()
+    common = {"route": "cuda", "path": PATH_NAME["xlstm_train"],
+              "shape": {"gx": list(XLSTM_TRAIN_GX), "r_gates": [nh, dh, 4 * dh], "h0": None,
+                        "dtype": "bfloat16"}}
+    lib = lib_note or ("torch.nn.LSTM(bias=False) on cuDNN, W_ih = I, W_hh the dense "
+                       "(4D, D) expansion of r_gates, weights frozen; its c in bf16")
+    return [
+        {"name": "slstm_scan", **common,
+         "source": "src/repro_torch/kernels/csrc/slstm_scan.cu",
+         "replaces": "none: the reference's jax.lax.scan of _slstm_cell under autograd, "
+                     "src/repro/models/xlstm.py:229 (cell :198)",
+         "launches": by.get(("slstm_scan", XLSTM_TRAIN_GX), 0),
+         "max_abs_err": state["serving_err"]["slstm_scan_save_train"],
+         "ms": ms_save, "plain_ms": plain_save_ms, "bound_ms": save_bound[0],
+         "bound_by": save_bound[1], "library_ms": lib_fwd,
+         "bound_fraction": save_bound[0] / ms_save, "us_per_step": ms_save * 1e3 / s,
+         "forward_without_saving_ms": ms_fwd, "ms_second_pass": ms_save_again,
+         "plain": "slstm_scan_plain(save=True) over all steps",
+         "variant": "saving forward (g and c for the backward)",
+         "library": lib + "; forward with the input's gradient recorded"},
+        {"name": "slstm_scan_bwd", **common,
+         "source": "src/repro_torch/kernels/csrc/slstm_scan_bwd.cu",
+         "replaces": "none: XLA's transpose of the reference's jax.lax.scan of "
+                     "_slstm_cell, src/repro/models/xlstm.py:229 (cell :198)",
+         "launches": by.get(("slstm_scan_bwd", XLSTM_TRAIN_GX), 0),
+         "max_abs_err": state["serving_err"]["slstm_scan_bwd_train"],
+         "ms": ms_bwd, "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound[0],
+         "bound_by": bwd_bound[1], "library_ms": lib_bwd, "host_ms": host_bwd,
+         "bound_fraction": bwd_bound[0] / ms_bwd, "us_per_step": ms_bwd * 1e3 / s,
+         "plain": "slstm_scan_bwd_plain over all steps",
+         "library": lib + "; backward to the input alone (dgx, no weight gradients)"},
+    ]
 
 
 def _time_rglru_backward(state, gen, b, s, c):
@@ -5335,6 +5595,7 @@ def phase_times(state):
                                2 * MOE_TRAIN["layers"] + 1),
     ]
     kernels += _family_train_rows(state)
+    kernels += _time_slstm_train(state)
     kernels += _cell_rows(state)
     emit(rmsnorm_decode_shape=_time_rmsnorm(state, gen, ARCH, (BATCH, 1, 4096)))
     emit(times={"card": state["card"], "peak_bytes_per_s": PEAK_BYTES_PER_S,

@@ -6,12 +6,12 @@ backward (``csrc/flash_attention_bwd_sm90.cu`` for bf16 at head dim 64,
 128 and 256, ``csrc/flash_attention_bwd.cu`` otherwise), K2 RMSNorm forward and
 backward (Triton, ``rmsnorm.py``), K3 the RG-LRU scan (CUDA C++,
 ``csrc/rglru_scan.cu``, forward and backward) and the sLSTM recurrence
-(CUDA C++, ``csrc/slstm_scan.cu``, ``slstm.py``; the reference's
-``jax.lax.scan``, no Pallas kernel). Each wrapper adds one to its count
-where it launches its kernel, and nowhere else: ``flash_attention``,
-``rmsnorm``, ``rglru_scan`` and ``slstm_scan`` count the forwards,
-``flash_attention_bwd``, ``rmsnorm_bwd`` and ``rglru_scan_bwd`` the
-backwards; ``flash_attention_sm90`` and
+(CUDA C++, ``csrc/slstm_scan.cu`` and ``csrc/slstm_scan_bwd.cu``, ``slstm.py``; the
+reference's ``jax.lax.scan``, no Pallas kernel). Each wrapper adds one to
+its count where it launches its kernel, and nowhere else:
+``flash_attention``, ``rmsnorm``, ``rglru_scan`` and ``slstm_scan`` count
+the forwards, ``flash_attention_bwd``, ``rmsnorm_bwd``, ``rglru_scan_bwd``
+and ``slstm_scan_bwd`` the backwards; ``flash_attention_sm90`` and
 ``flash_attention_bwd_sm90`` count the K1 launches that took an sm90
 kernel, of the totals beside them.
 
@@ -30,7 +30,8 @@ _COUNTS = {"flash_attention": (flash_attention, "launches"),
            "flash_attention_bwd": (flash_attention, "launches_bwd"),
            "flash_attention_bwd_sm90": (flash_attention, "launches_bwd_sm90"),
            "rmsnorm_bwd": (rmsnorm, "launches_bwd"),
-           "rglru_scan_bwd": (rglru, "launches_bwd")}
+           "rglru_scan_bwd": (rglru, "launches_bwd"),
+           "slstm_scan_bwd": (slstm, "launches_bwd")}
 
 
 def launch_counts() -> dict[str, int]:

@@ -64,91 +64,31 @@
 // before its FMAs, with no branch between them, so the loads overlap.
 // wgmma and thread-block clusters (h kept in distributed shared memory)
 // are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+//
+// Training. Given gsave and csave, the forward also writes each step's
+// pre-activation gates g_t (B, S, 4D, rounded where the cell rounds them)
+// and c_t (B, S, D) fp32: what the backward (slstm_scan_bwd.cu) reads.
+// Without them it is the same code as before (a template argument), with
+// no extra writes.
+#include "slstm.cuh"
 
 namespace {
 
-constexpr int THREADS = 512;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_PAIRS = 4;      // (batch row, channel) pairs a thread keeps c for
-constexpr int CPW = 4;            // columns a warp's products run at once
-constexpr int XW = 8;             // exchange words a thread loads at once
-
-__host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
-
-// Shared memory of one block: its columns of r_gates, h_{t-1}, the products
-// and its new h (kernels/slstm.py `smem_bytes` computes the same).
+// Shared memory of one forward block: its columns of r_gates, h_{t-1}, the
+// products and its new h (kernels/slstm.py `smem_bytes` computes the same).
 __host__ __device__ constexpr size_t smem_bytes(int elem, int B, int D, int dh, int cpb) {
   return align16(size_t(elem) * 4 * cpb * dh) + align16(size_t(elem) * B * D) +
          align16(sizeof(float) * 4 * cpb * B) + align16(size_t(elem) * B * cpb);
 }
 
-template <typename T>
-struct Num;
-
-template <>
-struct Num<float> {
-  static __device__ __forceinline__ float to_f(float x) { return x; }
-  static __device__ __forceinline__ float from_f(float x) { return x; }
-  static __device__ __forceinline__ float round(float x) { return x; }
-  static __device__ __forceinline__ float2 pair(const float* p) {
-    return *reinterpret_cast<const float2*>(p);
-  }
-};
-
-template <>
-struct Num<__nv_bfloat16> {
-  static __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-  static __device__ __forceinline__ __nv_bfloat16 from_f(float x) { return __float2bfloat16_rn(x); }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-  static __device__ __forceinline__ float2 pair(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-};
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
-}
-
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-__device__ __forceinline__ unsigned long long load_word(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_word(unsigned long long* p, unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-// The word at p once its tag (high 32 bits) is ``tag``; traps after 10 s.
-__device__ __forceinline__ unsigned long long poll_word(const unsigned long long* p,
-                                                        unsigned int tag) {
-  unsigned long long v = load_word(p);
-  if (static_cast<unsigned int>(v >> 32) == tag) return v;
-  const unsigned long long t0 = globaltimer();
-  while (static_cast<unsigned int>((v = load_word(p)) >> 32) != tag)
-    if (globaltimer() - t0 > 10000000000ull) __trap();
-  return v;
-}
-
 // ROWS: batch rows a warp's products share each r_gates load over (B is a
-// multiple of it)
-template <typename T, int ROWS>
+// multiple of it); SAVE: also write g_t and c_t for the backward
+template <typename T, int ROWS, bool SAVE>
 __global__ void __launch_bounds__(THREADS, 1)
     slstm_scan_kernel(const T* __restrict__ gx, const T* __restrict__ r, const T* h0,
                       const float* __restrict__ c0, T* __restrict__ out, T* __restrict__ h_n,
-                      float* __restrict__ c_n, unsigned long long* xch, int B, int S, int D,
+                      float* __restrict__ c_n, T* __restrict__ gsave,
+                      float* __restrict__ csave, unsigned long long* xch, int B, int S, int D,
                       int nh, int cpb) {
   using N = Num<T>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -166,7 +106,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* gr = reinterpret_cast<float*>(smem + off);
   off += align16(sizeof(float) * ncol * B);
   T* hnew = reinterpret_cast<T*>(smem + off);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   // this block's columns of r_gates, column c = (gate c / cpb, channel
   // j0 + c % cpb), each column's dh values contiguous
@@ -188,6 +127,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     creg[i] = (p < npairs && jj < nch && c0) ? c0[size_t(b) * D + j0 + jj] : 0.0f;
     hlast[i] = 0.0f;
   }
+  // column c reads h_{t-1} of the head of its flat index
+  auto h_of = [&](int c) { return hs + (((c / cpb) * D + j0 + c % cpb) / e4) * dh; };
 
   for (int t = 0; t < S; ++t) {
     // 1. this step's gx (in flight while h arrives), then h_{t-1}
@@ -205,83 +146,13 @@ __global__ void __launch_bounds__(THREADS, 1)
       const unsigned int* src = reinterpret_cast<const unsigned int*>(h0);
       for (int i = threadIdx.x; i < B * words; i += THREADS) hw[i] = h0 ? src[i] : 0u;
     } else {
-      // XW loads a thread in flight at once, then each polled until ready
-      const unsigned long long* src = xch + size_t((t - 1) & 1) * B * words;
-      const unsigned int tag = static_cast<unsigned int>(t);
-      for (int i0 = threadIdx.x; i0 < B * words; i0 += THREADS * XW) {
-        unsigned long long v[XW];
-#pragma unroll
-        for (int u = 0; u < XW; ++u) {
-          const int i = i0 + u * THREADS;
-          v[u] = i < B * words ? load_word(src + i) : 0ull;
-        }
-#pragma unroll
-        for (int u = 0; u < XW; ++u) {
-          const int i = i0 + u * THREADS;
-          if (i < B * words) {
-            if (static_cast<unsigned int>(v[u] >> 32) != tag) v[u] = poll_word(src + i, tag);
-            hw[i] = static_cast<unsigned int>(v[u]);
-          }
-        }
-      }
+      gather_words<true>(xch + size_t((t - 1) & 1) * B * words, words, B, words,
+                         static_cast<unsigned int>(t), hw);
     }
     __syncthreads();
 
-    // 2. the products: warp w takes columns w + j * WARPS, j < CPW, at once
-    // (a column past the block's reads column 0 and stores nothing); ROWS
-    // batch rows at a time share each load of a column. Every load of a
-    // step of k is issued before its FMAs, with no branch between them.
-    for (int cb = warp; cb < ncol; cb += WARPS * CPW) {
-      const T* rc[CPW];
-      const T* hh[CPW];
-#pragma unroll
-      for (int j = 0; j < CPW; ++j) {
-        const int c = cb + j * WARPS;
-        const int cc = c < ncol && c % cpb < nch ? c : 0;
-        rc[j] = rs + size_t(cc) * dh;
-        hh[j] = hs + (((cc / cpb) * D + j0 + cc % cpb) / e4) * dh;
-      }
-      for (int b0 = 0; b0 < B; b0 += ROWS) {
-        float acc[CPW][ROWS];
-#pragma unroll
-        for (int j = 0; j < CPW; ++j)
-#pragma unroll
-          for (int bb = 0; bb < ROWS; ++bb) acc[j][bb] = 0.0f;
-        for (int k = 2 * lane; k < dh; k += 64) {
-          float2 rv[CPW], hv[CPW][ROWS];
-#pragma unroll
-          for (int j = 0; j < CPW; ++j) {
-            rv[j] = N::pair(rc[j] + k);
-#pragma unroll
-            for (int bb = 0; bb < ROWS; ++bb) hv[j][bb] = N::pair(hh[j] + size_t(b0 + bb) * D + k);
-          }
-#pragma unroll
-          for (int j = 0; j < CPW; ++j)
-#pragma unroll
-            for (int bb = 0; bb < ROWS; ++bb) {
-              acc[j][bb] = fmaf(hv[j][bb].x, rv[j].x, acc[j][bb]);
-              acc[j][bb] = fmaf(hv[j][bb].y, rv[j].y, acc[j][bb]);
-            }
-        }
-#pragma unroll
-        for (int m = 16; m > 0; m >>= 1)
-#pragma unroll
-          for (int j = 0; j < CPW; ++j)
-#pragma unroll
-            for (int bb = 0; bb < ROWS; ++bb)
-              acc[j][bb] = __fadd_rn(acc[j][bb], __shfl_xor_sync(0xffffffffu, acc[j][bb], m));
-        if (lane == 0) {
-#pragma unroll
-          for (int j = 0; j < CPW; ++j) {
-            const int c = cb + j * WARPS;
-            if (c < ncol && c % cpb < nch) {
-#pragma unroll
-              for (int bb = 0; bb < ROWS; ++bb) gr[c * B + b0 + bb] = N::round(acc[j][bb]);
-            }
-          }
-        }
-      }
-    }
+    // 2. the products
+    products<T, ROWS, true>(rs, h_of, D, ncol, cpb, nch, dh, B, gr);
     __syncthreads();
 
     // 3. the cell
@@ -300,18 +171,20 @@ __global__ void __launch_bounds__(THREADS, 1)
         hlast[i] = N::to_f(h);
         hnew[p] = h;
         out[(size_t(b) * S + t) * D + j0 + jj] = h;
+        if (SAVE) {
+          T* gs = gsave + (size_t(b) * S + t) * 4 * D + j0 + jj;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) gs[size_t(q) * D] = N::from_f(g[q]);
+          csave[(size_t(b) * S + t) * D + j0 + jj] = c;
+        }
       }
     }
     // 4. publish h_t as words tagged t + 1 (no one reads the last step's)
     if (t + 1 < S) {
       __syncthreads();
-      const unsigned int* hn = reinterpret_cast<const unsigned int*>(hnew);
-      unsigned long long* dst = xch + size_t(t & 1) * B * words + j0 * int(sizeof(T)) / 4;
-      const unsigned long long tag = static_cast<unsigned long long>(t + 1) << 32;
-      for (int i = threadIdx.x; i < B * nbw; i += THREADS) {
-        const int b = i / nbw, w = i % nbw;
-        store_word(dst + size_t(b) * words + w, tag | hn[b * bwords + w]);
-      }
+      publish_words(reinterpret_cast<const unsigned int*>(hnew), bwords,
+                    xch + size_t(t & 1) * B * words + j0 * int(sizeof(T)) / 4, words, B, nbw,
+                    static_cast<unsigned int>(t + 1));
     }
   }
 
@@ -325,28 +198,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <typename T, int ROWS>
+template <typename T, int ROWS, bool SAVE>
 int launch(const void* gx, const void* r, const void* h0, const void* c0, void* out, void* h_n,
-           void* c_n, void* xch, int B, int S, int D, int nh, int cpb, cudaStream_t stream) {
-  auto kernel = slstm_scan_kernel<T, ROWS>;
-  const int dh = D / nh;
-  const size_t smem = smem_bytes(sizeof(T), B, D, dh, cpb);
-  const int grid = (D + cpb - 1) / cpb;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem)) !=
-      cudaSuccess)
-    return err;
-  // the exchange needs every block resident at once
-  if (per_sm * sms < grid) return cudaErrorCooperativeLaunchTooLarge;
-  // no tag of a step (1 .. S-1) may be found before it is written
-  const size_t xch_bytes = 2 * size_t(B) * D * sizeof(T) / 4 * sizeof(unsigned long long);
-  if ((err = cudaMemsetAsync(xch, 0, xch_bytes, stream)) != cudaSuccess) return err;
+           void* c_n, void* gsave, void* csave, void* xch, int B, int S, int D, int nh, int cpb,
+           cudaStream_t stream) {
   const T* gx_ = static_cast<const T*>(gx);
   const T* r_ = static_cast<const T*>(r);
   const T* h0_ = static_cast<const T*>(h0);
@@ -354,39 +209,40 @@ int launch(const void* gx, const void* r, const void* h0, const void* c0, void* 
   T* out_ = static_cast<T*>(out);
   T* hn_ = static_cast<T*>(h_n);
   float* cn_ = static_cast<float*>(c_n);
+  T* gs_ = static_cast<T*>(gsave);
+  float* cs_ = static_cast<float*>(csave);
   unsigned long long* xch_ = static_cast<unsigned long long*>(xch);
-  void* args[] = {&gx_, &r_, &h0_, &c0_, &out_, &hn_, &cn_, &xch_, &B, &S, &D, &nh, &cpb};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
-                                    dim3(THREADS), args, smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  void* args[] = {&gx_, &r_,  &h0_,  &c0_, &out_, &hn_, &cn_, &gs_,
+                  &cs_, &xch_, &B,   &S,   &D,    &nh,  &cpb};
+  return launch_coop(slstm_scan_kernel<T, ROWS, SAVE>, args,
+                     smem_bytes(sizeof(T), B, D, D / nh, cpb), D, cpb, xch,
+                     2 * size_t(B) * D * sizeof(T) / 4 * sizeof(unsigned long long), stream);
 }
 
 }  // namespace
 
 // gx (B, S, 4D) and r_gates (nh, D/nh, 4D/nh) in bf16 (bf16 != 0) or fp32;
 // h0 (B, D) in the same type and c0 (B, D) fp32, each or null (zeros); out
-// (B, S, D) and h_n (B, D) in gx's type, c_n (B, D) fp32; xch scratch of
-// 2 x B x D x elem / 4 words of 8 bytes. All contiguous and 16-byte aligned;
-// D a multiple of 8, D / nh even, cpb even, B x cpb <= 2048. One block per
-// cpb channels. Returns the cudaError_t of the launch
+// (B, S, D) and h_n (B, D) in gx's type, c_n (B, D) fp32; gsave (B, S, 4D)
+// in gx's type and csave (B, S, D) fp32 both or neither (null: not saved);
+// xch scratch of 2 x B x D x elem / 4 words of 8 bytes. All contiguous and
+// 16-byte aligned; D a multiple of 8, D / nh even, cpb even, B x cpb <=
+// 2048. One block per cpb channels. Returns the cudaError_t of the launch
 // (cudaErrorCooperativeLaunchTooLarge where the grid cannot be resident at
 // once).
 extern "C" int repro_slstm_scan(const void* gx, const void* r, const void* h0, const void* c0,
-                                void* out, void* h_n, void* c_n, void* xch, int B, int S,
-                                int D, int nh, int cpb, int bf16, void* stream) {
-  if (B <= 0 || S <= 0 || D <= 0 || nh <= 0 || cpb <= 0 || D % nh || D % 8 ||
-      (D / nh) % 2 || cpb % 2 || B * cpb > MAX_PAIRS * THREADS)
-    return cudaErrorInvalidValue;
+                                void* out, void* h_n, void* c_n, void* gsave, void* csave,
+                                void* xch, int B, int S, int D, int nh, int cpb, int bf16,
+                                void* stream) {
+  if (bad_shape(B, S, D, nh, cpb) || !gsave != !csave) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    if (B % 4 == 0)
-      return launch<__nv_bfloat16, 4>(gx, r, h0, c0, out, h_n, c_n, xch, B, S, D, nh, cpb, s);
-    if (B % 2 == 0)
-      return launch<__nv_bfloat16, 2>(gx, r, h0, c0, out, h_n, c_n, xch, B, S, D, nh, cpb, s);
-    return launch<__nv_bfloat16, 1>(gx, r, h0, c0, out, h_n, c_n, xch, B, S, D, nh, cpb, s);
-  }
-  if (B % 4 == 0) return launch<float, 4>(gx, r, h0, c0, out, h_n, c_n, xch, B, S, D, nh, cpb, s);
-  if (B % 2 == 0) return launch<float, 2>(gx, r, h0, c0, out, h_n, c_n, xch, B, S, D, nh, cpb, s);
-  return launch<float, 1>(gx, r, h0, c0, out, h_n, c_n, xch, B, S, D, nh, cpb, s);
+  const int rows = B % 4 == 0 ? 4 : B % 2 == 0 ? 2 : 1;
+#define SLSTM_FWD(T, R, SV) \
+  launch<T, R, SV>(gx, r, h0, c0, out, h_n, c_n, gsave, csave, xch, B, S, D, nh, cpb, s)
+#define SLSTM_FWD_ROWS(T, SV) \
+  (rows == 4 ? SLSTM_FWD(T, 4, SV) : rows == 2 ? SLSTM_FWD(T, 2, SV) : SLSTM_FWD(T, 1, SV))
+  if (bf16) return gsave ? SLSTM_FWD_ROWS(__nv_bfloat16, true) : SLSTM_FWD_ROWS(__nv_bfloat16, false);
+  return gsave ? SLSTM_FWD_ROWS(float, true) : SLSTM_FWD_ROWS(float, false);
+#undef SLSTM_FWD_ROWS
+#undef SLSTM_FWD
 }

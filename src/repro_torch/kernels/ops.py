@@ -18,10 +18,16 @@ versions.
   backward kernel, fed with the forward's h; ``rglru_scan_backward_plain``
   on the CPU) as its gradient, where the reference differentiates its
   ``associative_scan`` in XLA.
+- ``slstm_scan``: the sLSTM recurrence (no Pallas kernel: the reference's
+  ``jax.lax.scan``), with ``slstm.slstm_scan_bwd`` (fed with the saving
+  forward's g and c; ``slstm_scan_bwd_plain`` on the CPU) and
+  ``slstm.slstm_dr_gates`` as its gradient, where XLA transposes the
+  reference's scan. Where no gradient flows it calls the forward alone,
+  which saves nothing.
 
 The backwards run inside the profiler ranges
-``repro_torch.attention_backward``, ``repro_torch.rmsnorm_backward`` and
-``repro_torch.rglru_backward``.
+``repro_torch.attention_backward``, ``repro_torch.rmsnorm_backward``,
+``repro_torch.rglru_backward`` and ``repro_torch.slstm_backward``.
 
 A recompute under activation checkpointing runs the forward again, so it
 launches (and counts) the kernel again.
@@ -33,6 +39,7 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rglru as _rg
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import slstm as _sl
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -81,6 +88,27 @@ class _RGLRUScan(torch.autograd.Function):
         return da, db, dh0
 
 
+class _SLSTMScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, gx, r_gates, h0, c0):
+        hseq, h, c, g, cs = _sl.slstm_scan(gx, r_gates, h0, c0, save=True)
+        ctx.save_for_backward(r_gates, h0, c0, hseq, g, cs)
+        ctx.set_materialize_grads(False)
+        return hseq, h, c
+
+    @staticmethod
+    def backward(ctx, dy, dh_n, dc_n):
+        r_gates, h0, c0, hseq, g, cs = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with torch.profiler.record_function("repro_torch.slstm_backward"):
+            dy = torch.zeros_like(hseq) if dy is None else dy.contiguous()
+            dgx, dh0, dc0 = _sl.slstm_scan_bwd(
+                g, cs, r_gates, dy, c0, *(None if x is None else x.contiguous()
+                                          for x in (dh_n, dc_n)), need_dh0=need[2])
+            dr = _sl.slstm_dr_gates(hseq, h0, dgx, r_gates.shape[0]) if need[1] else None
+        return dgx, dr, dh0, dc0 if need[3] else None
+
+
 def flash_attention(q, k, v, causal=True, window=0, q_offset=0):
     if q_offset:
         from repro_torch.models.common import flash_attention_xla
@@ -96,3 +124,13 @@ def rglru_scan(a, b, h0=None):
 
 def rmsnorm(x, w, eps=1e-6):
     return _RMSNorm.apply(x, w, eps)
+
+
+def slstm_scan(gx, r_gates, h0=None, c0=None):
+    """gx (B, S, 4D), r_gates (nh, dh, 4dh), h0 (B, D) and c0 (B, D) fp32 or
+    None -> (h (B, S, D), the last h, the last c): ``slstm.slstm_scan``, under
+    autograd with its backward."""
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad
+                                       for x in (gx, r_gates, h0, c0)):
+        return _SLSTMScan.apply(gx, r_gates, h0, c0)
+    return _sl.slstm_scan(gx, r_gates, h0, c0)

@@ -18,9 +18,27 @@ channel ``idx % D`` (with xlstm-1.3b's 4 heads the gate is the head).
 
 ``slstm_scan`` launches the kernel on a CUDA tensor and runs
 ``slstm_scan_plain`` on a CPU tensor; it never falls back from one to the
-other. Each launch adds one to ``launches``. The kernel has no backward
-yet: on CUDA the wrapper refuses inputs that require grad while autograd
-records.
+other. Each launch adds one to ``launches``. With ``save=True`` both also
+return each step's gates g_t = gx_t + flat(gr_t) and c_t, what the
+backward reads.
+
+The backward has no TPU kernel either (the reference differentiates its
+scan in XLA). ``slstm_scan_bwd`` runs it in reverse time in
+``csrc/slstm_scan_bwd.cu`` (``repro_slstm_scan_bwd``, the forward's grid
+and exchange from ``csrc/slstm.cuh``) on a CUDA tensor and
+``slstm_scan_bwd_plain``, a reverse step loop written out by hand, on a CPU
+tensor; each launch adds one to ``launches_bwd``. Per step, with the gate
+activations recomputed from g_t as the forward rounded them:
+
+    dh_t = dy_t + dh_rec_t
+    dc_t = dc_{t+1} sigmoid(f_{t+1}) + dh_t so (1 - tanh^2 c_t)
+    dg_t = (dc_t tz si(1-si), dc_t c_{t-1} sf(1-sf), dc_t si (1-tz^2),
+            dh_t tanh(c_t) so(1-so))                  rounded to gx's dtype
+    dh_rec_{t-1} = einsum("bhe,hde->bhd", dg_t, r_gates)     fp32 sums
+
+``slstm_dr_gates`` is r_gates' gradient, one large product over all steps
+(``torch.einsum``, as the reference leaves it to XLA). ``ops.slstm_scan``
+joins the two directions in an autograd function.
 """
 from __future__ import annotations
 
@@ -28,90 +46,172 @@ import ctypes
 
 import torch
 
-launches = 0          # kernel launches since the last reset
+launches = 0          # forward kernel launches since the last reset
+launches_bwd = 0      # backward kernel launches since the last reset
 meta_flops = 0        # FLOPs of the calls on meta tensors (the dry run)
-_fn = None
+_fns: dict = {}
 
-# The kernel's block (csrc/slstm_scan.cu): THREADS threads, each keeping c
+# The kernels' block (csrc/slstm.cuh): THREADS threads, each keeping c
 # for up to MAX_PAIRS (batch row, channel) pairs.
 THREADS, MAX_PAIRS = 512, 4
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-# C symbol and argument types
-KERNEL = ("repro_slstm_scan", [_VP] * 8 + [_I] * 6 + [_VP])
+# C symbols and argument types: the forward (csrc/slstm_scan.cu) and the
+# backward (csrc/slstm_scan_bwd.cu), each named after its source
+KERNEL = ("repro_slstm_scan", [_VP] * 10 + [_I] * 6 + [_VP])
+KERNEL_BWD = ("repro_slstm_scan_bwd", [_VP] * 11 + [_I] * 6 + [_VP])
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(which=KERNEL):
+    if which[0] not in _fns:
         from repro_torch.kernels import _build
 
-        symbol, argtypes = KERNEL
-        fn = getattr(_build.load("slstm_scan"), symbol)
+        symbol, argtypes = which
+        fn = getattr(_build.load(symbol.removeprefix("repro_")), symbol)
         fn.argtypes = argtypes
         fn.restype = _I
-        _fn = fn
-    return _fn
+        _fns[symbol] = fn
+    return _fns[which[0]]
 
 
-def slstm_cell(gx, h_prev, c_prev, r_gates, nh, dh):
-    """One step, the reference's ``_slstm_cell``: gx (B, 4D) the input
-    gates; h_prev (B, D) and r_gates in the activations' dtype, c_prev (B, D)
-    fp32. Returns (h, c), h before its cast."""
+def _acc(dt):
+    """c's dtype and the backward's: fp32, or fp64 for fp64 activations
+    (the gradient checks)."""
+    return torch.promote_types(dt, torch.float32)
+
+
+def _gates(gx, h_prev, r_gates, nh, dh):
+    """The first half of the reference's ``_slstm_cell``: g = gx + flat(gr)
+    (B, 4D), gr the per-head product of h_prev (B, D) and r_gates, both in
+    the activations' dtype."""
     b = gx.shape[0]
     gr = torch.einsum("bhd,hde->bhe", h_prev.reshape(b, nh, dh), r_gates)
-    g = gx + gr.reshape(b, -1)
+    return gx + gr.reshape(b, -1)
+
+
+def _cell(g, c_prev):
+    """Its second half, from g and c_prev (B, D) fp32: (h before its cast,
+    c)."""
     i, f, z, o = torch.chunk(g, 4, dim=-1)
     c = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(z)
-    h = torch.sigmoid(o) * torch.tanh(c)
-    return h, c
+    return torch.sigmoid(o) * torch.tanh(c), c
 
 
-def slstm_scan_plain(gx, r_gates, h0=None, c0=None):
+def slstm_scan_plain(gx, r_gates, h0=None, c0=None, save=False):
     """The cell over the S steps of gx (B, S, 4D) as a loop in plain
     PyTorch, from h0 (B, D) in gx's dtype and c0 (B, D) fp32 or zeros.
-    Returns (h (B, S, D) in gx's dtype, the last h, the last c fp32)."""
-    dt = gx.dtype
+    Returns (h (B, S, D) in gx's dtype, the last h, the last c fp32), and
+    with ``save`` also g (B, S, 4D) in gx's dtype and c (B, S, D) fp32."""
+    dt, acc = gx.dtype, _acc(gx.dtype)
     b, s, d4 = gx.shape
     nh, dh = r_gates.shape[:2]
     h = gx.new_zeros((b, d4 // 4)) if h0 is None else h0
-    c = gx.new_zeros((b, d4 // 4), dtype=torch.float32) if c0 is None else c0
-    hs = []
+    c = gx.new_zeros((b, d4 // 4), dtype=acc) if c0 is None else c0
+    hs, gs, cs = [], [], []
     for t in range(s):
-        h2, c = slstm_cell(gx[:, t], h, c.float(), r_gates, nh, dh)
+        g = _gates(gx[:, t], h, r_gates, nh, dh)
+        h2, c = _cell(g, c.to(acc))
         h = h2.to(dt)
         hs.append(h)
+        if save:
+            gs.append(g)
+            cs.append(c)
     out = torch.stack(hs, dim=1) if hs else gx.new_empty((b, 0, d4 // 4))
-    return out, h, c
+    if not save:
+        return out, h, c
+    return (out, h, c, torch.stack(gs, dim=1) if gs else gx.new_empty((b, 0, d4)),
+            torch.stack(cs, dim=1) if cs else gx.new_empty((b, 0, d4 // 4), dtype=acc))
+
+
+def slstm_scan_bwd_plain(g, c, r_gates, dy, c0=None, dh_n=None, dc_n=None, need_dh0=True):
+    """The backward as a reverse step loop in plain PyTorch (the arithmetic
+    of ``repro_slstm_scan_bwd``, not autograd): g (B, S, 4D) and c (B, S, D)
+    from the saving forward, c0 the forward's (or None: zeros), dy (B, S, D)
+    the cotangent of h, dh_n and dc_n those of the last state (or None).
+    Returns (dgx (B, S, 4D) in g's dtype, dh0 (B, D) in g's dtype or None
+    where not ``need_dh0``, dc0 (B, D) fp32)."""
+    dt, acc = g.dtype, _acc(g.dtype)
+    b, s, d4 = g.shape
+    d = d4 // 4
+    nh, dh = r_gates.shape[:2]
+    r = r_gates.to(acc)
+    dgx = torch.empty_like(g)
+    dhr = g.new_zeros((b, d), dtype=acc) if dh_n is None else dh_n.to(acc)
+    dc = g.new_zeros((b, d), dtype=acc) if dc_n is None else dc_n.to(acc)
+    for t in reversed(range(s)):
+        gi, gf, gz, go = torch.chunk(g[:, t], 4, dim=-1)
+        si, sf, so = (torch.sigmoid(x).to(acc) for x in (gi, gf, go))
+        tz = torch.tanh(gz).to(acc)
+        tc = torch.tanh(c[:, t])
+        cp = c[:, t - 1] if t else (g.new_zeros((b, d), dtype=acc) if c0 is None else c0)
+        dh_t = dy[:, t].to(acc) + dhr
+        dc = dc + dh_t * so * (1 - tc * tc)
+        dg = torch.cat([dc * tz * (si * (1 - si)), dc * cp * (sf * (1 - sf)),
+                        dc * si * (1 - tz * tz), dh_t * tc * (so * (1 - so))], dim=-1).to(dt)
+        dc = dc * sf
+        dgx[:, t] = dg
+        if t or need_dh0:
+            dhr = torch.einsum("bhe,hde->bhd", dg.to(acc).reshape(b, nh, 4 * dh),
+                               r).reshape(b, d)
+    return dgx, dhr.to(dt) if need_dh0 else None, dc
+
+
+def slstm_dr_gates(hseq, h0, dgx, nh):
+    """r_gates' gradient: per head, the sum over b and t of h_{t-1} x dg_t,
+    h_{-1} = h0 (or zeros), one product over all steps."""
+    b, s, d = hseq.shape
+    h_prev = torch.cat([hseq.new_zeros((b, 1, d)) if h0 is None else h0[:, None],
+                        hseq[:, :-1]], dim=1)
+    return torch.einsum("bshd,bshe->hde", h_prev.reshape(b, s, nh, d // nh),
+                        dgx.reshape(b, s, nh, 4 * d // nh))
 
 
 def flops(b, s, nh, dh) -> int:
     """The products' FLOPs, ``2 B S nh dh 4dh``: what the dry run's counter
     (``torch.utils.flop_counter``) counts for the plain loop, whose
-    elementwise cell it does not count."""
+    elementwise cell it does not count. The backward's recurrent product
+    over s steps counts the same."""
     return 2 * b * s * nh * dh * 4 * dh
 
 
+def _a16(n):
+    return (n + 15) // 16 * 16
+
+
 def smem_bytes(elem: int, b: int, d: int, dh: int, cpb: int) -> int:
-    """Shared-memory bytes of one block (``smem_bytes`` in the source): its
-    4 x cpb columns of r_gates, h_{t-1}, the products and its new h."""
-    def a16(n):
-        return (n + 15) // 16 * 16
-    return (a16(elem * 4 * cpb * dh) + a16(elem * b * d) + a16(4 * 4 * cpb * b)
-            + a16(elem * b * cpb))
+    """Shared-memory bytes of one forward block (``smem_bytes`` in the
+    source): its 4 x cpb columns of r_gates, h_{t-1}, the products and its
+    new h."""
+    return (_a16(elem * 4 * cpb * dh) + _a16(elem * b * d) + _a16(4 * 4 * cpb * b)
+            + _a16(elem * b * cpb))
 
 
-def plan(b: int, d: int, dh: int, elem: int, sms: int) -> tuple[int, int, int]:
+def heads_spanned(d: int, dh: int, cpb: int) -> int:
+    """The most heads that one block's channels lie in."""
+    return max((min(j0 + cpb, d) - 1) // dh - j0 // dh + 1 for j0 in range(0, d, cpb))
+
+
+def smem_bytes_bwd(elem: int, b: int, d: int, dh: int, cpb: int) -> int:
+    """Shared-memory bytes of one backward block (``smem_bytes_bwd`` in the
+    source): its rows of r_gates, dg_t of its heads, the products and its
+    own dg_t."""
+    return (_a16(elem * 4 * cpb * dh) + _a16(elem * b * heads_spanned(d, dh, cpb) * 4 * dh)
+            + _a16(4 * 4 * cpb * b) + _a16(elem * b * 4 * cpb))
+
+
+def plan(b: int, d: int, dh: int, elem: int, sms: int, *,
+         smem_fn=smem_bytes) -> tuple[int, int, int]:
     """(channels a block, blocks, shared bytes a block) on a card of ``sms``
     SMs: the fewest channels a block, rounded up to even (a block publishes
-    its h in 4-byte words), that keep the grid within one block an SM, as
-    the exchange between blocks needs. Raises where the kernel cannot take
-    the shapes."""
+    its values in 4-byte words), that keep the grid within one block an SM,
+    as the exchange between blocks needs. ``smem_fn`` is the forward's
+    ``smem_bytes`` or the backward's ``smem_bytes_bwd``. Raises where the
+    kernel cannot take the shapes."""
     cpb = -(-d // sms)
     cpb += cpb % 2
     grid = -(-d // cpb)
-    smem = smem_bytes(elem, b, d, dh, cpb)
+    smem = smem_fn(elem, b, d, dh, cpb)
     if b * cpb > MAX_PAIRS * THREADS:
         raise ValueError(f"slstm_scan: batch {b} x {cpb} channels a block exceeds "
                          f"{MAX_PAIRS * THREADS} (row, channel) pairs")
@@ -121,80 +221,153 @@ def plan(b: int, d: int, dh: int, elem: int, sms: int) -> tuple[int, int, int]:
     return cpb, grid, smem
 
 
-def _check(gx, r_gates, h0, c0):
-    """Raise unless the inputs are as the kernel takes them."""
-    named = {"gx": gx, "r_gates": r_gates, "h0": h0, "c0": c0}
+def _check(named: dict, dt, fp32: tuple, what="slstm_scan"):
+    """Raise unless the tensors ``named`` (None: absent) lie on one CUDA
+    device, are contiguous and 16-byte aligned, and are in ``dt`` (bf16 or
+    fp32), those named in ``fp32`` in fp32."""
     named = {k: v for k, v in named.items() if v is not None}
-    if not (gx.is_cuda and all(x.device == gx.device for x in named.values())):
-        raise ValueError("slstm_scan: gx, r_gates, h0, c0 must lie on one CUDA device "
+    first = next(iter(named.values()))
+    if not (first.is_cuda and all(x.device == first.device for x in named.values())):
+        raise ValueError(f"{what}: {', '.join(named)} must lie on one CUDA device "
                          f"(got {[str(x.device) for x in named.values()]})")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in named.values()):
-        raise ValueError("slstm_scan: the kernel has no backward; run slstm_scan_plain "
-                         "where a gradient flows")
-    dt = gx.dtype
-    if dt not in (torch.bfloat16, torch.float32) or r_gates.dtype != dt or (
-            h0 is not None and h0.dtype != dt) or (
-            c0 is not None and c0.dtype != torch.float32):
-        raise ValueError("slstm_scan: gx, r_gates and h0 must share bf16 or fp32 and "
-                         f"c0 be fp32 (got {[x.dtype for x in named.values()]})")
-    b, _, d4 = gx.shape if gx.dim() == 3 else (0, 0, 0)
-    d = d4 // 4
-    if gx.dim() != 3 or d4 % 4 or r_gates.dim() != 3 or (
-            r_gates.shape[0] * r_gates.shape[1] != d) or (
-            r_gates.shape[2] != 4 * r_gates.shape[1]) or any(
-            x is not None and x.shape != (b, d) for x in (h0, c0)):
-        raise ValueError("slstm_scan: bad shapes " + ", ".join(
-            f"{n} {tuple(x.shape)}" for n, x in named.items()))
-    if d % 8 or r_gates.shape[1] % 2:
-        raise ValueError(f"slstm_scan: width {d} must be a multiple of 8 and head dim "
-                         f"{r_gates.shape[1]} even")
+    if dt not in (torch.bfloat16, torch.float32) or any(
+            x.dtype != (torch.float32 if k in fp32 else dt) for k, x in named.items()):
+        raise ValueError(f"{what}: {', '.join(k for k in named if k not in fp32)} must "
+                         f"share bf16 or fp32 and {', '.join(fp32)} be fp32 (got "
+                         f"{[x.dtype for x in named.values()]})")
     if not all(x.is_contiguous() and x.data_ptr() % 16 == 0 for x in named.values()):
-        raise ValueError("slstm_scan: gx, r_gates, h0, c0 must be contiguous and "
-                         "16-byte aligned")
+        raise ValueError(f"{what}: {', '.join(named)} must be contiguous and 16-byte "
+                         "aligned")
 
 
-def slstm_scan(gx, r_gates, h0=None, c0=None):
+def _check_shapes(what, named, b, s, d, r_gates, **extra):
+    """Raise unless r_gates is (nh, D/nh, 4D/nh) and each tensor of
+    ``named`` has the shape given for it: ``bd`` (B, D), ``bsd`` (B, S, D)
+    or ``bs4d`` (B, S, 4D)."""
+    shapes = {"bd": (b, d), "bsd": (b, s, d), "bs4d": (b, s, 4 * d)}
+    if r_gates.dim() != 3 or r_gates.shape[0] * r_gates.shape[1] != d or (
+            r_gates.shape[2] != 4 * r_gates.shape[1]) or any(
+            x is not None and tuple(x.shape) != shapes[named[k]] for k, x in extra.items()):
+        raise ValueError(f"{what}: bad shapes " + ", ".join(
+            f"{n} {tuple(x.shape)}" for n, x in {"r_gates": r_gates, **extra}.items()
+            if x is not None))
+    if d % 8 or r_gates.shape[1] % 2:
+        raise ValueError(f"{what}: width {d} must be a multiple of 8 and head dim "
+                         f"{r_gates.shape[1]} even")
+
+
+def _on_meta(*xs):
+    return all(x is None or x.is_meta for x in xs)
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _sms(x):
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
+
+
+def slstm_scan(gx, r_gates, h0=None, c0=None, save=False):
     """gx (B, S, 4D) and r_gates (nh, dh, 4dh) in bf16 or fp32, h0 (B, D) in
     their dtype and c0 (B, D) fp32, each or None (zeros) -> (h (B, S, D),
-    the last h (B, D), the last c (B, D) fp32).
+    the last h (B, D), the last c (B, D) fp32), and with ``save`` also g (B,
+    S, 4D) in gx's dtype and c (B, S, D) fp32 for the backward.
 
     CUDA tensors go to the kernel, CPU tensors to ``slstm_scan_plain``;
     meta tensors (the dry run) get empty outputs and the products' FLOPs in
     ``meta_flops``; tensors elsewhere raise."""
     global launches, meta_flops
     if gx.device.type == "cpu":
-        return slstm_scan_plain(gx, r_gates, h0, c0)
-    if all(x is None or x.is_meta for x in (gx, r_gates, h0, c0)):
-        b, s, d4 = gx.shape
-        meta_flops += flops(b, s, *r_gates.shape[:2])
-        return (gx.new_empty((b, s, d4 // 4)), gx.new_empty((b, d4 // 4)),
-                gx.new_empty((b, d4 // 4), dtype=torch.float32))
-    _check(gx, r_gates, h0, c0)
-    b, s, d4 = gx.shape
+        return slstm_scan_plain(gx, r_gates, h0, c0, save=save)
+    b, s, d4 = gx.shape if gx.dim() == 3 else (0, 0, 0)
     d = d4 // 4
+    saved = ((gx.new_empty((b, s, d4)), gx.new_empty((b, s, d), dtype=torch.float32))
+             if save else ())
+    if _on_meta(gx, r_gates, h0, c0):
+        meta_flops += flops(b, s, *r_gates.shape[:2])
+        return (gx.new_empty((b, s, d)), gx.new_empty((b, d)),
+                gx.new_empty((b, d), dtype=torch.float32), *saved)
+    _check({"gx": gx, "r_gates": r_gates, "h0": h0, "c0": c0}, gx.dtype, ("c0",))
+    if gx.dim() != 3 or d4 % 4:
+        raise ValueError(f"slstm_scan: bad shapes gx {tuple(gx.shape)}")
+    _check_shapes("slstm_scan", {"h0": "bd", "c0": "bd"}, b, s, d, r_gates, h0=h0, c0=c0)
     out = gx.new_empty((b, s, d))
     h_n = gx.new_empty((b, d))
     c_n = gx.new_empty((b, d), dtype=torch.float32)
     if s == 0 or b == 0:
         return (out, h_n.copy_(h0) if h0 is not None else h_n.zero_(),
-                c_n.copy_(c0) if c0 is not None else c_n.zero_())
+                c_n.copy_(c0) if c0 is not None else c_n.zero_(), *saved)
     nh, dh = r_gates.shape[:2]
-    sms = torch.cuda.get_device_properties(gx.device).multi_processor_count
-    cpb, _, _ = plan(b, d, dh, gx.element_size(), sms)
+    cpb, _, _ = plan(b, d, dh, gx.element_size(), _sms(gx))
     # the blocks' exchange of h: two buffers of B x D values in 8-byte words
     # of 4 data bytes and a tag
     xch = torch.empty(2 * b * d * gx.element_size() // 4, dtype=torch.int64,
                       device=gx.device)
+    g_ptr, c_ptr = (saved[0].data_ptr(), saved[1].data_ptr()) if save else (None, None)
     fn = _kernel()
     with torch.cuda.device(gx.device):
-        err = fn(gx.data_ptr(), r_gates.data_ptr(),
-                 None if h0 is None else h0.data_ptr(),
-                 None if c0 is None else c0.data_ptr(), out.data_ptr(), h_n.data_ptr(),
-                 c_n.data_ptr(), xch.data_ptr(), b, s, d, nh, cpb,
-                 int(gx.dtype == torch.bfloat16),
+        err = fn(gx.data_ptr(), r_gates.data_ptr(), _ptr(h0), _ptr(c0), out.data_ptr(),
+                 h_n.data_ptr(), c_n.data_ptr(), g_ptr, c_ptr, xch.data_ptr(), b, s, d, nh,
+                 cpb, int(gx.dtype == torch.bfloat16),
                  torch.cuda.current_stream(gx.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"slstm_scan kernel launch failed: cudaError {err} (720: "
                            "the grid cannot be resident at once)")
     launches += 1
-    return out, h_n, c_n
+    return out, h_n, c_n, *saved
+
+
+def slstm_scan_bwd(g, c, r_gates, dy, c0=None, dh_n=None, dc_n=None, need_dh0=True):
+    """The backward of ``slstm_scan``: g (B, S, 4D) and c (B, S, D) fp32 from
+    the saving forward, r_gates, c0 (B, D) fp32 or None, dy (B, S, D) in g's
+    dtype, dh_n (B, D) in g's dtype and dc_n (B, D) fp32 or None -> (dgx (B,
+    S, 4D), dh0 (B, D) or None where not ``need_dh0``, dc0 (B, D) fp32).
+
+    CUDA tensors go to the kernel, CPU tensors to ``slstm_scan_bwd_plain``;
+    meta tensors get empty outputs and, in ``meta_flops``, the recurrent
+    product's FLOPs, which ``flop_counter`` counts for the plain loop's
+    backward (dh_{t-1} at steps 1 .. S-1, and at step 0 where dh0 is asked
+    for); tensors elsewhere raise."""
+    global launches_bwd, meta_flops
+    if g.device.type == "cpu":
+        return slstm_scan_bwd_plain(g, c, r_gates, dy, c0, dh_n, dc_n, need_dh0)
+    b, s, d4 = g.shape if g.dim() == 3 else (0, 0, 0)
+    d = d4 // 4
+    dgx = torch.empty_like(g)
+    dh0 = g.new_empty((b, d)) if need_dh0 else None
+    dc0 = g.new_empty((b, d), dtype=torch.float32)
+    if _on_meta(g, c, r_gates, dy, c0, dh_n, dc_n):
+        meta_flops += flops(b, max(s - 1 + int(need_dh0), 0), *r_gates.shape[:2])
+        return dgx, dh0, dc0
+    named = {"g": g, "c": c, "r_gates": r_gates, "dy": dy, "c0": c0, "dh_n": dh_n,
+             "dc_n": dc_n}
+    _check(named, g.dtype, ("c", "c0", "dc_n"), "slstm_scan_bwd")
+    if g.dim() != 3 or d4 % 4:
+        raise ValueError(f"slstm_scan_bwd: bad shapes g {tuple(g.shape)}")
+    _check_shapes("slstm_scan_bwd", {"c": "bsd", "dy": "bsd", "c0": "bd", "dh_n": "bd",
+                                     "dc_n": "bd"}, b, s, d, r_gates, c=c, dy=dy, c0=c0,
+                  dh_n=dh_n, dc_n=dc_n)
+    nh, dh = r_gates.shape[:2]
+    if nh > 4:
+        raise ValueError(f"slstm_scan_bwd: {nh} heads; the kernel's exchange takes at "
+                         "most 4 (a head's gates must span the width)")
+    if s == 0 or b == 0:
+        if dh0 is not None:
+            dh0.copy_(dh_n) if dh_n is not None else dh0.zero_()
+        return dgx, dh0, dc0.copy_(dc_n) if dc_n is not None else dc0.zero_()
+    cpb, _, _ = plan(b, d, dh, g.element_size(), _sms(g), smem_fn=smem_bytes_bwd)
+    # the exchange of dg: two buffers of B x 4D values in tagged words
+    xch = torch.empty(2 * b * d4 * g.element_size() // 4, dtype=torch.int64,
+                      device=g.device)
+    fn = _kernel(KERNEL_BWD)
+    with torch.cuda.device(g.device):
+        err = fn(g.data_ptr(), c.data_ptr(), _ptr(c0), r_gates.data_ptr(), dy.data_ptr(),
+                 _ptr(dh_n), _ptr(dc_n), dgx.data_ptr(), _ptr(dh0), dc0.data_ptr(),
+                 xch.data_ptr(), b, s, d, nh, cpb, int(g.dtype == torch.bfloat16),
+                 torch.cuda.current_stream(g.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"slstm_scan_bwd kernel launch failed: cudaError {err} (720: "
+                           "the grid cannot be resident at once)")
+    launches_bwd += 1
+    return dgx, dh0, dc0

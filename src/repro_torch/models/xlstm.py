@@ -11,15 +11,17 @@ chunks a carried matrix state C (NH, dh, dh) and normalizer n (NH, dh):
 
 with sigmoid input and forget gates, as in the reference. sLSTM is a
 per-head recurrent cell over time (``jax.lax.scan`` in the reference; here
-the kernel ``kernels.slstm.slstm_scan`` where no gradient flows, the plain
-step loop under autograd), with an O(1) decode state. The layers of each period (7 mLSTM
-blocks stacked, then one sLSTM block) are stacked again over the periods
-under ``"periods"``, in the reference's layout.
+``kernels.ops.slstm_scan`` on every route: the hand-written kernel on the
+card, with its backward kernel under autograd), with an O(1) decode state.
+The layers of each period (7 mLSTM blocks stacked, then one sLSTM block)
+are stacked again over the periods under ``"periods"``, in the reference's
+layout.
 
 No Pallas kernel of the reference is in this family: on a CUDA tensor it
 runs K2 (``rms_norm``), twice per block and once before the head, and the
-sLSTM recurrence kernel once per sLSTM block of a prefill or decode step;
-the rest is plain PyTorch.
+sLSTM recurrence kernel once per sLSTM block of a prefill or decode step,
+and in training once per sLSTM block in the forward and again in the
+recompute, and its backward kernel once; the rest is plain PyTorch.
 
 Under a ``mesh_context`` with a ``DeviceMesh`` the reference's constraint
 points apply (``up`` and the sLSTM's input gates on "tp", the block outputs
@@ -46,7 +48,7 @@ from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import slstm
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as tr
 from repro_torch.models.common import (
     _replicated_local,
@@ -299,22 +301,15 @@ def _slstm_loop(p, gx, state, cfg: ModelConfig):
     """The sLSTM cell over the S steps of gx (B,S,4D) on plain tensors;
     returns h (B,S,D) and writes ``state`` in place.
 
-    The route is fixed by autograd, not by failure: where no gradient flows
-    (serving, sharded serving on local rows, the S = 1 decode step, the dry
-    run's prefill) the whole scan is one ``kernels.slstm.slstm_scan``, the
-    hand-written kernel on the card; under autograd it is
-    ``slstm_scan_plain``, the step loop, until the kernel has a backward."""
+    Every route (training and its recompute, serving, sharded serving on
+    local rows, the S = 1 decode step, the dry run) runs the whole scan as
+    one ``kernels.ops.slstm_scan``: the hand-written kernel on the card,
+    and under autograd its backward kernel too."""
     dt = gx.dtype
     r_gates = p["r_gates"].to(dt)          # cast once, not on every step
     h0, c0 = (None, None) if state is None else (state["h"].to(dt), state["c"])
-    grad = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (gx, r_gates, h0, c0))
-    if grad:
-        hseq, h, c = slstm.slstm_scan_plain(gx, r_gates, h0, c0)
-    else:
-        hseq, h, c = slstm.slstm_scan(
-            gx.contiguous(), r_gates.contiguous(),
-            *(None if t is None else t.contiguous() for t in (h0, c0)))
+    hseq, h, c = ops.slstm_scan(gx.contiguous(), r_gates.contiguous(),
+                                *(None if t is None else t.contiguous() for t in (h0, c0)))
     if state is not None:
         state["h"].copy_(h)
         state["c"].copy_(c)

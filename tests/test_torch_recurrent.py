@@ -44,7 +44,7 @@ DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 ZERO_LAUNCHES = {"flash_attention": 0, "rmsnorm": 0, "rglru_scan": 0,
                  "slstm_scan": 0, "flash_attention_sm90": 0, "flash_attention_bwd": 0,
                  "flash_attention_bwd_sm90": 0, "rmsnorm_bwd": 0,
-                 "rglru_scan_bwd": 0}
+                 "rglru_scan_bwd": 0, "slstm_scan_bwd": 0}
 
 
 def _cfgs(dtype="float32"):

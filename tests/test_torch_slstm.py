@@ -10,7 +10,8 @@ up to 64, with and without a state. Tolerances: fp32 1e-5 (the scan's,
 ``tests/test_kernels.py``), bf16 2e-2. The gate mapping is the reference's
 flat split of the per-head product, checked against a planted per-head
 split that a head-local kernel would compute, and the kernel's column
-layout (``csrc/slstm_scan.cu``) is mirrored here in numpy.
+layout (``csrc/slstm_scan.cu``) is mirrored here in numpy. The backward's
+tests are in ``test_torch_slstm_bwd.py``.
 """
 import ctypes
 import re
@@ -155,11 +156,13 @@ def test_apply_slstm_matches_the_reference(grad, monkeypatch):
     """One sLSTM block of the reduced xlstm-1.3b through the bridge's
     weights: 20 steps from zeros, then 5 steps and one step from the
     carried state, against the reference's ``apply_slstm`` (fp32, 1e-5).
-    Under autograd the model runs ``slstm_scan_plain`` and
-    ``slstm_scan`` never; under ``no_grad`` one ``slstm_scan`` a block."""
+    One ``slstm_scan`` a block either way: under autograd through
+    ``ops.slstm_scan``'s autograd function (the saving forward), under
+    ``no_grad`` directly."""
     calls = []
     wrapper = slstm.slstm_scan
-    monkeypatch.setattr(slstm, "slstm_scan", lambda *a: calls.append(1) or wrapper(*a))
+    monkeypatch.setattr(slstm, "slstm_scan",
+                        lambda *a, **kw: calls.append(1) or wrapper(*a, **kw))
     jcfg, tcfg = cfgs("xlstm-1.3b")
     jp, _ = params(jcfg)
     jl = jax.tree.map(lambda a: a[0], jp["periods"]["slstm"])
@@ -179,7 +182,7 @@ def test_apply_slstm_matches_the_reference(grad, monkeypatch):
             close(out, jout, TOL["float32"])
     for key, val in tstate.items():
         close(val, jstate[key], 2e-2 if val.dtype == torch.bfloat16 else TOL["float32"])
-    assert len(calls) == (0 if grad else 3)
+    assert len(calls) == 3
 
 
 def test_meta_branch_counts_the_plain_loops_flops():
@@ -228,6 +231,7 @@ def test_source_exports_the_symbol_the_wrapper_binds():
     symbol, argtypes = slstm.KERNEL
     text = (_build.CSRC / "slstm_scan.cu").read_text()
     found = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', text)
+    text += (_build.CSRC / "slstm.cuh").read_text()      # the shared constants
     assert found, f"slstm_scan.cu does not export {symbol}"
     declared = [ctypes.c_void_p if "*" in p else ctypes.c_int
                 for p in (p.strip() for p in found.group(1).split(","))]
