@@ -15,7 +15,8 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    the forward's sm90 kernel for bf16 at head dim 64-256 and SIMT kernel for
    the rest, the backward's sm90 kernel for bf16 at head dim 64, 128 and 256
    and SIMT kernel for the rest; K3 the RG-LRU scan, forward and
-   backward; and the sLSTM recurrence, forward and backward; with ``nvcc`` for
+   backward; the sLSTM recurrence, forward and backward; and the mLSTM's
+   chunk recurrence; with ``nvcc`` for
    sm_90a, one process each, started together; K2 RMSNorm's forward and
    backward with Triton), report each library's ptxas lines and its HGMMA /
    UTMALDG / SYNCS instruction counts from ``cuobjdump -sass``, and hold
@@ -130,10 +131,12 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    non-causal encoder, 24 non-causal cross-attention with S 432 and T
    1500, 24 causal self-attention; all sm90, tallied by shape), K2 122 per
    prefill and 73 per decode step; xlstm-1.3b whole (48 blocks, 4 x 2048
-   tokens: 8 mLSTM chunks, each sLSTM block's 2,048 steps one kernel
-   launch), no K1, K2 97 and the sLSTM kernel 6 per prefill and per decode
-   step, its prefill ms printed beside the 4,616 ms the sLSTM's Python loop
-   took (``XLSTM_LOOP_PREFILL_MS``),
+   tokens: each mLSTM block's 8 chunks one kernel launch, each sLSTM
+   block's 2,048 steps one kernel launch), no K1, K2 97 and the sLSTM
+   kernel 6 per prefill and per decode step, the mLSTM chunk kernel 42 per
+   prefill and none per decode step, its prefill ms printed beside the
+   4,616 ms the sLSTM's Python loop took (``XLSTM_LOOP_PREFILL_MS``) and
+   the 490.6 ms of the mLSTM's grouped loop (``XLSTM_GROUPED_PREFILL_MS``),
    checked against teacher forcing in bf16 (1e-1) and fp32 (3e-2); each of
    these five also served on the one-rank NCCL mesh right after its
    single-device run, on the same weights with no copy
@@ -422,12 +425,21 @@ XLSTM_D = dict(d_model=2048, inner=4096, prompt=2048, blocks=48)
 # (this script on an H100 80GB HBM3 at 700 W, before the sLSTM kernel),
 # printed beside the kernel's
 XLSTM_LOOP_PREFILL_MS = 4616
+# and with the sLSTM kernel but the mLSTM's chunk loop as grouped torch ops,
+# 32 chunks a batch (the same script and card, before the mLSTM kernel)
+XLSTM_GROUPED_PREFILL_MS = 490.6
 # the sLSTM kernel on xlstm-1.3b's paths: gx (B, S, 4 x d_model), r_gates (4
 # heads, 512, 2048); its gates against slstm_scan_plain: fp32 max abs, bf16
 # relative L2 of h and of the last c
 SLSTM_HEADS = 4
 XLSTM_GX = (BATCH, XLSTM_D["prompt"], 4 * XLSTM_D["d_model"])
 SLSTM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the mLSTM's chunk kernel on xlstm-1.3b's paths: q, k, v (B, S, 4 heads,
+# 1024); against mlstm_carry_plain: fp32 max abs of h, C and n, bf16 their
+# relative L2
+MLSTM_HEADS, MLSTM_DH = 4, 1024
+XLSTM_QKV = (BATCH, XLSTM_D["prompt"], MLSTM_HEADS, MLSTM_DH)
+MLSTM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # deepseek-moe-16b's training step: full width cut to 4 of its 28 layers
 # (2.77 B params: fp32 params, grads, m and v 44 GB), 4 x 1024, 3 steps;
 # K1 at q, k/v (4, 1024, 16, 128) (a GQA group of 1), K2 at (4, 1024, 2048)
@@ -529,6 +541,8 @@ P32K_X, L500K_X, T4K_X = (P32K_B, P32K_S, 4096), (1, L500K_S, HYB["d_model"]), (
 # loop on the first and the last SLSTM_WINDOW steps (the loop over all
 # 524,288 steps would take some 6 M launches)
 L500K_GX, SLSTM_WINDOW = (1, L500K_S, 4 * XLSTM_D["d_model"]), 4096
+# and the mLSTM chunk kernel's q, k, v there (2,048 chunks of 256)
+L500K_QKV = (1, L500K_S, MLSTM_HEADS, MLSTM_DH)
 # the prompt of the profiled xlstm-1.3b prefill (1/16 of long_500k's, the
 # same blocks and chunk loop)
 XLSTM_PROFILE_S = L500K_S // 16
@@ -739,7 +753,8 @@ def phase_kernels(state):
     from repro_torch.kernels import rmsnorm as rn
 
     sources = ["flash_attention_sm90", "flash_attention", "flash_attention_bwd_sm90",
-               "flash_attention_bwd", "rglru_scan", "slstm_scan", "slstm_scan_bwd"]
+               "flash_attention_bwd", "rglru_scan", "slstm_scan", "slstm_scan_bwd",
+               "mlstm_scan"]
     t0 = time.perf_counter()
     libs = _build.build(sources)
     build_s = time.perf_counter() - t0
@@ -917,6 +932,8 @@ def phase_kernels(state):
     _slstm_checks(state)
     torch.cuda.empty_cache()
     _slstm_bwd_checks(state)
+    torch.cuda.empty_cache()
+    _mlstm_checks(state)
     torch.cuda.empty_cache()
 
 
@@ -1127,6 +1144,117 @@ def _slstm_checks(state):
         torch.cuda.empty_cache()
     emit(slstm_checks=checks)
     errs["slstm_scan_xlstm"] = max(errs["slstm_scan_xlstm"])
+
+
+def _mlstm_inputs(gen, shape, dt, with_state):
+    """The mLSTM chunk recurrence's inputs at (b, s, nh, dh): q and v normal
+    and k normal / sqrt(dh) (the block's scaling) in ``dt``; the input gate
+    sigmoid(normal) and the log forget gate logsigmoid(normal + 3) (the
+    forget bias) fp32; C0 and n0 normal x 0.1 fp32, or zeros."""
+    import torch
+    import torch.nn.functional as F
+
+    b, s, nh, dh = shape
+    q, v = _randn(gen, shape, dt), _randn(gen, shape, dt)
+    k = (torch.randn(shape, generator=gen, device="cuda") / math.sqrt(dh)).to(dt)
+    i = torch.sigmoid(torch.randn((b, s, nh), generator=gen, device="cuda"))
+    logf = F.logsigmoid(torch.randn((b, s, nh), generator=gen, device="cuda") + 3.0)
+    scale = 0.1 if with_state else 0.0
+    C0 = torch.randn((b, nh, dh, dh), generator=gen, device="cuda") * scale
+    n0 = torch.randn((b, nh, dh), generator=gen, device="cuda") * scale
+    return q, k, v, i, logf, C0, n0
+
+
+def _mlstm_carry_args(inputs):
+    """``mlstm_carry``'s arguments from ``_mlstm_inputs``: the intra terms
+    (``mlstm_intra_terms``) between the gates and the state."""
+    from repro_torch.kernels import mlstm as ml
+
+    q, k, v, i, logf, C0, n0 = inputs
+    return (q, k, v, i, *ml.mlstm_intra_terms(q, k, v, i, logf), C0, n0)
+
+
+def _mlstm_gate(name, got, want, dn):
+    """The kernel's (h, C, n) against ``mlstm_carry_plain``'s: fp32 max abs
+    within 1e-5 of max(1, the largest magnitude) (the mLSTM's h is not
+    bounded by 1: at xlstm-1.3b's serving shape it reaches 14, where the
+    two fp32 orders of a 1,024-term sum differ by about 1e-6 of it); bf16
+    relative L2 of each within 2e-2. Returns the readings; raises beyond
+    the gate."""
+    tol = MLSTM_TOL[dn]
+    r = {}
+    for x, a, b in zip("hCn", got, want):
+        r[f"{x}_max_abs_err"] = _max_err(a, b)
+        r[f"{x}_max_abs"] = b.abs().max().item()
+        r[f"{x}_scaled_err"] = r[f"{x}_max_abs_err"] / max(1.0, r[f"{x}_max_abs"])
+        r[f"{x}_rel_l2"] = _rel_l2(a, b)
+    keys = [f"{x}_{'scaled_err' if dn == 'float32' else 'rel_l2'}" for x in "hCn"]
+    if max(r[k] for k in keys) > tol:
+        raise AssertionError(f"{name}: {r} beyond {tol} on {keys}")
+    return r
+
+
+def _mlstm_checks(state):
+    """The mLSTM chunk kernel (``mlstm_carry``, on the intra terms of
+    ``mlstm_intra_terms``) against ``mlstm_carry_plain`` on the same inputs
+    (``_mlstm_gate``), from a generator of its own, each check naming its
+    route and equal to a second call to the bit: the tests' shapes (dh 8, S
+    5 x 256 + 37 and 100), the reduced config's dh 32, xlstm-1.3b's (4,
+    2048, 4, 1024) in bf16 and fp32 from zeros and from a state, a ragged S
+    (1000: a last chunk of 232) from a state, S = 1, and long_500k's (1,
+    524288, 4, 1024) in bf16. At xlstm-1.3b's shape from zeros the kernel's
+    and the plain version's distances from the plain version on wider
+    copies (bf16: fp32; fp32: fp64) are printed beside."""
+    import torch
+
+    from repro_torch.kernels import mlstm as ml
+
+    gen = torch.Generator(device="cuda").manual_seed(67)
+    checks, errs = [], state["serving_err"]
+    both = ("bfloat16", "float32")
+    cases = ([((1, 5 * 256 + 37, 2, 8), dn, st) for dn in both for st in (False, True)]
+             + [((1, 100, 2, 8), dn, True) for dn in both]
+             + [((2, 300, 4, 32), dn, True) for dn in both]
+             + [(XLSTM_QKV, dn, st) for dn in both for st in (False, True)]
+             + [((2, 1000, MLSTM_HEADS, MLSTM_DH), dn, True) for dn in both]
+             + [((BATCH, 1, MLSTM_HEADS, MLSTM_DH), "bfloat16", True),
+                (L500K_QKV, "bfloat16", False)])
+    for shape, dn, with_state in cases:
+        dt = _dtype(dn)
+        inputs = _mlstm_inputs(gen, shape, dt, with_state)
+        args = _mlstm_carry_args(inputs)
+        got = ml.mlstm_carry(*args)
+        torch.cuda.synchronize()
+        name = f"mlstm_scan{shape} {dn} state={with_state}"
+        want = ml.mlstm_carry_plain(*args)
+        r = _mlstm_gate(name, got, want, dn)
+        again = all(torch.equal(a, b) for a, b in zip(got, ml.mlstm_carry(*args)))
+        row = {"kernel": "mlstm_scan", "route": ml.route(dt.itemsize, shape[3]),
+               "shape": list(shape), "state": with_state, "dtype": dn, **r,
+               "tol": MLSTM_TOL[dn], "equal_across_calls": again}
+        if shape == XLSTM_QKV and dn == "bfloat16":
+            errs.setdefault("mlstm_scan_xlstm", []).append(r["h_max_abs_err"])
+            if not with_state:
+                full = ml.mlstm_carry_plain(*_mlstm_carry_args(
+                    [x.float() for x in inputs]))
+                row["rel_l2_to_fp32_plain"] = {
+                    x: {"kernel": _rel_l2(a, f), "plain_bf16": _rel_l2(b, f)}
+                    for x, a, b, f in zip("hCn", got, want, full)}
+                del full
+        if shape == XLSTM_QKV and dn == "float32" and not with_state:
+            full = ml.mlstm_carry_plain(*_mlstm_carry_args([x.double() for x in inputs]))
+            row["max_abs_err_to_fp64_plain"] = {
+                x: {"kernel": _max_err(a, f), "plain_fp32": _max_err(b, f)}
+                for x, a, b, f in zip("hCn", got, want, full)}
+            del full
+        if shape == L500K_QKV:
+            errs["mlstm_scan_long_500k"] = r["h_max_abs_err"]
+        checks.append(row)
+        assert again, (name, "second call differs")
+        del inputs, args, got, want
+        torch.cuda.empty_cache()
+    emit(mlstm_checks=checks)
+    errs["mlstm_scan_xlstm"] = max(errs["mlstm_scan_xlstm"])
 
 
 def _slstm_bwd_inputs(gen, dt, with_state):
@@ -1551,15 +1679,16 @@ def _rmsnorm_readings(got, want):
 
 
 def _sass_counts(so):
-    """HGMMA (wgmma), UTMALDG (TMA load) and SYNCS (mbarrier) instructions in
-    ``cuobjdump -sass`` of the built library, where the toolkit has it."""
+    """HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA load) and SYNCS (mbarrier)
+    instructions in ``cuobjdump -sass`` of the built library, where the
+    toolkit has it."""
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(exe):
         return None
     sass = subprocess.run([exe, "-sass", str(so)], capture_output=True, text=True,
                           timeout=300).stdout
     return {op: len(re.findall(rf"\b{op}\b", sass))
-            for op in ("HGMMA", "UTMALDG", "SYNCS")}
+            for op in ("HGMMA", "HMMA", "UTMALDG", "SYNCS")}
 
 
 # -- phase 3 and 4: the two serving paths ---------------------------------------
@@ -1644,10 +1773,10 @@ def _dense_launches(n):
     on the sm90 kernel), none in a decode step; K2 twice per layer and once
     before the head in both."""
     return {"prefill": {"flash_attention": n, "flash_attention_sm90": n,
-                        "rmsnorm": 2 * n + 1, "rglru_scan": 0, "slstm_scan": 0,
+                        "rmsnorm": 2 * n + 1, "rglru_scan": 0, "slstm_scan": 0, "mlstm_scan": 0,
                         **NO_BACKWARD},
             "decode": {"flash_attention": 0, "flash_attention_sm90": 0,
-                       "rmsnorm": 2 * n + 1, "rglru_scan": 0, "slstm_scan": 0,
+                       "rmsnorm": 2 * n + 1, "rglru_scan": 0, "slstm_scan": 0, "mlstm_scan": 0,
                        **NO_BACKWARD}}
 
 
@@ -1661,10 +1790,10 @@ def _hybrid_launches():
     decode step; K2 twice per layer and once before the head in both."""
     n, attn, rec = 26, 8, 18
     return {"prefill": {"flash_attention": attn, "flash_attention_sm90": attn,
-                        "rmsnorm": 2 * n + 1, "rglru_scan": rec, "slstm_scan": 0,
+                        "rmsnorm": 2 * n + 1, "rglru_scan": rec, "slstm_scan": 0, "mlstm_scan": 0,
                         **NO_BACKWARD},
             "decode": {"flash_attention": 0, "flash_attention_sm90": 0,
-                       "rmsnorm": 2 * n + 1, "rglru_scan": 0, "slstm_scan": 0,
+                       "rmsnorm": 2 * n + 1, "rglru_scan": 0, "slstm_scan": 0, "mlstm_scan": 0,
                        **NO_BACKWARD}}
 
 
@@ -2201,10 +2330,10 @@ def phase_whisper_serve(state):
     with _tally_by_shape() as tally:
         state[WHISPER] = _serve(state, WHISPER, WH_S, on_reset=tally.counts.clear, expect={
             "prefill": {"flash_attention": 3 * n, "flash_attention_sm90": 3 * n,
-                        "rmsnorm": 5 * n + 2, "rglru_scan": 0, "slstm_scan": 0,
+                        "rmsnorm": 5 * n + 2, "rglru_scan": 0, "slstm_scan": 0, "mlstm_scan": 0,
                         **NO_BACKWARD},
             "decode": {"flash_attention": 0, "flash_attention_sm90": 0,
-                       "rmsnorm": 3 * n + 1, "rglru_scan": 0, "slstm_scan": 0,
+                       "rmsnorm": 3 * n + 1, "rglru_scan": 0, "slstm_scan": 0, "mlstm_scan": 0,
                        **NO_BACKWARD}})
     # the counted run's sm90 launches by (S, T, causal) (the tally was
     # cleared with the counts, after the warm-up)
@@ -2235,25 +2364,30 @@ def _xlstm_launches():
     """xlstm-1.3b's 48 blocks (6 periods of 7 mLSTM blocks and one sLSTM
     block): no K1 (the family has no attention); K2 twice per block and once
     before the head, and the sLSTM kernel once per sLSTM block, in the
-    prefill and in each decode step alike."""
+    prefill and in each decode step alike; the mLSTM's chunk kernel once per
+    mLSTM block (42) in the prefill, none in a decode step (one position:
+    no chunk loop)."""
     n = XLSTM_D["blocks"]
     step = {"flash_attention": 0, "flash_attention_sm90": 0, "rmsnorm": 2 * n + 1,
-            "rglru_scan": 0, "slstm_scan": n // 8, **NO_BACKWARD}
-    return {"prefill": step, "decode": step}
+            "rglru_scan": 0, "slstm_scan": n // 8, "mlstm_scan": 0, **NO_BACKWARD}
+    return {"prefill": {**step, "mlstm_scan": n - n // 8}, "decode": step}
 
 
 def phase_xlstm_serve(state):
     """xlstm-1.3b at its published width and depth (48 blocks: 6 periods of
     7 mLSTM blocks and one sLSTM block; d_model 2048, 4 heads: mLSTM head
     dim 1024, sLSTM 512; vocab 50304; 1.94 B params, 7.8 GB in fp32): 4 x
-    2048 tokens (8 chunks of 256 in each mLSTM block, the sLSTM's 2,048 steps
-    in one kernel launch a block), 16 decode steps. No K1 and no Pallas
-    kernel of the reference: K2 97 and the sLSTM kernel 6 per prefill and
-    per decode step. Prints the prefill ms beside the sLSTM's Python
-    loop's (``XLSTM_LOOP_PREFILL_MS``)."""
+    2048 tokens (8 chunks of 256 in each mLSTM block, one kernel launch a
+    block; the sLSTM's 2,048 steps in one kernel launch a block), 16 decode
+    steps. No K1 and no Pallas kernel of the reference: K2 97 and the
+    sLSTM kernel 6 per prefill and per decode step, the mLSTM chunk kernel
+    42 per prefill. Prints the prefill ms beside the sLSTM's Python loop's
+    (``XLSTM_LOOP_PREFILL_MS``) and the mLSTM's grouped loop's
+    (``XLSTM_GROUPED_PREFILL_MS``)."""
     state[XLSTM] = _serve(state, XLSTM, XLSTM_D["prompt"], _xlstm_launches())
     emit(xlstm_prefill={"prefill_ms": state[XLSTM]["prefill_ms"],
                         "loop_prefill_ms": XLSTM_LOOP_PREFILL_MS,
+                        "grouped_prefill_ms": XLSTM_GROUPED_PREFILL_MS,
                         "card": state["card"]})
 
 
@@ -2532,7 +2666,8 @@ def _whisper_train_launches(enc, dec):
             "flash_attention_sm90": 2 * (enc + 2 * dec),
             "flash_attention_bwd": enc + 2 * dec, "flash_attention_bwd_sm90": enc + 2 * dec,
             "rmsnorm": 2 * (2 * enc + 3 * dec) + 2, "rmsnorm_bwd": 2 * enc + 3 * dec + 2,
-            "rglru_scan": 0, "rglru_scan_bwd": 0, "slstm_scan": 0, "slstm_scan_bwd": 0}
+            "rglru_scan": 0, "rglru_scan_bwd": 0, "slstm_scan": 0, "mlstm_scan": 0,
+            "slstm_scan_bwd": 0}
 
 
 def _xlstm_train_launches(blocks):
@@ -2540,11 +2675,13 @@ def _xlstm_train_launches(blocks):
     K2 twice per block (mLSTM: the norm at d_model and the group norm at
     the inner width; sLSTM: both at d_model), again in the recompute, and
     once before the head; the sLSTM kernel once per sLSTM block (one in 8)
-    and again in the recompute, its backward kernel once."""
+    and again in the recompute, its backward kernel once; no mLSTM chunk
+    kernel (under autograd the chunk loop is the grouped plain one)."""
     return {"flash_attention": 0, "flash_attention_sm90": 0, "flash_attention_bwd": 0,
             "flash_attention_bwd_sm90": 0, "rmsnorm": 4 * blocks + 1,
             "rmsnorm_bwd": 2 * blocks + 1, "rglru_scan": 0, "rglru_scan_bwd": 0,
-            "slstm_scan": 2 * (blocks // 8), "slstm_scan_bwd": blocks // 8}
+            "slstm_scan": 2 * (blocks // 8), "slstm_scan_bwd": blocks // 8,
+            "mlstm_scan": 0}
 
 
 def phase_whisper_train(state):
@@ -2739,7 +2876,7 @@ def _train_launches(n):
     return {"flash_attention": 2 * n, "flash_attention_sm90": 2 * n,
             "flash_attention_bwd": n, "flash_attention_bwd_sm90": n,
             "rmsnorm": 4 * n + 1, "rmsnorm_bwd": 2 * n + 1, "rglru_scan": 0,
-            "rglru_scan_bwd": 0, "slstm_scan": 0, "slstm_scan_bwd": 0}
+            "rglru_scan_bwd": 0, "slstm_scan": 0, "mlstm_scan": 0, "slstm_scan_bwd": 0}
 
 
 def _hybrid_train_launches():
@@ -2752,7 +2889,7 @@ def _hybrid_train_launches():
             "flash_attention_bwd": attn, "flash_attention_bwd_sm90": attn,
             "rmsnorm": 2 * blocks + 1 + 2 * 3 * periods, "rmsnorm_bwd": 2 * blocks + 1,
             "rglru_scan": rec + 2 * periods, "rglru_scan_bwd": rec, "slstm_scan": 0,
-            "slstm_scan_bwd": 0}
+            "mlstm_scan": 0, "slstm_scan_bwd": 0}
 
 
 def phase_train(state):
@@ -3489,13 +3626,15 @@ def phase_long_500k_xlstm(state):
     """long_500k at one card's share for xlstm-1.3b: whole (48 blocks), 1 x
     524,288 (a global batch of 1), nothing cut, through ``serve.setup`` and
     ``serve.generate`` after a short warm-up (64 tokens, 2 steps: a full one
-    would add a third prefill): each mLSTM block runs 2,048 chunks of 256,
-    32 at a time, each sLSTM block's 524,288 steps are one kernel launch;
-    16 decode steps from position 524,288. K2 97 and the sLSTM kernel
-    6 per prefill and per decode step. Teacher forcing at the reference's
-    bf16 bound of 1e-1 (``phase_xlstm_checks``), by
-    ``_prefix_teacher_forcing``. CUDA events around each mLSTM chunk loop and
-    each sLSTM kernel call of the counted prefill split its time
+    would add a third prefill): each mLSTM block's 2,048 chunks of 256 are
+    the torch intra pass and one kernel launch, each sLSTM block's 524,288
+    steps are one kernel launch; 16 decode steps from position 524,288. K2
+    97 and the sLSTM kernel 6 per prefill and per decode step, the mLSTM
+    chunk kernel 42 per prefill. Teacher forcing at the reference's bf16
+    bound of 1e-1 (``phase_xlstm_checks``), by ``_prefix_teacher_forcing``
+    (its prefill of 524,287 tokens ends in a ragged chunk). CUDA events
+    around each mLSTM chunk loop, its intra pass and its kernel, and each
+    sLSTM kernel call of the counted prefill split its time
     (``_XlstmSpans``); the card's busy share comes from a prefill of
     XLSTM_PROFILE_S tokens under ``_profile_step`` (reading back the whole
     prompt's launches from the profiler took minutes)."""
@@ -3533,15 +3672,18 @@ def phase_long_500k_xlstm(state):
 
 class _XlstmSpans:
     """While open, CUDA events around each mLSTM chunk loop
-    (``models/xlstm.py::_mlstm_chunk_scan``) and each sLSTM kernel call of
-    more than one step (``kernels.slstm.slstm_scan``), recorded between
-    ``start()`` and ``stop()``. ``summary(wall_ms)``: the device-timeline ms
-    between each pair, summed by kind, and their shares of ``wall_ms`` (the
-    host-bound chunk loop's span is its host time; the kernel's its device
-    time)."""
+    (``models/xlstm.py::_mlstm_chunk_scan``), and inside it the torch intra
+    pass (``kernels.mlstm.mlstm_intra_terms``) and the chunk kernel
+    (``kernels.mlstm.mlstm_carry``), and around each sLSTM kernel call
+    (``kernels.slstm.slstm_scan``), each of more than one step, recorded
+    between ``start()`` and ``stop()``. ``summary(wall_ms)``: the
+    device-timeline ms between each pair, summed by kind, and their shares
+    of ``wall_ms`` (a host-bound span, as the intra pass may be, reads its
+    host time; a kernel's its device time)."""
 
     def __init__(self):
-        self.on, self.spans = False, {"mlstm_chunk_loop": [], "slstm_kernel": []}
+        self.on, self.spans = False, {"mlstm_chunk_loop": [], "mlstm_intra": [],
+                                      "mlstm_kernel": [], "slstm_kernel": []}
 
     def start(self):
         self.on = True
@@ -3566,20 +3708,26 @@ class _XlstmSpans:
         return call
 
     def __enter__(self):
+        from repro_torch.kernels import mlstm as ml
         from repro_torch.kernels import slstm as sl
         from repro_torch.models import xlstm as txl
 
-        self.saved = txl._mlstm_chunk_scan, sl.slstm_scan
-        txl._mlstm_chunk_scan = self._timed("mlstm_chunk_loop", self.saved[0],
-                                            lambda q, *_: q.shape[1])
-        sl.slstm_scan = self._timed("slstm_kernel", self.saved[1], lambda gx, *_: gx.shape[1])
+        self.saved = (txl._mlstm_chunk_scan, ml.mlstm_intra_terms, ml.mlstm_carry,
+                      sl.slstm_scan)
+        steps = lambda x, *_: x.shape[1]      # noqa: E731
+        txl._mlstm_chunk_scan = self._timed("mlstm_chunk_loop", self.saved[0], steps)
+        ml.mlstm_intra_terms = self._timed("mlstm_intra", self.saved[1], steps)
+        ml.mlstm_carry = self._timed("mlstm_kernel", self.saved[2], steps)
+        sl.slstm_scan = self._timed("slstm_kernel", self.saved[3], steps)
         return self
 
     def __exit__(self, *exc):
+        from repro_torch.kernels import mlstm as ml
         from repro_torch.kernels import slstm as sl
         from repro_torch.models import xlstm as txl
 
-        txl._mlstm_chunk_scan, sl.slstm_scan = self.saved
+        (txl._mlstm_chunk_scan, ml.mlstm_intra_terms, ml.mlstm_carry,
+         sl.slstm_scan) = self.saved
 
     def summary(self, wall_ms):
         ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in self.spans.items()}
@@ -3991,6 +4139,53 @@ def _time_slstm(state, path, b, s, iters, launches, err_key):
             "library": lib_note or ("torch.nn.LSTM(bias=False) on cuDNN, W_ih = I, W_hh "
                                     "the dense (4D, D) expansion of r_gates; its c in bf16"),
             "library_h_rel_l2_first_steps": lib_gap}
+
+
+def _time_mlstm(state, path, shape, iters, launches, err_key):
+    """The mLSTM chunk kernel's row at q, k, v ``shape`` bf16 from zeros, as
+    a prefill calls it, from a generator of its own: the kernel
+    (``mlstm_carry`` on precomputed intra terms; input sets cycled past the
+    L2, one set at long_500k's), beside it the torch intra pass
+    (``mlstm_intra_terms``) that feeds it, and as the plain time the route
+    before the kernel, the grouped loop ``mlstm_chunk_scan_plain`` (intra
+    terms included); the bound: q, k, v and h_intra read once, h written
+    once, the gates' and intra terms' fp32 rows read once, the state read
+    and written once; the carried products' FLOPs at the bf16 peak. No
+    PyTorch call computes the recurrence, so there is no library time."""
+    import torch
+
+    from repro_torch.kernels import mlstm as ml
+
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    bf = torch.bfloat16
+    b, s, nh, dh = shape
+    n_sets = 1 if s > XLSTM_D["prompt"] else _n_sets(2 * b * s * nh * dh * 4)
+    sets = [_mlstm_inputs(gen, shape, bf, False) for _ in range(n_sets)]
+    intra_ms = _time_ms(ml.mlstm_intra_terms, [x[:5] for x in sets], iters, queued=False,
+                        warmup=1)
+    carry = [_mlstm_carry_args(x) for x in sets]
+    ms = _time_ms(ml.mlstm_carry, carry, iters, warmup=1)
+    del carry
+    plain_ms = _time_ms(ml.mlstm_chunk_scan_plain, sets[:1], 1, queued=False, warmup=1)
+    del sets
+    torch.cuda.empty_cache()
+    nbytes = (2 * 5 * b * s * nh * dh + 4 * 3 * b * s * nh
+              + 2 * 4 * (b * nh * dh * dh + b * nh * dh))
+    bound_ms, bound_by = _bound(nbytes, ml.carry_flops(b, s, nh, dh), "bfloat16")
+    e, grid, smem = ml.plan(b, nh, dh, 2)
+    return {"name": "mlstm_scan", "route": "cuda", "path": PATH_NAME[path],
+            "source": "src/repro_torch/kernels/csrc/mlstm_scan.cu",
+            "replaces": "none: the reference's jax.lax.scan over chunks, "
+                        "src/repro/models/xlstm.py:108 (body :80-106)",
+            "launches": launches, "max_abs_err": state["serving_err"][err_key],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "bound_fraction": bound_ms / ms, "intra_ms": intra_ms,
+            "kernel_route": ml.route(2, dh), "grid": grid, "cols_a_block": e,
+            "smem_bytes": smem,
+            "plain": "mlstm_chunk_scan_plain, the grouped loop the prefill ran before the "
+                     "kernel (its intra terms included)",
+            "shape": {"qkv": list(shape), "C0": None, "dtype": "bfloat16"},
+            "library": "none: no single PyTorch call computes it"}
 
 
 def _time_slstm_train(state):
@@ -5581,6 +5776,9 @@ def phase_times(state):
         _time_slstm(state, XLSTM, *XLSTM_GX[:2], iters=20,
                     launches=state[XLSTM]["per_step"][0][1]["slstm_scan"],
                     err_key="slstm_scan_xlstm"),
+        _time_mlstm(state, XLSTM, XLSTM_QKV, iters=20,
+                    launches=state[XLSTM]["per_step"][0][1]["mlstm_scan"],
+                    err_key="mlstm_scan_xlstm"),
     ]
     # K1, K2 and their backwards at deepseek-moe-16b's training shapes, from
     # a generator of their own
@@ -5663,6 +5861,9 @@ def _cell_rows(state):
         _time_slstm(state, "long_500k_xlstm", *L500K_GX[:2], iters=2,
                     launches=state["long_500k_xlstm"]["per_step"][0][1]["slstm_scan"],
                     err_key="slstm_scan_long_500k"),
+        _time_mlstm(state, "long_500k_xlstm", L500K_QKV, iters=2,
+                    launches=state["long_500k_xlstm"]["per_step"][0][1]["mlstm_scan"],
+                    err_key="mlstm_scan_long_500k"),
     ]
 
 

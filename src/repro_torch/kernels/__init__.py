@@ -5,12 +5,14 @@ bf16 at head dim 64-256, ``csrc/flash_attention.cu`` otherwise) and
 backward (``csrc/flash_attention_bwd_sm90.cu`` for bf16 at head dim 64,
 128 and 256, ``csrc/flash_attention_bwd.cu`` otherwise), K2 RMSNorm forward and
 backward (Triton, ``rmsnorm.py``), K3 the RG-LRU scan (CUDA C++,
-``csrc/rglru_scan.cu``, forward and backward) and the sLSTM recurrence
+``csrc/rglru_scan.cu``, forward and backward), the sLSTM recurrence
 (CUDA C++, ``csrc/slstm_scan.cu`` and ``csrc/slstm_scan_bwd.cu``, ``slstm.py``; the
-reference's ``jax.lax.scan``, no Pallas kernel). Each wrapper adds one to
-its count where it launches its kernel, and nowhere else:
-``flash_attention``, ``rmsnorm``, ``rglru_scan`` and ``slstm_scan`` count
-the forwards, ``flash_attention_bwd``, ``rmsnorm_bwd``, ``rglru_scan_bwd``
+reference's ``jax.lax.scan``, no Pallas kernel) and the mLSTM's chunk
+recurrence (CUDA C++, ``csrc/mlstm_scan.cu``, ``mlstm.py``; the reference's
+``jax.lax.scan`` over chunks, no Pallas kernel; forward only). Each wrapper
+adds one to its count where it launches its kernel, and nowhere else:
+``flash_attention``, ``rmsnorm``, ``rglru_scan``, ``slstm_scan`` and
+``mlstm_scan`` count the forwards, ``flash_attention_bwd``, ``rmsnorm_bwd``, ``rglru_scan_bwd``
 and ``slstm_scan_bwd`` the backwards; ``flash_attention_sm90`` and
 ``flash_attention_bwd_sm90`` count the K1 launches that took an sm90
 kernel, of the totals beside them.
@@ -20,12 +22,13 @@ empty outputs of its kernel's shapes and dtypes and adds the kernel's FLOPs
 to its module's ``meta_flops`` (``meta_flops()`` sums them); it counts no
 launch.
 """
-from repro_torch.kernels import flash_attention, rglru, rmsnorm, slstm
+from repro_torch.kernels import flash_attention, mlstm, rglru, rmsnorm, slstm
 
 _COUNTS = {"flash_attention": (flash_attention, "launches"),
            "rmsnorm": (rmsnorm, "launches"),
            "rglru_scan": (rglru, "launches"),
            "slstm_scan": (slstm, "launches"),
+           "mlstm_scan": (mlstm, "launches"),
            "flash_attention_sm90": (flash_attention, "launches_sm90"),
            "flash_attention_bwd": (flash_attention, "launches_bwd"),
            "flash_attention_bwd_sm90": (flash_attention, "launches_bwd_sm90"),
@@ -43,7 +46,7 @@ def reset_launch_counts() -> None:
         setattr(mod, attr, 0)
 
 
-_META = (flash_attention, rmsnorm, rglru, slstm)
+_META = (flash_attention, rmsnorm, rglru, slstm, mlstm)
 
 
 def meta_flops() -> int:

@@ -24,6 +24,11 @@ versions.
   ``slstm.slstm_dr_gates`` as its gradient, where XLA transposes the
   reference's scan. Where no gradient flows it calls the forward alone,
   which saves nothing.
+- ``mlstm_chunk_scan``: the mLSTM's chunk recurrence (no Pallas kernel:
+  the reference's ``jax.lax.scan`` over chunks). Where no gradient flows,
+  ``mlstm.mlstm_intra_terms`` then one launch of ``mlstm.mlstm_carry``;
+  under autograd the grouped plain loop ``mlstm.mlstm_chunk_scan_plain``,
+  differentiated by torch, until the backward has a kernel.
 
 The backwards run inside the profiler ranges
 ``repro_torch.attention_backward``, ``repro_torch.rmsnorm_backward``,
@@ -37,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mlstm as _ml
 from repro_torch.kernels import rglru as _rg
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import slstm as _sl
@@ -134,3 +140,23 @@ def slstm_scan(gx, r_gates, h0=None, c0=None):
                                        for x in (gx, r_gates, h0, c0)):
         return _SLSTMScan.apply(gx, r_gates, h0, c0)
     return _sl.slstm_scan(gx, r_gates, h0, c0)
+
+
+def mlstm_chunk_scan(q, k, v, i, logf, C0, n0):
+    """q, k, v (B, S, NH, dh), i and logf (B, S, NH) fp32, C0 (B, NH, dh, dh)
+    and n0 (B, NH, dh) fp32 -> (h (B, S, NH, dh), C, n): the reference's
+    ``_mlstm_chunk_scan``.
+
+    On a CPU tensor, or where autograd records, the grouped plain loop
+    ``mlstm_chunk_scan_plain`` (CHUNK_GROUP chunks a batch): the designed
+    route for training until the recurrence's backward has a kernel. On a
+    CUDA tensor with no gradient, the carry-free terms in torch
+    (``mlstm_intra_terms``) and the loop over chunks in one launch of the
+    kernel (``mlstm_carry``), which raises where it cannot run: no fallback.
+    On meta tensors (the dry run) the same two calls, the kernel's meta
+    branch counting the carried products' FLOPs."""
+    if q.device.type == "cpu" or (torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (q, k, v, i, logf, C0, n0))):
+        return _ml.mlstm_chunk_scan_plain(q, k, v, i, logf, C0, n0)
+    cl, h_intra, d_intra = _ml.mlstm_intra_terms(q, k, v, i, logf)
+    return _ml.mlstm_carry(q, k, v, i, cl, h_intra, d_intra, C0, n0)

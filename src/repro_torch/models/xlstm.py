@@ -18,10 +18,14 @@ are stacked again over the periods under ``"periods"``, in the reference's
 layout.
 
 No Pallas kernel of the reference is in this family: on a CUDA tensor it
-runs K2 (``rms_norm``), twice per block and once before the head, and the
+runs K2 (``rms_norm``), twice per block and once before the head, the
 sLSTM recurrence kernel once per sLSTM block of a prefill or decode step,
 and in training once per sLSTM block in the forward and again in the
-recompute, and its backward kernel once; the rest is plain PyTorch.
+recompute, and its backward kernel once, and the mLSTM's chunk recurrence
+kernel (``kernels.ops.mlstm_chunk_scan``: the reference's ``jax.lax.scan``
+over chunks) once per mLSTM block of a prefill; the decode step's one
+position and training (the grouped plain loop under autograd) run none.
+The rest is plain PyTorch.
 
 Under a ``mesh_context`` with a ``DeviceMesh`` the reference's constraint
 points apply (``up`` and the sLSTM's input gates on "tp", the block outputs
@@ -62,9 +66,6 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.recurrent import _store, causal_conv1d, conv1d_step
 
-CHUNK = 256
-CHUNK_GROUP = 32      # chunks whose state-free work runs as one batch
-
 
 def _dims(cfg: ModelConfig):
     di = int(cfg.proj_factor * cfg.d_model)
@@ -95,65 +96,10 @@ def init_mlstm(gen, cfg: ModelConfig, dtype=torch.float32, device=None,
 
 def _mlstm_chunk_scan(q, k, v, i, logf, C0, n0):
     """Chunkwise mLSTM. q,k,v: (B,S,NH,dh); i,logf: (B,S,NH) fp32.
-    C0: (B,NH,dh,dh), n0: (B,NH,dh) fp32. Returns (h (B,S,NH,dh), C, n).
-    The last chunk is zero-padded to CHUNK positions, as in the reference.
-
-    The reference's loop over chunks computes, per chunk, the intra-chunk
-    attention, the inter-chunk read of the carried (C, n) and the chunk's
-    contribution to (C, n). Only the carry is sequential, so the chunks run
-    CHUNK_GROUP at a time: each group's intra-chunk terms and contributions
-    as batched ops, then the carry through the group chunk by chunk (a
-    multiply and an add for each of C and n), then the group's inter-chunk
-    reads against the carries entering its chunks, batched. Every value is
-    the reference's formula for its chunk. The host issues a seventh of the
-    launches a chunk-by-chunk loop did (a 32,768-token xlstm-1.3b prefill
-    on an H100 80GB HBM3 at 700 W: 32,763 device launches against 233,524,
-    chip_smoke.py's profile)."""
-    b, s, nh, dh = q.shape
-    dt = q.dtype
-    L = min(CHUNK, s)
-    nc = -(-s // L)
-    pad = nc * L - s
-    if pad:
-        q, k, v = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (q, k, v))
-        i, logf = (F.pad(x, (0, 0, 0, pad)) for x in (i, logf))
-    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))
-    C, n = C0, n0
-    hs = []
-    for g0 in range(0, nc, CHUNK_GROUP):
-        g = min(CHUNK_GROUP, nc - g0)
-        sl = slice(g0 * L, (g0 + g) * L)
-        qc, kc, vc = (x[:, sl].reshape(b, g, L, nh, dh) for x in (q, k, v))
-        ic, lfc = (x[:, sl].reshape(b, g, L, nh) for x in (i, logf))
-        cl = torch.cumsum(lfc, dim=2)                  # (B,G,L,NH) log cumulative decay
-        qk = torch.einsum("bglhd,bgmhd->bghlm", qc, kc).float()
-        clt = cl.transpose(2, 3)                       # (B,G,NH,L)
-        # above the diagonal the decay may overflow to inf; the mask picks
-        # zero there (a multiply by the mask would make inf * 0 = nan)
-        decay = torch.exp(clt[..., :, None] - clt[..., None, :])
-        A = qk * decay * ic.transpose(2, 3)[..., None, :].float()
-        A = torch.where(mask, A, 0.0)
-        h_intra = torch.einsum("bghlm,bgmhd->bglhd", A.to(dt), vc)
-        d_intra = A.sum(-1).transpose(2, 3)                        # (B,G,L,NH)
-        ecl = torch.exp(cl)                                        # (B,G,L,NH)
-        e_end = torch.exp(cl[:, :, -1])                            # (B,G,NH)
-        w_end = torch.exp(cl[:, :, -1:] - cl) * ic.float()
-        dC = torch.einsum("bglh,bglhd,bglhe->bghde", w_end, kc.float(), vc.float())
-        dn = torch.einsum("bglh,bglhd->bghd", w_end, kc.float())
-        Cs, ns = [], []                                # the carry entering each chunk
-        for j in range(g):
-            Cs.append(C)
-            ns.append(n)
-            C = e_end[:, j, :, None, None] * C + dC[:, j]
-            n = e_end[:, j, :, None] * n + dn[:, j]
-        h_inter = torch.einsum("bglhd,bghde->bglhe", qc, torch.stack(Cs, 1).to(dt)) * \
-            ecl[..., None].to(dt)
-        d_inter = torch.einsum("bglhd,bghd->bglh", qc.float(), torch.stack(ns, 1)) * ecl
-        denom = torch.clamp_min(torch.abs(d_intra + d_inter), 1.0)
-        h = (h_intra.float() + h_inter.float()) / denom[..., None]
-        hs.append(h.to(dt).reshape(b, g * L, nh, dh))
-    h = torch.cat(hs, dim=1)
-    return h[:, :s], C, n
+    C0: (B,NH,dh,dh), n0: (B,NH,dh) fp32. Returns (h (B,S,NH,dh), C, n):
+    ``kernels.ops.mlstm_chunk_scan`` (the reference's chunk length,
+    ``kernels.mlstm.CHUNK``)."""
+    return ops.mlstm_chunk_scan(q, k, v, i, logf, C0, n0)
 
 
 def apply_mlstm(p, x, cfg: ModelConfig, *, state=None):
@@ -189,8 +135,9 @@ def _mlstm_mix(p, up, state, cfg: ModelConfig):
         xc = F.silu(causal_conv1d(p["conv_w"], hist)[:, cw - 1:])
         new_conv = hist[:, -(cw - 1):]
 
-    def headwise(w, src):
-        return torch.einsum("blhd,hde->blhe", src.reshape(b, s, nh, dh), w.to(dt))
+    def headwise(w, src):      # contiguous, as the chunk kernel reads it
+        return torch.einsum("blhd,hde->blhe", src.reshape(b, s, nh, dh),
+                            w.to(dt)).contiguous()
 
     q = headwise(p["wq"], xc)
     k = headwise(p["wk"], xc) / torch.tensor(math.sqrt(dh), dtype=torch.float32
@@ -215,7 +162,7 @@ def _mlstm_mix(p, up, state, cfg: ModelConfig):
         den = torch.clamp_min(torch.abs(torch.einsum("bhd,bhd->bh", qf, n)), 1.0)
         h = (num / den[..., None]).to(dt)[:, None]
     else:
-        h, C, n = _mlstm_chunk_scan(q, k, v, gate_i, logf, C0, n0)
+        h, C, n = _mlstm_chunk_scan(q, k, v, gate_i, logf, C0.contiguous(), n0.contiguous())
 
     h = rms_norm(h.reshape(b, s, di), p["gn"].to(dt), cfg.norm_eps)
     if state is not None:

@@ -1,8 +1,9 @@
 """The mLSTM's chunk scan (``repro_torch.models.xlstm._mlstm_chunk_scan``)
 against the reference's over several groups of chunks, on the CPU.
 
-The port runs the reference's per-chunk formulas CHUNK_GROUP chunks at a
-time (the carry of C and n chunk by chunk inside a group). Here six chunks
+On the CPU the port runs the reference's per-chunk formulas
+``kernels.mlstm.CHUNK_GROUP`` chunks at a time (the carry of C and n chunk
+by chunk inside a group). Here six chunks
 of 256, the last ragged, go through the reference's ``_mlstm_chunk_scan``
 and through the port's with groups of 1, 2, 4 and the default, from zeros
 and from a carried state: fp32 within the scan's 1e-5
@@ -13,9 +14,10 @@ import pytest
 
 from _family_twins import both, close
 from repro.models import xlstm as jxl
+from repro_torch.kernels import mlstm
 from repro_torch.models import xlstm as txl
 
-S = 5 * txl.CHUNK + 37
+S = 5 * mlstm.CHUNK + 37
 
 
 def _inputs(with_state):
@@ -37,7 +39,7 @@ def _inputs(with_state):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_grouped_chunk_scan_matches_reference(dtype, with_state, group, monkeypatch):
     if group is not None:
-        monkeypatch.setattr(txl, "CHUNK_GROUP", group)
+        monkeypatch.setattr(mlstm, "CHUNK_GROUP", group)
     arrays = _inputs(with_state)
     # q, k, v in the activations' dtype; the gates and the state in fp32
     js, ts = zip(*(both(a, dtype if n < 3 else "float32") for n, a in enumerate(arrays)))

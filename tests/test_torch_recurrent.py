@@ -42,7 +42,8 @@ BF16_ULP = (2e-2, 2e-2)      # bf16-stored caches in the fp32 config
 LAYER_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 ZERO_LAUNCHES = {"flash_attention": 0, "rmsnorm": 0, "rglru_scan": 0,
-                 "slstm_scan": 0, "flash_attention_sm90": 0, "flash_attention_bwd": 0,
+                 "slstm_scan": 0, "mlstm_scan": 0, "flash_attention_sm90": 0,
+                 "flash_attention_bwd": 0,
                  "flash_attention_bwd_sm90": 0, "rmsnorm_bwd": 0,
                  "rglru_scan_bwd": 0, "slstm_scan_bwd": 0}
 

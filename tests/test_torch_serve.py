@@ -122,7 +122,7 @@ def test_prefill_and_decode_match_reference(arch, dtype):
         np.testing.assert_allclose(tc[key], _np(j_cache[key]), atol=tol,
                                    rtol=tol)
     assert launch_counts() == {"flash_attention": 0, "rmsnorm": 0,
-                               "rglru_scan": 0, "slstm_scan": 0,
+                               "rglru_scan": 0, "slstm_scan": 0, "mlstm_scan": 0,
                                "flash_attention_sm90": 0,
                                "flash_attention_bwd": 0,
                                "flash_attention_bwd_sm90": 0, "rmsnorm_bwd": 0,
