@@ -16,7 +16,7 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    the rest, the backward's sm90 kernel for bf16 at head dim 64, 128 and 256
    and SIMT kernel for the rest; K3 the RG-LRU scan, forward and
    backward; the sLSTM recurrence, forward and backward; and the mLSTM's
-   chunk recurrence; with ``nvcc`` for
+   chunk recurrence, forward and backward; with ``nvcc`` for
    sm_90a, one process each, started together; K2 RMSNorm's forward and
    backward with Triton), report each library's ptxas lines and its HGMMA /
    UTMALDG / SYNCS instruction counts from ``cuobjdump -sass``, and hold
@@ -69,7 +69,20 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    gradients of ``ops.slstm_scan`` (dgx, dr_gates, dh0, dc0) against
    autograd through ``slstm_scan_plain`` on fp32 copies (fp32 relative L2
    within 1e-4; bf16 within max(3e-2, 2 g), g the plain loop's own bf16
-   gap); the sm90 d-256 backward twice on the same
+   gap); the mLSTM's saving forward and backward kernel
+   (``_mlstm_bwd_checks``) at xlstm-1.3b's training shape (4, 1024, 4,
+   1024) in bf16 and fp32, with no state as training calls them and from a
+   state with cotangents on the last C and n, and at dh 32, a ragged S of
+   1000 and dh 8: the saving forward's h, C, n equal to the bit to the
+   forward that saves nothing, its states between chunks against
+   ``mlstm_carry_plain(save=True)``, the backward kernel against
+   ``mlstm_carry_bwd_plain`` (relative L2 of every dC_j, dn_j, dC0, dn0:
+   fp32 within 1e-4, bf16 within 2e-2, and bf16's fp32 states and
+   cotangents within 1e-4, below a single bf16 product's control) and
+   equal to a second call to the bit, and the gradients of
+   ``ops.mlstm_chunk_scan`` (dq, dk, dv, di, dlogf, dC0, dn0) against
+   autograd through the two plain parts on fp32 copies (the sLSTM's
+   bounds); the sm90 d-256 backward twice on the same
    inputs, equal to the bit (K2's fp32 gradients also against autograd through
    ``rmsnorm_plain`` and against ``rmsnorm_backward`` on fp64 copies of the
    inputs, since the kernel sums dw in fp64; the fp32 versions' distances
@@ -164,7 +177,8 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    K1's backward 1, K2 5, K2's backward 3) and xlstm-1.3b whole (48
    blocks) at 4 x 1024 (no K1; K2 193 and its backward 97, tallied by
    width; the sLSTM kernel 12, forward and recompute, and its backward
-   kernel 6): finite losses,
+   kernel 6; the mLSTM chunk kernel 84, its saving forward and recompute,
+   and its backward kernel 42, tallied by shape): finite losses,
    the last below the first, the launches per step held to those counts,
    every K1 and K1-backward launch on the sm90 route, step ms (median of
    steps 2-4), tokens/s, peak GiB, the parameter count, and one more step
@@ -343,7 +357,11 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    and long_500k's (1, 524288, 8192) in bf16, beside the plain loop over
    its first 2,048 steps, its bound with µs per step, and cuDNN's LSTM
    through ``torch.nn.LSTM(bias=False)`` (W_ih the identity, W_hh the dense
-   expansion of r_gates; its c in bf16; cuDNN refuses the long shape); the kernels at the shape cells' shapes (phase 7;
+   expansion of r_gates; its c in bf16; cuDNN refuses the long shape); the
+   mLSTM chunk kernels in xlstm-1.3b's training step (its saving forward
+   beside the forward, its backward kernel beside the whole backward), and
+   their fp32 SIMT routes (the forward at (4, 2048, 4, 1024), the backward
+   at the training shape); the kernels at the shape cells' shapes (phase 7;
    there the plain K1 runs by blocks of query rows and the plain K3 is its
    blocked mirror, one call each, and SDPA cannot take long_500k's
    window); and each training step's floor
@@ -440,6 +458,11 @@ SLSTM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 MLSTM_HEADS, MLSTM_DH = 4, 1024
 XLSTM_QKV = (BATCH, XLSTM_D["prompt"], MLSTM_HEADS, MLSTM_DH)
 MLSTM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the bf16 routes' fp32 states (C, n and their cotangents) against the plain
+# version: between the readings (about 3e-6) and a single bf16 product of
+# w v or g (about 1e-3, printed beside as the control); the split into bf16
+# high and low parts is what keeps them below it
+MLSTM_SPLIT_TOL = 1e-4
 # deepseek-moe-16b's training step: full width cut to 4 of its 28 layers
 # (2.77 B params: fp32 params, grads, m and v 44 GB), 4 x 1024, 3 steps;
 # K1 at q, k/v (4, 1024, 16, 128) (a GQA group of 1), K2 at (4, 1024, 2048)
@@ -490,6 +513,8 @@ QWEN3MOE_TRAIN_X = (FAM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, QWEN3MOE_D["d_model"])
 XLSTM_TRAIN_X = (FAM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, XLSTM_D["d_model"])
 # the sLSTM kernels' gx (and saved g, dgx) in xlstm-1.3b's training step
 XLSTM_TRAIN_GX = (FAM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, 4 * XLSTM_D["d_model"])
+# the mLSTM chunk kernels' q, k, v (and the backward's q, g) in that step
+XLSTM_TRAIN_QKV = (FAM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, MLSTM_HEADS, MLSTM_DH)
 FAMILY_ATTN = {MOE16B_ATTN: "flash_attention_moe16b",
                QWEN3MOE_ATTN: "flash_attention_qwen3moe",
                VLM_ATTN: "flash_attention_vlm",
@@ -754,7 +779,7 @@ def phase_kernels(state):
 
     sources = ["flash_attention_sm90", "flash_attention", "flash_attention_bwd_sm90",
                "flash_attention_bwd", "rglru_scan", "slstm_scan", "slstm_scan_bwd",
-               "mlstm_scan"]
+               "mlstm_scan", "mlstm_scan_bwd"]
     t0 = time.perf_counter()
     libs = _build.build(sources)
     build_s = time.perf_counter() - t0
@@ -934,6 +959,8 @@ def phase_kernels(state):
     _slstm_bwd_checks(state)
     torch.cuda.empty_cache()
     _mlstm_checks(state)
+    torch.cuda.empty_cache()
+    _mlstm_bwd_checks(state)
     torch.cuda.empty_cache()
 
 
@@ -1174,21 +1201,21 @@ def _mlstm_carry_args(inputs):
     return (q, k, v, i, *ml.mlstm_intra_terms(q, k, v, i, logf), C0, n0)
 
 
-def _mlstm_gate(name, got, want, dn):
-    """The kernel's (h, C, n) against ``mlstm_carry_plain``'s: fp32 max abs
-    within 1e-5 of max(1, the largest magnitude) (the mLSTM's h is not
-    bounded by 1: at xlstm-1.3b's serving shape it reaches 14, where the
-    two fp32 orders of a 1,024-term sum differ by about 1e-6 of it); bf16
-    relative L2 of each within 2e-2. Returns the readings; raises beyond
-    the gate."""
+def _mlstm_gate(name, got, want, dn, names="hCn"):
+    """The kernel's (h, C, n) (or the tensors ``names``) against
+    ``mlstm_carry_plain``'s: fp32 max abs within 1e-5 of max(1, the largest
+    magnitude) (the mLSTM's h is not bounded by 1: at xlstm-1.3b's serving
+    shape it reaches 14, where the two fp32 orders of a 1,024-term sum
+    differ by about 1e-6 of it); bf16 relative L2 of each within 2e-2.
+    Returns the readings; raises beyond the gate."""
     tol = MLSTM_TOL[dn]
     r = {}
-    for x, a, b in zip("hCn", got, want):
+    for x, a, b in zip(names, got, want):
         r[f"{x}_max_abs_err"] = _max_err(a, b)
         r[f"{x}_max_abs"] = b.abs().max().item()
         r[f"{x}_scaled_err"] = r[f"{x}_max_abs_err"] / max(1.0, r[f"{x}_max_abs"])
         r[f"{x}_rel_l2"] = _rel_l2(a, b)
-    keys = [f"{x}_{'scaled_err' if dn == 'float32' else 'rel_l2'}" for x in "hCn"]
+    keys = [f"{x}_{'scaled_err' if dn == 'float32' else 'rel_l2'}" for x in names]
     if max(r[k] for k in keys) > tol:
         raise AssertionError(f"{name}: {r} beyond {tol} on {keys}")
     return r
@@ -1241,6 +1268,9 @@ def _mlstm_checks(state):
                     x: {"kernel": _rel_l2(a, f), "plain_bf16": _rel_l2(b, f)}
                     for x, a, b, f in zip("hCn", got, want, full)}
                 del full
+        if shape == XLSTM_QKV and dn == "float32":
+            errs["mlstm_scan_xlstm_fp32"] = max(errs.get("mlstm_scan_xlstm_fp32", 0.0),
+                                                r["h_max_abs_err"])
         if shape == XLSTM_QKV and dn == "float32" and not with_state:
             full = ml.mlstm_carry_plain(*_mlstm_carry_args([x.double() for x in inputs]))
             row["max_abs_err_to_fp64_plain"] = {
@@ -1255,6 +1285,203 @@ def _mlstm_checks(state):
         torch.cuda.empty_cache()
     emit(mlstm_checks=checks)
     errs["mlstm_scan_xlstm"] = max(errs["mlstm_scan_xlstm"])
+
+
+def _mlstm_bwd_inputs(gen, shape, dt, with_state):
+    """``_mlstm_inputs`` at ``shape`` (without a state C0 and n0 None, as
+    training passes them) and the cotangents: dh (B, S, NH, dh) normal in
+    ``dt`` and, with a state, dC (B, NH, dh, dh) and dn (B, NH, dh) normal
+    fp32 on the last C and n, else None."""
+    import torch
+
+    b, s, nh, dh = shape
+    inputs = _mlstm_inputs(gen, shape, dt, with_state)
+    if not with_state:
+        inputs = (*inputs[:5], None, None)
+    last = ((_randn(gen, (b, nh, dh, dh), torch.float32), _randn(gen, (b, nh, dh), torch.float32))
+            if with_state else (None, None))
+    return inputs, (_randn(gen, shape, dt), *last)
+
+
+def _mlstm_bwd_checks(state):
+    """The saving forward and the backward kernel of the mLSTM chunk
+    recurrence, from a generator of their own: at xlstm-1.3b's training shape
+    (4, 1024, 4, 1024) in bf16 and fp32, with no state and no cotangent on
+    the last one (as training calls them) and from a state with cotangents
+    on the last C and n (dC0 and dn0 asked for); at the reduced config's dh
+    32, a ragged S (1000: a last chunk of 232) and the tests' dh 8, from a
+    state. The saving forward's h, C and n equal to the bit to the
+    forward's that saves nothing, its states between chunks against
+    ``mlstm_carry_plain(save=True)``'s (``_mlstm_gate``); the backward kernel
+    (``mlstm_carry_bwd``) on g and u from ``mlstm.py``'s first backward pass
+    against ``mlstm_carry_bwd_plain`` on the same tensors (relative L2 of
+    every dC_j, dn_j, dC0 and dn0: fp32 within 1e-4, bf16 within 2e-2) and
+    equal to the bit on a second call. On bf16 the fp32 states and
+    cotangents (C and n of the saving forward, the saved ones, every dC_j,
+    dn_j, dC0, dn0) are held within MLSTM_SPLIT_TOL too, and beside it the
+    control: the plain version with one bf16 product (w v, or g, rounded to
+    bf16), which must read above it. Then the gradient gate
+    (``_mlstm_grad_check``)."""
+    import torch
+
+    from repro_torch.kernels import mlstm as ml
+
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    checks, errs = [], state["serving_err"]
+    both = ("bfloat16", "float32")
+    cases = ([(XLSTM_TRAIN_QKV, dn, st) for dn in both for st in (False, True)]
+             + [(shape, dn, True) for shape in ((2, 300, 4, 32), (2, 1000, MLSTM_HEADS,
+                                                                  MLSTM_DH), (1, 1317, 2, 8))
+                for dn in both])
+    for shape, dn, with_state in cases:
+        dt = _dtype(dn)
+        (q, k, v, i, logf, C0, n0), (dh, dC, dn_) = _mlstm_bwd_inputs(gen, shape, dt,
+                                                                     with_state)
+        name = f"mlstm_scan{shape} {dn} state={with_state}"
+        cl, h_intra, d_intra = ml.mlstm_intra_terms(q, k, v, i, logf)
+        args = (q, k, v, i, cl, h_intra, d_intra, C0, n0)
+        saved = ml.mlstm_carry(*args, save=True)
+        plain = ml.mlstm_carry(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(saved[:3], plain))
+        want = ml.mlstm_carry_plain(*args, save=True)
+        fwd = _mlstm_gate(name + " saving forward", saved[:3], want[:3], dn)
+        states = _mlstm_gate(name + " saved C, n", saved[3:], want[3:], dn, names="Cn")
+        split = {}
+        if dn == "bfloat16":
+            control = _mlstm_wv_bf16_states(q, k, v, i, cl, C0)
+            split["saved_C_control_rel_l2"] = _rel_l2(control, want[3])
+            del control
+        del plain, want
+        b, s, nh, d = shape
+        g, u, *_ = ml._read_cotangents(q, logf, d_intra, ml.entering_n(n0, saved[4]),
+                                       saved[0], dh, ml.bwd_group(b, nh, d, s))
+        bargs = (q, g, u, cl, dC, dn_, with_state)
+        got = ml.mlstm_carry_bwd(*bargs)
+        torch.cuda.synchronize()
+        ref = ml.mlstm_carry_bwd_plain(*bargs)
+        again = all(torch.equal(a, b) for a, b in zip(got, ml.mlstm_carry_bwd(*bargs))
+                    if a is not None)
+        tol = 1e-4 if dn == "float32" else MLSTM_TOL[dn]
+        bwd = {x: {"rel_l2": _rel_l2(a, b), "max_abs_err": _max_err(a, b),
+                   "max_abs": b.abs().max().item()}
+               for x, a, b in zip(("dCs", "dns", "dC0", "dn0"), got, ref) if a is not None}
+        if dn == "bfloat16":
+            control = ml.mlstm_carry_bwd_plain(q, g.bfloat16().float(), *bargs[2:])
+            split["dCs_control_rel_l2"] = _rel_l2(control[0], ref[0])
+            split["dC0_control_rel_l2"] = (_rel_l2(control[2], ref[2]) if with_state
+                                           else None)
+            del control
+            split["worst_rel_l2"] = max(
+                [fwd["C_rel_l2"], fwd["n_rel_l2"], states["C_rel_l2"], states["n_rel_l2"]]
+                + [x["rel_l2"] for x in bwd.values()])
+            split["tol"] = MLSTM_SPLIT_TOL
+        checks.append({"kernel": "mlstm_scan_bwd", "shape": list(shape), "state": with_state,
+                       "dtype": dn, "route": ml.route(dt.itemsize, shape[3]),
+                       "saving_forward": fwd, "saved_C_n": states,
+                       "saving_forward_equal_to_forward": same, "backward_vs_plain": bwd,
+                       "tol_rel_l2": tol, "bf16_split_gate": split or None,
+                       "equal_across_calls": again})
+        if shape == XLSTM_TRAIN_QKV and dn == "bfloat16":
+            errs["mlstm_scan_save_train"] = max(errs.get("mlstm_scan_save_train", 0.0),
+                                                fwd["h_max_abs_err"])
+            errs["mlstm_scan_bwd_train"] = max(errs.get("mlstm_scan_bwd_train", 0.0),
+                                               bwd["dCs"]["max_abs_err"])
+        if shape == XLSTM_TRAIN_QKV and dn == "float32":
+            errs["mlstm_scan_bwd_train_fp32"] = max(
+                errs.get("mlstm_scan_bwd_train_fp32", 0.0), bwd["dCs"]["max_abs_err"])
+        assert same, (name, "the saving forward's h, C, n differ from the forward's")
+        assert again, (name, "backward: second call differs")
+        worst = max(x["rel_l2"] for x in bwd.values())
+        assert worst <= tol, (name, "backward vs mlstm_carry_bwd_plain", bwd, tol)
+        if split:
+            controls = [x for key, x in split.items() if "control" in key and x is not None]
+            assert split["worst_rel_l2"] <= MLSTM_SPLIT_TOL < min(controls), (name, split)
+        del q, k, v, i, logf, C0, n0, dh, dC, dn_, saved, g, u, got, ref, args, bargs
+        torch.cuda.empty_cache()
+    emit(mlstm_bwd_checks=checks)
+    grads = [_mlstm_grad_check(gen, dn, with_state)
+             for dn in ("bfloat16", "float32") for with_state in (False, True)]
+    emit(mlstm_grad_checks=grads)
+
+
+def _mlstm_wv_bf16_states(q, k, v, i, cl, C0):
+    """The control of the bf16 split gate for the saving forward: C between
+    chunks (as ``mlstm_carry_plain(save=True)`` keeps them) with w v rounded
+    once to bf16 in the update, a single bf16 product where the kernel keeps
+    a high and a low part."""
+    import torch
+
+    from repro_torch.kernels import mlstm as ml
+
+    b, s, nh, dh = q.shape
+    L, nc = ml._chunks(s)
+    C = q.new_zeros((b, nh, dh, dh), dtype=torch.float32) if C0 is None else C0
+    out = []
+    for j in range(nc - 1):                # every chunk before the last is whole
+        r = slice(j * L, (j + 1) * L)
+        clj = cl[:, r]
+        w = torch.exp(clj[:, -1:] - clj) * i[:, r]
+        wv = (w[..., None] * v[:, r].float()).bfloat16().float()
+        C = (torch.exp(clj[:, -1])[..., None, None] * C
+             + torch.einsum("blhd,blhe->bhde", k[:, r].float(), wv))
+        out.append(C)
+    return torch.stack(out, 1)
+
+
+def _mlstm_grad_check(gen, dn, with_state):
+    """The gradients of ``ops.mlstm_chunk_scan`` (the saving forward, the
+    backward kernel and the torch terms of ``mlstm_backward``) at
+    XLSTM_TRAIN_QKV in ``dn`` against torch autograd through the two plain
+    parts (``mlstm_intra_terms``, ``mlstm_carry_plain``) on fp32 copies of
+    the same inputs and cotangents (on h, and with a state on the last C
+    and n, C0 and n0 taking gradients): fp32 relative L2 at most 1e-4 for
+    each of dq, dk, dv, di, dlogf (dC0, dn0); bf16 within max(3e-2, 2 g), g
+    the same gradient's gap when autograd runs through the plain parts in
+    bf16 (printed beside)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    inputs, cot = _mlstm_bwd_inputs(gen, XLSTM_TRAIN_QKV, _dtype(dn), with_state)
+    names = ("dq", "dk", "dv", "di", "dlogf", "dC0", "dn0")
+    n_live = 7 if with_state else 5
+    leaves = [x.requires_grad_(True) if j < n_live else x for j, x in enumerate(inputs)]
+    assert with_state or leaves[5] is None       # no state: none passed, as training does
+    out = ops.mlstm_chunk_scan(*leaves)
+    live = [o for o, c in zip(out, cot) if c is not None]
+    got = torch.autograd.grad(live, leaves[:n_live], [c for c in cot if c is not None])
+    torch.cuda.synchronize()
+
+    def ref_grads(dt):
+        xs = [None if x is None else
+              x.detach().to(dt if j < 3 else torch.float32).requires_grad_(j < n_live)
+              for j, x in enumerate(leaves)]
+        o = _mlstm_plain_parts(*xs)
+        outs = [a for a, c in zip(o, cot) if c is not None]
+        cs = [c.to(a.dtype) for a, c in zip(o, cot) if c is not None]
+        return torch.autograd.grad(outs, xs[:n_live], cs)
+
+    ref = ref_grads(torch.float32)
+    readings, ok = {}, True
+    if dn == "bfloat16":
+        plain16 = ref_grads(torch.bfloat16)
+    for j, (n, a, w) in enumerate(zip(names, got, ref)):
+        r = {"rel_l2_vs_fp32": _rel_l2(a, w), "max_abs_err_vs_fp32": _max_err(a, w)}
+        if dn == "float32":
+            r["tol"] = 1e-4
+        else:
+            gap = _rel_l2(plain16[j], w)
+            r.update(plain_bf16_rel_l2_vs_fp32=gap, tol=max(3e-2, 2 * gap))
+        ok = ok and r["rel_l2_vs_fp32"] <= r["tol"]
+        readings[n] = r
+    check = {"kernel": "mlstm_scan_bwd", "via": "ops.mlstm_chunk_scan (autograd function)",
+             "shape": list(XLSTM_TRAIN_QKV), "state": with_state, "dtype": dn,
+             "grads": readings}
+    assert ok, ("mLSTM gradient gate", check)
+    del inputs, cot, leaves, out, got, ref
+    torch.cuda.empty_cache()
+    return check
 
 
 def _slstm_bwd_inputs(gen, dt, with_state):
@@ -1765,7 +1992,8 @@ def _serve(state, arch, prompt, expect, layers=0, on_reset=None, rows=BATCH,
 
 
 NO_BACKWARD = {"flash_attention_bwd": 0, "flash_attention_bwd_sm90": 0,
-               "rmsnorm_bwd": 0, "rglru_scan_bwd": 0, "slstm_scan_bwd": 0}
+               "rmsnorm_bwd": 0, "rglru_scan_bwd": 0, "slstm_scan_bwd": 0,
+               "mlstm_scan_bwd": 0}
 
 
 def _dense_launches(n):
@@ -2476,9 +2704,10 @@ def phase_moe_train(state):
 
 class _tally_by_shape:
     """While open, tally the launches of K1, K1's backward, K2, K2's
-    backward and the sLSTM kernels by shape into ``counts`` (key: (kernel,
-    shape) -> launches), where K1's shape is (S, T, causal), K2's the x
-    shape and the sLSTM's gx's (g's for its backward); and K1's and its
+    backward, the sLSTM kernels and the mLSTM chunk kernels by shape into
+    ``counts`` (key: (kernel, shape) -> launches), where K1's shape is (S,
+    T, causal), K2's the x shape, the sLSTM's gx's (g's for its backward)
+    and the mLSTM's q's; and K1's and its
     backward's launches on the sm90 route under (kernel + "_sm90", ...). It
     wraps the module functions that ``kernels/ops.py`` calls and counts the
     wrappers' own launch counts across each call, so it adds none."""
@@ -2486,15 +2715,17 @@ class _tally_by_shape:
     KINDS = (("flash_attention", "flash_attention", "flash_attention"),
              ("flash_attention", "flash_attention_backward", "flash_attention_bwd"),
              ("rmsnorm", "rmsnorm", "rmsnorm"), ("rmsnorm", "rmsnorm_grad", "rmsnorm_bwd"),
-             ("slstm", "slstm_scan", "slstm_scan"), ("slstm", "slstm_scan_bwd", "slstm_scan_bwd"))
+             ("slstm", "slstm_scan", "slstm_scan"), ("slstm", "slstm_scan_bwd", "slstm_scan_bwd"),
+             ("mlstm", "mlstm_carry", "mlstm_scan"), ("mlstm", "mlstm_carry_bwd", "mlstm_scan_bwd"))
 
     def __init__(self):
         self.counts = {}
 
     def __enter__(self):
-        from repro_torch.kernels import flash_attention, launch_counts, rmsnorm, slstm
+        from repro_torch.kernels import flash_attention, launch_counts, mlstm, rmsnorm, slstm
 
-        mods = {"flash_attention": flash_attention, "rmsnorm": rmsnorm, "slstm": slstm}
+        mods = {"flash_attention": flash_attention, "rmsnorm": rmsnorm, "slstm": slstm,
+                "mlstm": mlstm}
         self.saved = []
         for mod_name, fn_name, kind in self.KINDS:
             mod = mods[mod_name]
@@ -2667,7 +2898,7 @@ def _whisper_train_launches(enc, dec):
             "flash_attention_bwd": enc + 2 * dec, "flash_attention_bwd_sm90": enc + 2 * dec,
             "rmsnorm": 2 * (2 * enc + 3 * dec) + 2, "rmsnorm_bwd": 2 * enc + 3 * dec + 2,
             "rglru_scan": 0, "rglru_scan_bwd": 0, "slstm_scan": 0, "mlstm_scan": 0,
-            "slstm_scan_bwd": 0}
+            "slstm_scan_bwd": 0, "mlstm_scan_bwd": 0}
 
 
 def _xlstm_train_launches(blocks):
@@ -2675,13 +2906,15 @@ def _xlstm_train_launches(blocks):
     K2 twice per block (mLSTM: the norm at d_model and the group norm at
     the inner width; sLSTM: both at d_model), again in the recompute, and
     once before the head; the sLSTM kernel once per sLSTM block (one in 8)
-    and again in the recompute, its backward kernel once; no mLSTM chunk
-    kernel (under autograd the chunk loop is the grouped plain one)."""
+    and again in the recompute, its backward kernel once; the same for the
+    mLSTM chunk kernel in each of the other blocks (its saving forward
+    twice, its backward kernel once)."""
     return {"flash_attention": 0, "flash_attention_sm90": 0, "flash_attention_bwd": 0,
             "flash_attention_bwd_sm90": 0, "rmsnorm": 4 * blocks + 1,
             "rmsnorm_bwd": 2 * blocks + 1, "rglru_scan": 0, "rglru_scan_bwd": 0,
             "slstm_scan": 2 * (blocks // 8), "slstm_scan_bwd": blocks // 8,
-            "mlstm_scan": 0}
+            "mlstm_scan": 2 * (blocks - blocks // 8),
+            "mlstm_scan_bwd": blocks - blocks // 8}
 
 
 def phase_whisper_train(state):
@@ -2742,7 +2975,9 @@ def phase_xlstm_train(state):
     sLSTM block), 4 x 1024: no K1; K2 193 and K2's backward 97 per step, at
     (4, 1024, 2048) and at the group norm's (4, 1024, 4096); the sLSTM
     kernel 12 (each sLSTM block's forward and its recompute, saving g and
-    c) and its backward kernel 6 per step, at gx (4, 1024, 8192). Then the
+    c) and its backward kernel 6 per step, at gx (4, 1024, 8192); the mLSTM
+    chunk kernel 84 (each mLSTM block's saving forward and its recompute)
+    and its backward kernel 42 per step, at q (4, 1024, 4, 1024). Then the
     reduced config card vs CPU."""
     n = XLSTM_D["blocks"]
     _family_train(state, "xlstm_train", XLSTM, XLSTM_TRAIN_SEQ, _xlstm_train_launches(n))
@@ -2754,7 +2989,9 @@ def phase_xlstm_train(state):
             ("rmsnorm_bwd", XLSTM_TRAIN_X): FAM_TRAIN_STEPS * (n_m + 2 * n_s + 1),
             ("rmsnorm_bwd", QWEN3MOE_TRAIN_X): FAM_TRAIN_STEPS * n_m,
             ("slstm_scan", XLSTM_TRAIN_GX): FAM_TRAIN_STEPS * 2 * n_s,
-            ("slstm_scan_bwd", XLSTM_TRAIN_GX): FAM_TRAIN_STEPS * n_s}
+            ("slstm_scan_bwd", XLSTM_TRAIN_GX): FAM_TRAIN_STEPS * n_s,
+            ("mlstm_scan", XLSTM_TRAIN_QKV): FAM_TRAIN_STEPS * 2 * n_m,
+            ("mlstm_scan_bwd", XLSTM_TRAIN_QKV): FAM_TRAIN_STEPS * n_m}
     got = {k: by.get(k, 0) for k in want}
     assert got == want, f"xlstm launches by shape {got}, expected {want}"
     _train_card_vs_cpu(XLSTM, 32)
@@ -2876,7 +3113,8 @@ def _train_launches(n):
     return {"flash_attention": 2 * n, "flash_attention_sm90": 2 * n,
             "flash_attention_bwd": n, "flash_attention_bwd_sm90": n,
             "rmsnorm": 4 * n + 1, "rmsnorm_bwd": 2 * n + 1, "rglru_scan": 0,
-            "rglru_scan_bwd": 0, "slstm_scan": 0, "mlstm_scan": 0, "slstm_scan_bwd": 0}
+            "rglru_scan_bwd": 0, "slstm_scan": 0, "mlstm_scan": 0, "slstm_scan_bwd": 0,
+            "mlstm_scan_bwd": 0}
 
 
 def _hybrid_train_launches():
@@ -2889,7 +3127,7 @@ def _hybrid_train_launches():
             "flash_attention_bwd": attn, "flash_attention_bwd_sm90": attn,
             "rmsnorm": 2 * blocks + 1 + 2 * 3 * periods, "rmsnorm_bwd": 2 * blocks + 1,
             "rglru_scan": rec + 2 * periods, "rglru_scan_bwd": rec, "slstm_scan": 0,
-            "mlstm_scan": 0, "slstm_scan_bwd": 0}
+            "mlstm_scan": 0, "slstm_scan_bwd": 0, "mlstm_scan_bwd": 0}
 
 
 def phase_train(state):
@@ -4146,11 +4384,11 @@ def _time_mlstm(state, path, shape, iters, launches, err_key):
     a prefill calls it, from a generator of its own: the kernel
     (``mlstm_carry`` on precomputed intra terms; input sets cycled past the
     L2, one set at long_500k's), beside it the torch intra pass
-    (``mlstm_intra_terms``) that feeds it, and as the plain time the route
-    before the kernel, the grouped loop ``mlstm_chunk_scan_plain`` (intra
-    terms included); the bound: q, k, v and h_intra read once, h written
+    (``mlstm_intra_terms``) that feeds it, and as the plain time the two
+    plain parts (``mlstm_intra_terms`` and ``mlstm_carry_plain``); the
+    bound: ``_mlstm_carry_bytes`` (q, k, v and h_intra read once, h written
     once, the gates' and intra terms' fp32 rows read once, the state read
-    and written once; the carried products' FLOPs at the bf16 peak. No
+    and written once) and the carried products' FLOPs at the bf16 peak. No
     PyTorch call computes the recurrence, so there is no library time."""
     import torch
 
@@ -4166,12 +4404,11 @@ def _time_mlstm(state, path, shape, iters, launches, err_key):
     carry = [_mlstm_carry_args(x) for x in sets]
     ms = _time_ms(ml.mlstm_carry, carry, iters, warmup=1)
     del carry
-    plain_ms = _time_ms(ml.mlstm_chunk_scan_plain, sets[:1], 1, queued=False, warmup=1)
+    plain_ms = _time_ms(_mlstm_plain_parts, sets[:1], 1, queued=False, warmup=1)
     del sets
     torch.cuda.empty_cache()
-    nbytes = (2 * 5 * b * s * nh * dh + 4 * 3 * b * s * nh
-              + 2 * 4 * (b * nh * dh * dh + b * nh * dh))
-    bound_ms, bound_by = _bound(nbytes, ml.carry_flops(b, s, nh, dh), "bfloat16")
+    bound_ms, bound_by = _bound(_mlstm_carry_bytes(b, s, nh, dh, 2, False),
+                                ml.carry_flops(b, s, nh, dh), "bfloat16")
     e, grid, smem = ml.plan(b, nh, dh, 2)
     return {"name": "mlstm_scan", "route": "cuda", "path": PATH_NAME[path],
             "source": "src/repro_torch/kernels/csrc/mlstm_scan.cu",
@@ -4182,10 +4419,168 @@ def _time_mlstm(state, path, shape, iters, launches, err_key):
             "library_ms": None, "bound_fraction": bound_ms / ms, "intra_ms": intra_ms,
             "kernel_route": ml.route(2, dh), "grid": grid, "cols_a_block": e,
             "smem_bytes": smem,
-            "plain": "mlstm_chunk_scan_plain, the grouped loop the prefill ran before the "
-                     "kernel (its intra terms included)",
+            "plain": "mlstm_intra_terms and mlstm_carry_plain (the carry chunk by chunk)",
             "shape": {"qkv": list(shape), "C0": None, "dtype": "bfloat16"},
             "library": "none: no single PyTorch call computes it"}
+
+
+def _mlstm_plain_parts(q, k, v, i, logf, C0, n0):
+    """The chunk recurrence's two plain parts: ``mlstm_intra_terms`` and
+    ``mlstm_carry_plain``."""
+    from repro_torch.kernels import mlstm as ml
+
+    return ml.mlstm_carry_plain(q, k, v, i, *ml.mlstm_intra_terms(q, k, v, i, logf), C0, n0)
+
+
+def _mlstm_carry_bytes(b, s, nh, dh, elem, save, state=True):
+    """Bytes the forward kernel must move: q, k, v and h_intra read and h
+    written once, the gates' and intra terms' fp32 rows read once, the last
+    state written once and the first read where one is given (``state``;
+    training gives none), and with ``save`` the nc - 1 states between
+    chunks written."""
+    from repro_torch.kernels import mlstm as ml
+
+    nc = ml._chunks(s)[1]
+    one = 4 * b * nh * (dh * dh + dh)             # a state, C and n
+    return (elem * 5 * b * s * nh * dh + 4 * 3 * b * s * nh + (1 + state) * one
+            + ((nc - 1) * one if save else 0))
+
+
+def _mlstm_bwd_bytes(b, s, nh, dh, elem):
+    """Bytes the backward kernel must move as training calls it (no dC, dn
+    on the last state, no dC0, dn0: chunk 0's update is not run): q
+    (``elem`` bytes), g fp32 and u of the chunks run (all but the first)
+    read once, cl at their last rows, and the cotangents of the nc - 1
+    states between chunks written once."""
+    from repro_torch.kernels import mlstm as ml
+
+    L, nc = ml._chunks(s)
+    rows = s - L                                  # the rows of chunks 1 .. nc - 1
+    return ((elem + 4) * b * rows * nh * dh + 4 * b * rows * nh + 4 * b * (nc - 1) * nh
+            + 4 * b * (nc - 1) * nh * (dh * dh + dh))
+
+
+def _time_mlstm_train(state):
+    """The mLSTM chunk kernels' rows in xlstm-1.3b's training step, at q, k,
+    v XLSTM_TRAIN_QKV bf16 with no first state, from a generator of their
+    own: the saving forward (``mlstm_carry(save=True)``, beside the forward that
+    saves nothing, timed in turn on the same inputs) and the backward kernel
+    (``mlstm_carry_bwd`` on g and u from a normal dh, no state gradient), as
+    training calls them; beside them the whole backward
+    (``mlstm_backward``: the first torch pass, the kernel, the carry-free
+    terms). Each beside its bound (``_mlstm_carry_bytes``,
+    ``_mlstm_bwd_bytes``; the carried products at the bf16 peak) and its
+    plain version (``mlstm_carry_plain(save=True)``,
+    ``mlstm_carry_bwd_plain``). Then the fp32 SIMT routes: the forward at
+    xlstm-1.3b's serving shape XLSTM_QKV and the backward at the training
+    shape, fp32 throughout (bounds at the fp32 peak); no path runs them at
+    these shapes (launches 0). No PyTorch call computes either, so there is
+    no library time."""
+    import torch
+
+    from repro_torch.kernels import mlstm as ml
+
+    gen = torch.Generator(device="cuda").manual_seed(79)
+    by = state["xlstm_train"]["by_shape"]
+    b, s, nh, dh = XLSTM_TRAIN_QKV
+
+    def sets_of(shape, dt):
+        """Input sets from zeros; at the training shape with no first state
+        (C0, n0 None), as training calls the kernels."""
+        bb, ss, hh, dd = shape
+        sets = [_mlstm_inputs(gen, shape, dt, False)
+                for _ in range(_n_sets(dt.itemsize * 5 * bb * ss * hh * dd))]
+        return [(*x[:5], None, None) if shape == XLSTM_TRAIN_QKV else x for x in sets]
+
+    def save(*a):
+        return ml.mlstm_carry(*a, save=True)
+
+    def bwd_sets(sets):
+        out = []
+        for x in sets:
+            q, k, v, i, logf, C0, n0 = x
+            cl, h_intra, d_intra, qk = ml.mlstm_intra_terms(q, k, v, i, logf, keep_qk=True)
+            h, _, _, Cs, ns = save(q, k, v, i, cl, h_intra, d_intra, C0, n0)
+            dh_ = _randn(gen, q.shape, q.dtype)
+            g, u, *_ = ml._read_cotangents(q, logf, d_intra, ml.entering_n(n0, ns), h, dh_,
+                                           ml.bwd_group(b, nh, dh, s))
+            out.append(((q, g, u, cl),
+                        (q, k, v, i, logf, cl, d_intra, qk, C0, n0, Cs, ns, h, dh_)))
+        return out
+
+    rows, common = [], {"route": "cuda", "path": PATH_NAME["xlstm_train"],
+                        "library_ms": None,
+                        "library": "none: no single PyTorch call computes it"}
+    for dn in ("bfloat16", "float32"):
+        dt = _dtype(dn)
+        elem = dt.itemsize
+        fshape = XLSTM_TRAIN_QKV if dn == "bfloat16" else XLSTM_QKV
+        fb, fs = fshape[:2]
+        carry = [_mlstm_carry_args(x) for x in sets_of(fshape, dt)]
+        if dn == "bfloat16":
+            ms_save = _time_ms(save, carry, 20, warmup=1)
+            ms_fwd = _time_ms(ml.mlstm_carry, carry, 20, warmup=1)
+            ms_again = _time_ms(save, carry, 20, warmup=1)
+            plain_fwd = _time_ms(lambda *a: ml.mlstm_carry_plain(*a, save=True), carry[:1], 1,
+                                 warmup=1)
+            fwd_bound = _bound(_mlstm_carry_bytes(b, s, nh, dh, elem, True, state=False),
+                               ml.carry_flops(b, s, nh, dh), dn)
+            rows.append({
+                "name": "mlstm_scan", **common,
+                "source": "src/repro_torch/kernels/csrc/mlstm_scan.cu",
+                "replaces": "none: the reference's jax.lax.scan over chunks under autograd, "
+                            "src/repro/models/xlstm.py:108 (body :80-106)",
+                "launches": by.get(("mlstm_scan", XLSTM_TRAIN_QKV), 0),
+                "max_abs_err": state["serving_err"]["mlstm_scan_save_train"],
+                "ms": ms_save, "plain_ms": plain_fwd, "bound_ms": fwd_bound[0],
+                "bound_by": fwd_bound[1], "bound_fraction": fwd_bound[0] / ms_save,
+                "forward_without_saving_ms": ms_fwd, "ms_second_pass": ms_again,
+                "variant": "saving forward (the states between chunks), mma route",
+                "plain": "mlstm_carry_plain(save=True)",
+                "shape": {"qkv": list(fshape), "C0": None, "dtype": dn}})
+        else:
+            ms_f = _time_ms(ml.mlstm_carry, carry, 10, warmup=1)
+            plain_f = _time_ms(ml.mlstm_carry_plain, carry[:1], 1, warmup=1)
+            fb_ = _bound(_mlstm_carry_bytes(fb, fs, nh, dh, elem, False),
+                         ml.carry_flops(fb, fs, nh, dh), dn)
+            rows.append({
+                "name": "mlstm_scan", **common,
+                "source": "src/repro_torch/kernels/csrc/mlstm_scan.cu",
+                "replaces": "none: the reference's jax.lax.scan over chunks, "
+                            "src/repro/models/xlstm.py:108 (body :80-106)",
+                "launches": 0, "max_abs_err": state["serving_err"]["mlstm_scan_xlstm_fp32"],
+                "ms": ms_f, "plain_ms": plain_f, "bound_ms": fb_[0], "bound_by": fb_[1],
+                "bound_fraction": fb_[0] / ms_f, "variant": "fp32, SIMT route",
+                "plain": "mlstm_carry_plain (fp32)", "path": "xlstm-1.3b prefill shape, fp32",
+                "shape": {"qkv": list(fshape), "C0": "zeros", "dtype": dn}})
+        del carry
+        full = bwd_sets(sets_of(XLSTM_TRAIN_QKV, dt))
+        kern = [x for x, _ in full]
+        ms_b = _time_ms(ml.mlstm_carry_bwd, kern, 20, warmup=1)
+        host_b = _time_ms(ml.mlstm_carry_bwd, kern, 20, queued=False)
+        plain_b = _time_ms(ml.mlstm_carry_bwd_plain, kern[:1], 1, warmup=1)
+        whole = _time_ms(ml.mlstm_backward, [y for _, y in full], 5, queued=False, warmup=1)
+        del full, kern
+        torch.cuda.empty_cache()
+        bb = _bound(_mlstm_bwd_bytes(b, s, nh, dh, elem),
+                    ml.carry_bwd_flops(b, s, nh, dh, False), dn)
+        rows.append({
+            "name": "mlstm_scan_bwd", **common,
+            "source": "src/repro_torch/kernels/csrc/mlstm_scan_bwd.cu",
+            "replaces": "none: XLA's transpose of the reference's jax.lax.scan over chunks, "
+                        "src/repro/models/xlstm.py:108 (body :80-106)",
+            "launches": by.get(("mlstm_scan_bwd", XLSTM_TRAIN_QKV), 0) if elem == 2 else 0,
+            "max_abs_err": state["serving_err"]["mlstm_scan_bwd_train" + (
+                "" if elem == 2 else "_fp32")],
+            "ms": ms_b, "plain_ms": plain_b, "bound_ms": bb[0], "bound_by": bb[1],
+            "bound_fraction": bb[0] / ms_b, "host_ms": host_b,
+            "whole_backward_ms": whole,
+            "variant": "mma route" if elem == 2 else "fp32, SIMT route",
+            "plain": "mlstm_carry_bwd_plain",
+            "shape": {"q_g": list(XLSTM_TRAIN_QKV), "dC_n": None, "dtype": dn}})
+        if dn == "float32":
+            rows[-1]["path"] = "xlstm-1.3b training shape, fp32"
+    return rows
 
 
 def _time_slstm_train(state):
@@ -5794,6 +6189,7 @@ def phase_times(state):
     ]
     kernels += _family_train_rows(state)
     kernels += _time_slstm_train(state)
+    kernels += _time_mlstm_train(state)
     kernels += _cell_rows(state)
     emit(rmsnorm_decode_shape=_time_rmsnorm(state, gen, ARCH, (BATCH, 1, 4096)))
     emit(times={"card": state["card"], "peak_bytes_per_s": PEAK_BYTES_PER_S,

@@ -8,12 +8,13 @@ backward (Triton, ``rmsnorm.py``), K3 the RG-LRU scan (CUDA C++,
 ``csrc/rglru_scan.cu``, forward and backward), the sLSTM recurrence
 (CUDA C++, ``csrc/slstm_scan.cu`` and ``csrc/slstm_scan_bwd.cu``, ``slstm.py``; the
 reference's ``jax.lax.scan``, no Pallas kernel) and the mLSTM's chunk
-recurrence (CUDA C++, ``csrc/mlstm_scan.cu``, ``mlstm.py``; the reference's
-``jax.lax.scan`` over chunks, no Pallas kernel; forward only). Each wrapper
+recurrence (CUDA C++, ``csrc/mlstm_scan.cu`` and ``csrc/mlstm_scan_bwd.cu``,
+``mlstm.py``; the reference's ``jax.lax.scan`` over chunks, no Pallas
+kernel). Each wrapper
 adds one to its count where it launches its kernel, and nowhere else:
 ``flash_attention``, ``rmsnorm``, ``rglru_scan``, ``slstm_scan`` and
-``mlstm_scan`` count the forwards, ``flash_attention_bwd``, ``rmsnorm_bwd``, ``rglru_scan_bwd``
-and ``slstm_scan_bwd`` the backwards; ``flash_attention_sm90`` and
+``mlstm_scan`` count the forwards, ``flash_attention_bwd``, ``rmsnorm_bwd``, ``rglru_scan_bwd``,
+``slstm_scan_bwd`` and ``mlstm_scan_bwd`` the backwards; ``flash_attention_sm90`` and
 ``flash_attention_bwd_sm90`` count the K1 launches that took an sm90
 kernel, of the totals beside them.
 
@@ -34,7 +35,8 @@ _COUNTS = {"flash_attention": (flash_attention, "launches"),
            "flash_attention_bwd_sm90": (flash_attention, "launches_bwd_sm90"),
            "rmsnorm_bwd": (rmsnorm, "launches_bwd"),
            "rglru_scan_bwd": (rglru, "launches_bwd"),
-           "slstm_scan_bwd": (slstm, "launches_bwd")}
+           "slstm_scan_bwd": (slstm, "launches_bwd"),
+           "mlstm_scan_bwd": (mlstm, "launches_bwd")}
 
 
 def launch_counts() -> dict[str, int]:

@@ -29,7 +29,13 @@
 // no exchange with other blocks and no atomics: every call gives the same
 // bits. It keeps C^T[cols][dh] in fp32 (128 KB at dh 1024) and its own
 // copy of n (dh fp32) in shared memory from the first chunk to the last and
-// writes them once at the end. Per chunk it streams q_j and k_j through
+// writes them once at the end. With SAVE (a template argument) it also
+// writes the nc - 1 states between chunks (C_{j-1} and n_{j-1} entering
+// chunk j > 0; the first chunk's is C0, the caller's) for the backward
+// (csrc/mlstm_scan_bwd.cu): 201 MB more at xlstm-1.3b's training shape (4,
+// 1024, 4, 1024), 60 us of bytes; without it the code is as before. The
+// update and its staging are shared with the backward (mlstm.cuh). Per
+// chunk it streams q_j and k_j through
 // shared memory in slices of DT head-dim columns (the next slice's global
 // loads in registers while the current one is used) and, per slice d0:
 //   1. the read: P[l, cols] += q[l, d0:] . bf16(C[d0:, cols]) and the
@@ -65,18 +71,9 @@
 // twentieth. The 32-fold re-read of q and k and the kernel's two barriers
 // and shared-memory traffic a slice set the time. wgmma, TMA multicast over
 // a cluster of a head's blocks and keeping C in registers are later work.
-#include "hopper.cuh"
+#include "mlstm.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;
-constexpr int ROWS = 256;     // a chunk's rows at most: the reference's CHUNK, one a thread
-constexpr int MMA_COLS = 32;  // columns of C a block holds on the mma route
-constexpr int MMA_DT = 32;    // head-dim columns of q and k staged at a time on the mma route
-constexpr int KPAD = 8;       // bf16 padding of a staged row (80-byte rows: ldmatrix without
-                              // bank conflicts)
-
-__host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
 // Byte offsets in a block's shared memory (kernels/mlstm.py `smem_bytes`
 // computes the total).
@@ -109,45 +106,6 @@ __host__ __device__ inline Layout layout(int dh, int E, int DT, int elem, bool m
   return o;
 }
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-// x rounded to T and back (the reference's casts to the activations' dtype)
-template <typename T>
-__device__ __forceinline__ float rnd(float x) { return to_f(from_f<T>(x)); }
-
-__device__ __forceinline__ float lo_f(uint32_t x) { return __uint_as_float(x << 16); }
-__device__ __forceinline__ float hi_f(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, fp32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 struct Args {
   const void *q, *k, *v;               // (B, S, NH, dh)
   const float *ig, *cl;                // (B, S, NH)
@@ -156,52 +114,15 @@ struct Args {
   const float *C0, *n0;                // (B, NH, dh, dh), (B, NH, dh) or null
   void* h;                             // (B, S, NH, dh)
   float *C, *n;                        // (B, NH, dh, dh), (B, NH, dh)
+  float *Csave, *nsave;                // SAVE: (B, nc - 1, NH, dh, dh), (B, nc - 1, NH, dh)
   int S, NH, dh;
 };
 
-// The staged slice t of q and k (rows 0 .. ROWS-1, head-dim columns
-// t DT .. t DT + DT - 1; rows past lv zero) through registers: fetch()
-// issues the global loads, stage() writes them to shared memory.
-template <typename T, bool MMA, int DT>
-struct Stager {
-  static constexpr int VEC = 16 / sizeof(T);                 // elements a 16-byte load
-  static constexpr int VPR = DT / VEC;                       // loads a staged row
-  static constexpr int N = 2 * ROWS * VPR / THREADS;         // a thread's loads (q and k)
-  uint4 buf[N];
-
-  __device__ __forceinline__ void fetch(const T* q, const T* k, size_t rowbase, int NH, int dh,
-                                        int lv, int t) {
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      const int it = threadIdx.x + r * THREADS;
-      const int which = it / (ROWS * VPR), rem = it % (ROWS * VPR);
-      const int row = rem / VPR, c = rem % VPR;
-      const T* src = (which ? k : q) + (rowbase + size_t(row) * NH) * dh + t * DT + c * VEC;
-      buf[r] = row < lv ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
-    }
-  }
-
-  __device__ __forceinline__ void stage(T* qs, T* ks, int stride) const {
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      const int it = threadIdx.x + r * THREADS;
-      const int which = it / (ROWS * VPR), rem = it % (ROWS * VPR);
-      const int row = rem / VPR, c = rem % VPR;
-      T* dst = (which ? ks : qs) + row * stride + c * VEC;
-      if constexpr (MMA) {
-        *reinterpret_cast<uint4*>(dst) = buf[r];
-      } else {
-        const T* x = reinterpret_cast<const T*>(&buf[r]);
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) dst[e] = x[e];
-      }
-    }
-  }
-};
-
 // One block: batch row blockIdx.z, head blockIdx.y, columns blockIdx.x E ..
-// + E - 1 of C. MMA: the tensor-core route (bf16, E = 32, DT = 32).
-template <typename T, bool MMA, int E, int DT>
+// + E - 1 of C. MMA: the tensor-core route (bf16, E = 32, DT = 32). SAVE:
+// also write C and n between chunks (the backward's inputs); the rest is
+// the same code, so h, C and n keep their bits.
+template <typename T, bool MMA, int E, int DT, bool SAVE>
 __global__ void __launch_bounds__(THREADS, 1) mlstm_scan_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = a.S, NH = a.NH, dh = a.dh;
@@ -240,6 +161,13 @@ __global__ void __launch_bounds__(THREADS, 1) mlstm_scan_kernel(Args a) {
     const size_t rowbase = (size_t(b) * S + s0) * NH + hd;  // (b, s0, hd) in (B, S, NH)
     st.fetch(q, k, rowbase, NH, dh, lv, 0);
     __syncthreads();  // the previous chunk is done with w v, the vectors and the staged slice
+    if constexpr (SAVE) {  // C_{j-1}, n_{j-1}: between chunks j - 1 and j (C0 is the caller's)
+      if (j > 0) {
+        const size_t sb = (size_t(b) * (nchunks - 1) + j - 1) * NH + hd;
+        write_state(a.Csave + sb * dh * dh, a.nsave + sb * dh, Cs, o.cs, ns, dh, E, col0,
+                    blockIdx.x == 0);
+      }
+    }
     const float cl_end = a.cl[rowbase + size_t(lv - 1) * NH];
     const float e_end = expf(cl_end);
     {  // row tid: exp(cl), w, d_intra and w v over the block's columns
@@ -253,25 +181,8 @@ __global__ void __launch_bounds__(THREADS, 1) mlstm_scan_kernel(Args a) {
         di_s[l] = a.din[ri];
       }
       w_s[l] = w;
-      constexpr int VEC = 16 / sizeof(T);
-      const T* vrow = v + (rowbase + size_t(l) * NH) * dh + col0;
-#pragma unroll
-      for (int c = 0; c < E / VEC; ++c) {
-        uint4 raw = make_uint4(0, 0, 0, 0);
-        if (l < lv) raw = *reinterpret_cast<const uint4*>(vrow + c * VEC);
-        const T* x = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          const float p = __fmul_rn(w, to_f(x[e]));
-          if constexpr (MMA) {
-            const __nv_bfloat16 hi = __float2bfloat16_rn(p);
-            whi[l * o.ws + c * VEC + e] = hi;
-            wlo[l * o.ws + c * VEC + e] = __float2bfloat16_rn(__fsub_rn(p, __bfloat162float(hi)));
-          } else {
-            wvf[l * o.ws + c * VEC + e] = p;
-          }
-        }
-      }
+      stage_b<T, MMA, E>(v + (rowbase + size_t(l) * NH) * dh + col0, w, l < lv, whi + l * o.ws,
+                         wlo + l * o.ws, wvf + l * o.ws);
     }
     st.stage(qs, ks, o.qs);
     __syncthreads();
@@ -291,19 +202,9 @@ __global__ void __launch_bounds__(THREADS, 1) mlstm_scan_kernel(Args a) {
     for (int t = 0; t < nslices; ++t) {
       const int d0 = t * DT;
       if (t + 1 < nslices) st.fetch(q, k, rowbase, NH, dh, lv, t + 1);
-      // the update's sums, written after the barrier: MMA, C rows d0 + 16 um
-      // + g (+ 8) and columns 8 un + 2 qd (+ 1); SIMT, (d, e) pairs tid and
-      // tid + THREADS
+      // the update's sums, written after the barrier (update_mma, update_simt)
       float u[4] = {0.f, 0.f, 0.f, 0.f};
-      {  // n's: thread tid sums row d0 + tid % DT over its part of the rows
-         // (rows past lv are zero in w and k: a fixed count, unrolled)
-        constexpr int PER = ROWS / (THREADS / DT);
-        const int d = tid % DT, l0 = tid / DT * PER;
-        float sn = 0.f;
-#pragma unroll
-        for (int x = 0; x < PER; ++x) sn += w_s[l0 + x] * to_f(ks[(l0 + x) * o.qs + d]);
-        red[tid] = sn;
-      }
+      x_partial<T, DT>(w_s, ks, o.qs, red);  // n's
       if constexpr (MMA) {
         if (warp * 32 < lv) {
 #pragma unroll
@@ -333,31 +234,7 @@ __global__ void __launch_bounds__(THREADS, 1) mlstm_scan_kernel(Args a) {
             }
           }
         }
-        const int um = warp >> 2, un = warp & 3;
-        // four independent sums (w v's high and low parts, even and odd
-        // steps of 16 rows) so the mma of a step need not wait for the
-        // last; rows past lv are zero in k and w v, so the loop runs over
-        // all ROWS, a fixed count the compiler unrolls (the next steps'
-        // loads issued before this step's mma)
-        float uh[2][4] = {}, ul[2][4] = {};
-#pragma unroll
-        for (int lk = 0; lk < ROWS; lk += 32) {
-#pragma unroll
-          for (int p = 0; p < 2; ++p) {
-            const int l0 = lk + 16 * p;
-            uint32_t fk[4], fw[4];
-            ldsm_x4_t(fk, ks + (l0 + (lane & 7) + (lane >> 4) * 8) * o.qs + um * 16 +
-                              ((lane >> 3) & 1) * 8);
-            // matrices 0, 1: rows l0 .. l0 + 15 of w v's high part; 2, 3: of its low part
-            ldsm_x4_t(fw, (lane < 16 ? whi : wlo) +
-                              (l0 + (lane & 7) + ((lane >> 3) & 1) * 8) * o.ws + un * 8);
-            mma_bf16(uh[p], fk, fw[0], fw[1]);
-            mma_bf16(ul[p], fk, fw[2], fw[3]);
-          }
-        }
-#pragma unroll
-        for (int x = 0; x < 4; ++x)
-          u[x] = __fadd_rn(__fadd_rn(uh[0][x], uh[1][x]), __fadd_rn(ul[0][x], ul[1][x]));
+        update_mma(u, ks, o.qs, whi, wlo, o.ws);
       } else {
         const int l = tid;
         if (l < lv) {
@@ -386,42 +263,10 @@ __global__ void __launch_bounds__(THREADS, 1) mlstm_scan_kernel(Args a) {
             acc[0][e][0] += p;
           }
         }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int idx = tid + r * THREADS;
-          if (idx < DT * E) {
-            const int d = idx / E, e = idx % E;
-            float s = 0.f;
-            for (int l2 = 0; l2 < lv; ++l2) s += to_f(ks[l2 * o.qs + d]) * wvf[l2 * o.ws + e];
-            u[r] = s;
-          }
-        }
+        update_simt<T, E, DT>(u, ks, o.qs, wvf, o.ws, lv);
       }
       __syncthreads();  // every read of C[d0:], n[d0:] and of the staged slice is done
-      if constexpr (MMA) {
-        const int um = warp >> 2, un = warp & 3;
-        const int d = d0 + um * 16 + g, e = un * 8 + 2 * qd;
-        float* c = Cs + e * o.cs + d;
-        c[0] = __fadd_rn(__fmul_rn(e_end, c[0]), u[0]);
-        c[o.cs] = __fadd_rn(__fmul_rn(e_end, c[o.cs]), u[1]);
-        c[8] = __fadd_rn(__fmul_rn(e_end, c[8]), u[2]);
-        c[o.cs + 8] = __fadd_rn(__fmul_rn(e_end, c[o.cs + 8]), u[3]);
-      } else {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int idx = tid + r * THREADS;
-          if (idx < DT * E) {
-            float* c = Cs + (idx % E) * o.cs + d0 + idx / E;
-            *c = __fadd_rn(__fmul_rn(e_end, *c), u[r]);
-          }
-        }
-      }
-      if (tid < DT) {  // the parts' sums in a fixed order
-        float sn = 0.f;
-#pragma unroll
-        for (int p = 0; p < THREADS / DT; ++p) sn += red[p * DT + tid];
-        ns[d0 + tid] = __fadd_rn(__fmul_rn(e_end, ns[d0 + tid]), sn);
-      }
+      apply_update<MMA, E, DT>(Cs, o.cs, ns, red, d0, e_end, u);
       if (t + 1 < nslices) st.stage(qs, ks, o.qs);
       __syncthreads();
     }
@@ -470,18 +315,14 @@ __global__ void __launch_bounds__(THREADS, 1) mlstm_scan_kernel(Args a) {
     }
   }
   __syncthreads();
-  for (int idx = tid; idx < dh * E; idx += THREADS) {
-    const int d = idx / E, e = idx % E;
-    a.C[cbase + size_t(d) * dh + col0 + e] = Cs[e * o.cs + d];
-  }
-  if (blockIdx.x == 0)
-    for (int d = tid; d < dh; d += THREADS) a.n[nbase + d] = ns[d];
+  write_state(a.C + cbase, a.n + nbase, Cs, o.cs, ns, dh, E, col0, blockIdx.x == 0);
 }
 
 template <typename T, bool MMA, int E, int DT>
 int launch(const Args& a, int B, cudaStream_t stream) {
   const Layout o = layout(a.dh, E, DT, sizeof(T), MMA);
-  auto kern = mlstm_scan_kernel<T, MMA, E, DT>;
+  auto kern = a.Csave ? mlstm_scan_kernel<T, MMA, E, DT, true>
+                      : mlstm_scan_kernel<T, MMA, E, DT, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(o.total));
   if (err != cudaSuccess) return err;
@@ -502,13 +343,17 @@ int launch_simt(const Args& a, int B, cudaStream_t stream) {
 }  // namespace
 
 // q, k, v, h_intra (B, S, NH, dh) and h in bf16 (bf16 = 1) or fp32; i, cl,
-// d_intra (B, S, NH) fp32; C0, n0 (null: zeros) and C, n fp32. dh is 8, 16 or
-// a multiple of 32. Launches on `stream`; returns the launch's cudaError_t.
+// d_intra (B, S, NH) fp32; C0, n0 (null: zeros) and C, n fp32; Csave, nsave
+// (null: not saved) fp32 (B, nc - 1, NH, dh, dh) and (B, nc - 1, NH, dh), nc =
+// ceil(S / min(S, 256)): C and n between chunks, as they enter chunks 1 ..
+// nc - 1. dh is 8, 16 or a multiple of 32. Launches on `stream`; returns the launch's cudaError_t.
 extern "C" int repro_mlstm_scan(const void* q, const void* k, const void* v, const void* ig,
                                 const void* cl, const void* h_intra, const void* d_intra,
-                                const void* C0, const void* n0, void* h, void* C, void* n, int B,
-                                int S, int NH, int dh, int bf16, void* stream) {
-  if (B <= 0 || S <= 0 || NH <= 0 || (dh != 8 && dh != 16 && (dh <= 0 || dh % 32)))
+                                const void* C0, const void* n0, void* h, void* C, void* n,
+                                void* Csave, void* nsave, int B, int S, int NH, int dh, int bf16,
+                                void* stream) {
+  if (B <= 0 || S <= 0 || NH <= 0 || (dh != 8 && dh != 16 && (dh <= 0 || dh % 32)) ||
+      (!Csave != !nsave))
     return cudaErrorInvalidValue;
   const Args a{q,
                k,
@@ -522,6 +367,8 @@ extern "C" int repro_mlstm_scan(const void* q, const void* k, const void* v, con
                h,
                static_cast<float*>(C),
                static_cast<float*>(n),
+               static_cast<float*>(Csave),
+               static_cast<float*>(nsave),
                S,
                NH,
                dh};

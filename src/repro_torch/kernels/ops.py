@@ -25,14 +25,17 @@ versions.
   reference's scan. Where no gradient flows it calls the forward alone,
   which saves nothing.
 - ``mlstm_chunk_scan``: the mLSTM's chunk recurrence (no Pallas kernel:
-  the reference's ``jax.lax.scan`` over chunks). Where no gradient flows,
-  ``mlstm.mlstm_intra_terms`` then one launch of ``mlstm.mlstm_carry``;
-  under autograd the grouped plain loop ``mlstm.mlstm_chunk_scan_plain``,
-  differentiated by torch, until the backward has a kernel.
+  the reference's ``jax.lax.scan`` over chunks). Its forward is
+  ``mlstm.mlstm_intra_terms`` then one launch of ``mlstm.mlstm_carry``
+  (saving the states between chunks where autograd records), its
+  backward ``mlstm.mlstm_backward`` (one launch of ``mlstm.mlstm_carry_bwd``
+  for the carried cotangents, batched torch for the rest), where XLA
+  transposes the reference's scan; on the CPU the kernels' plain versions.
 
 The backwards run inside the profiler ranges
 ``repro_torch.attention_backward``, ``repro_torch.rmsnorm_backward``,
-``repro_torch.rglru_backward`` and ``repro_torch.slstm_backward``.
+``repro_torch.rglru_backward``, ``repro_torch.slstm_backward`` and
+``repro_torch.mlstm_backward``.
 
 A recompute under activation checkpointing runs the forward again, so it
 launches (and counts) the kernel again.
@@ -115,6 +118,27 @@ class _SLSTMScan(torch.autograd.Function):
         return dgx, dr, dh0, dc0 if need[3] else None
 
 
+class _MLSTMScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, i, logf, C0, n0):
+        cl, h_intra, d_intra, qk = _ml.mlstm_intra_terms(q, k, v, i, logf, keep_qk=True)
+        h, C, n, Cs, ns = _ml.mlstm_carry(q, k, v, i, cl, h_intra, d_intra, C0, n0,
+                                          save=True)
+        ctx.save_for_backward(q, k, v, i, logf, cl, d_intra, qk, C0, n0, Cs, ns, h)
+        ctx.set_materialize_grads(False)
+        return h, C, n
+
+    @staticmethod
+    def backward(ctx, dh, dC, dn):
+        need = ctx.needs_input_grad
+        with torch.profiler.record_function("repro_torch.mlstm_backward"):
+            *grads, dC0, dn0 = _ml.mlstm_backward(
+                *ctx.saved_tensors, None if dh is None else dh.contiguous(),
+                *(None if x is None else x.contiguous() for x in (dC, dn)),
+                need_state=need[5] or need[6])
+        return *grads, dC0 if need[5] else None, dn0 if need[6] else None
+
+
 def flash_attention(q, k, v, causal=True, window=0, q_offset=0):
     if q_offset:
         from repro_torch.models.common import flash_attention_xla
@@ -147,16 +171,16 @@ def mlstm_chunk_scan(q, k, v, i, logf, C0, n0):
     and n0 (B, NH, dh) fp32 -> (h (B, S, NH, dh), C, n): the reference's
     ``_mlstm_chunk_scan``.
 
-    On a CPU tensor, or where autograd records, the grouped plain loop
-    ``mlstm_chunk_scan_plain`` (CHUNK_GROUP chunks a batch): the designed
-    route for training until the recurrence's backward has a kernel. On a
-    CUDA tensor with no gradient, the carry-free terms in torch
-    (``mlstm_intra_terms``) and the loop over chunks in one launch of the
-    kernel (``mlstm_carry``), which raises where it cannot run: no fallback.
-    On meta tensors (the dry run) the same two calls, the kernel's meta
-    branch counting the carried products' FLOPs."""
-    if q.device.type == "cpu" or (torch.is_grad_enabled() and any(
-            x is not None and x.requires_grad for x in (q, k, v, i, logf, C0, n0))):
-        return _ml.mlstm_chunk_scan_plain(q, k, v, i, logf, C0, n0)
+    The carry-free terms in torch (``mlstm_intra_terms``) and the loop over
+    chunks in one call of ``mlstm_carry``: on a CUDA tensor one launch of the
+    kernel, which raises where it cannot run (no fallback), on a CPU tensor
+    its plain version, on meta tensors (the dry run) its meta branch
+    counting the carried products' FLOPs. Where autograd records, the same
+    through ``_MLSTMScan``, whose forward saves the states between chunks
+    and whose backward is ``mlstm_backward`` (the backward kernel's
+    wrapper on the same routes)."""
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad
+                                       for x in (q, k, v, i, logf, C0, n0)):
+        return _MLSTMScan.apply(q, k, v, i, logf, C0, n0)
     cl, h_intra, d_intra = _ml.mlstm_intra_terms(q, k, v, i, logf)
     return _ml.mlstm_carry(q, k, v, i, cl, h_intra, d_intra, C0, n0)

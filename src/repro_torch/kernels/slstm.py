@@ -46,6 +46,8 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels._ffi import _check, _on_meta, _ptr
+
 launches = 0          # forward kernel launches since the last reset
 launches_bwd = 0      # backward kernel launches since the last reset
 meta_flops = 0        # FLOPs of the calls on meta tensors (the dry run)
@@ -221,25 +223,6 @@ def plan(b: int, d: int, dh: int, elem: int, sms: int, *,
     return cpb, grid, smem
 
 
-def _check(named: dict, dt, fp32: tuple, what="slstm_scan"):
-    """Raise unless the tensors ``named`` (None: absent) lie on one CUDA
-    device, are contiguous and 16-byte aligned, and are in ``dt`` (bf16 or
-    fp32), those named in ``fp32`` in fp32."""
-    named = {k: v for k, v in named.items() if v is not None}
-    first = next(iter(named.values()))
-    if not (first.is_cuda and all(x.device == first.device for x in named.values())):
-        raise ValueError(f"{what}: {', '.join(named)} must lie on one CUDA device "
-                         f"(got {[str(x.device) for x in named.values()]})")
-    if dt not in (torch.bfloat16, torch.float32) or any(
-            x.dtype != (torch.float32 if k in fp32 else dt) for k, x in named.items()):
-        raise ValueError(f"{what}: {', '.join(k for k in named if k not in fp32)} must "
-                         f"share bf16 or fp32 and {', '.join(fp32)} be fp32 (got "
-                         f"{[x.dtype for x in named.values()]})")
-    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0 for x in named.values()):
-        raise ValueError(f"{what}: {', '.join(named)} must be contiguous and 16-byte "
-                         "aligned")
-
-
 def _check_shapes(what, named, b, s, d, r_gates, **extra):
     """Raise unless r_gates is (nh, D/nh, 4D/nh) and each tensor of
     ``named`` has the shape given for it: ``bd`` (B, D), ``bsd`` (B, S, D)
@@ -254,14 +237,6 @@ def _check_shapes(what, named, b, s, d, r_gates, **extra):
     if d % 8 or r_gates.shape[1] % 2:
         raise ValueError(f"{what}: width {d} must be a multiple of 8 and head dim "
                          f"{r_gates.shape[1]} even")
-
-
-def _on_meta(*xs):
-    return all(x is None or x.is_meta for x in xs)
-
-
-def _ptr(x):
-    return None if x is None else x.data_ptr()
 
 
 def _sms(x):
@@ -288,7 +263,8 @@ def slstm_scan(gx, r_gates, h0=None, c0=None, save=False):
         meta_flops += flops(b, s, *r_gates.shape[:2])
         return (gx.new_empty((b, s, d)), gx.new_empty((b, d)),
                 gx.new_empty((b, d), dtype=torch.float32), *saved)
-    _check({"gx": gx, "r_gates": r_gates, "h0": h0, "c0": c0}, gx.dtype, ("c0",))
+    _check({"gx": gx, "r_gates": r_gates, "h0": h0, "c0": c0}, gx.dtype, ("c0",),
+           "slstm_scan")
     if gx.dim() != 3 or d4 % 4:
         raise ValueError(f"slstm_scan: bad shapes gx {tuple(gx.shape)}")
     _check_shapes("slstm_scan", {"h0": "bd", "c0": "bd"}, b, s, d, r_gates, h0=h0, c0=c0)

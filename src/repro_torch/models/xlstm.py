@@ -96,7 +96,8 @@ def init_mlstm(gen, cfg: ModelConfig, dtype=torch.float32, device=None,
 
 def _mlstm_chunk_scan(q, k, v, i, logf, C0, n0):
     """Chunkwise mLSTM. q,k,v: (B,S,NH,dh); i,logf: (B,S,NH) fp32.
-    C0: (B,NH,dh,dh), n0: (B,NH,dh) fp32. Returns (h (B,S,NH,dh), C, n):
+    C0: (B,NH,dh,dh), n0: (B,NH,dh) fp32, or None (zeros). Returns (h
+    (B,S,NH,dh), C, n):
     ``kernels.ops.mlstm_chunk_scan`` (the reference's chunk length,
     ``kernels.mlstm.CHUNK``)."""
     return ops.mlstm_chunk_scan(q, k, v, i, logf, C0, n0)
@@ -146,11 +147,10 @@ def _mlstm_mix(p, up, state, cfg: ModelConfig):
     gate_i = torch.sigmoid((xm @ p["w_i"].to(dt)).float())
     logf = F.logsigmoid((xm @ p["w_f"].to(dt)).float() + p["f_bias"].float())
 
-    if state is None:
-        C0 = torch.zeros((b, nh, dh, dh), dtype=torch.float32, device=up.device)
-        n0 = torch.zeros((b, nh, dh), dtype=torch.float32, device=up.device)
-    else:
-        C0, n0 = state["C"], state["n"]
+    # no state: the scan starts from zeros (None: it reads and differentiates
+    # no first state)
+    C0, n0 = (None, None) if state is None else (state["C"].contiguous(),
+                                                 state["n"].contiguous())
 
     if s == 1 and state is not None:
         f = torch.exp(logf[:, 0])                                  # (B,NH)
@@ -162,7 +162,7 @@ def _mlstm_mix(p, up, state, cfg: ModelConfig):
         den = torch.clamp_min(torch.abs(torch.einsum("bhd,bhd->bh", qf, n)), 1.0)
         h = (num / den[..., None]).to(dt)[:, None]
     else:
-        h, C, n = _mlstm_chunk_scan(q, k, v, gate_i, logf, C0.contiguous(), n0.contiguous())
+        h, C, n = _mlstm_chunk_scan(q, k, v, gate_i, logf, C0, n0)
 
     h = rms_norm(h.reshape(b, s, di), p["gn"].to(dt), cfg.norm_eps)
     if state is not None:

@@ -21,7 +21,8 @@ ZERO_LAUNCHES = {"flash_attention": 0, "rmsnorm": 0, "rglru_scan": 0,
                  "slstm_scan": 0, "mlstm_scan": 0, "flash_attention_sm90": 0,
                  "flash_attention_bwd": 0,
                  "flash_attention_bwd_sm90": 0, "rmsnorm_bwd": 0,
-                 "rglru_scan_bwd": 0, "slstm_scan_bwd": 0}
+                 "rglru_scan_bwd": 0, "slstm_scan_bwd": 0,
+                 "mlstm_scan_bwd": 0}
 
 
 def cfgs(arch, dtype="float32", **kw):

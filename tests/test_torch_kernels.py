@@ -331,7 +331,8 @@ def test_ops_take_plain_paths_on_cpu_and_count_nothing():
                                "flash_attention_sm90": 0,
                                "flash_attention_bwd": 0,
                                "flash_attention_bwd_sm90": 0, "rmsnorm_bwd": 0,
-                               "rglru_scan_bwd": 0, "slstm_scan_bwd": 0}
+                               "rglru_scan_bwd": 0, "slstm_scan_bwd": 0,
+                               "mlstm_scan_bwd": 0}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -1,13 +1,14 @@
-"""The mLSTM's chunk scan (``repro_torch.models.xlstm._mlstm_chunk_scan``)
-against the reference's over several groups of chunks, on the CPU.
+"""The mLSTM's chunk scan against the reference's over several groups of
+chunks, on the CPU.
 
-On the CPU the port runs the reference's per-chunk formulas
-``kernels.mlstm.CHUNK_GROUP`` chunks at a time (the carry of C and n chunk
-by chunk inside a group). Here six chunks
-of 256, the last ragged, go through the reference's ``_mlstm_chunk_scan``
-and through the port's with groups of 1, 2, 4 and the default, from zeros
-and from a carried state: fp32 within the scan's 1e-5
-(``tests/test_kernels.py``), bf16 within 2e-2.
+The port computes the carry-free terms of every chunk
+(``kernels.mlstm.mlstm_intra_terms``) ``group`` chunks a batch, then runs
+the carry of C and n chunk by chunk (``mlstm_carry_plain`` on the CPU, the
+chunk kernel on the card). Here six chunks of 256, the last ragged, go
+through the reference's ``_mlstm_chunk_scan`` and through the port's two
+parts with groups of 1, 2, 4 and the default, from zeros and from a carried
+state: fp32 within the scan's 1e-5 (``tests/test_kernels.py``), bf16 within
+2e-2.
 """
 import numpy as np
 import pytest
@@ -15,7 +16,6 @@ import pytest
 from _family_twins import both, close
 from repro.models import xlstm as jxl
 from repro_torch.kernels import mlstm
-from repro_torch.models import xlstm as txl
 
 S = 5 * mlstm.CHUNK + 37
 
@@ -37,12 +37,13 @@ def _inputs(with_state):
 @pytest.mark.parametrize("group", [1, 2, 4, None], ids=["g1", "g2", "g4", "default"])
 @pytest.mark.parametrize("with_state", [False, True], ids=["zeros", "state"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_grouped_chunk_scan_matches_reference(dtype, with_state, group, monkeypatch):
-    if group is not None:
-        monkeypatch.setattr(mlstm, "CHUNK_GROUP", group)
+def test_grouped_chunk_scan_matches_reference(dtype, with_state, group):
     arrays = _inputs(with_state)
     # q, k, v in the activations' dtype; the gates and the state in fp32
     js, ts = zip(*(both(a, dtype if n < 3 else "float32") for n, a in enumerate(arrays)))
+    q, k, v, i, logf, C0, n0 = ts
+    terms = mlstm.mlstm_intra_terms(q, k, v, i, logf, group)
+    got = mlstm.mlstm_carry_plain(q, k, v, i, *terms, C0, n0)
     tol = 1e-5 if dtype == "float32" else 2e-2
-    for got, want in zip(txl._mlstm_chunk_scan(*ts), jxl._mlstm_chunk_scan(*js)):
-        close(got, want, tol)
+    for g, want in zip(got, jxl._mlstm_chunk_scan(*js)):
+        close(g, want, tol)

@@ -7,12 +7,12 @@ The port splits it in two: ``mlstm_intra_terms`` (the carry-free terms of
 every chunk, in torch) and ``mlstm_carry`` (the loop over chunks, one
 launch of ``csrc/mlstm_scan.cu`` on the card; ``mlstm_carry_plain``, the
 kernel's arithmetic chunk by chunk, on the CPU). The same seeded numpy
-inputs go through the reference's scan, through the two parts and through
-``mlstm_chunk_scan_plain`` (the grouped loop the port ran before, still its
-route under autograd): batch 1, 2 heads of 8, S = 5 x 256 + 37 (a ragged
-last chunk) and S = 100 (one chunk shorter than 256), from zeros and from a
-state. Tolerances: fp32 1e-5 (the scan's, ``tests/test_kernels.py``), bf16
-2e-2. The kernel itself runs only on the card (``chip_smoke.py``'s
+inputs go through the reference's scan and through the two parts: batch 1,
+2 heads of 8, S = 5 x 256 + 37 (a ragged last chunk) and S = 100 (one
+chunk shorter than 256), from zeros and from a state; the state the saving
+forward keeps for every chunk against the reference's scan over the chunks
+before it. Tolerances: fp32 1e-5 (the scan's, ``tests/test_kernels.py``),
+bf16 2e-2. The kernel itself runs only on the card (``chip_smoke.py``'s
 ``_mlstm_checks``); here its shapes, its plan and its C interface.
 """
 import ctypes
@@ -60,14 +60,26 @@ def _two_parts(q, k, v, i, logf, C0, n0, group=None):
 @pytest.mark.parametrize("with_state", [False, True], ids=["zeros", "state"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_intra_terms_and_carry_match_the_reference(dtype, with_state, s):
-    """h, C and n of the two parts against the reference's scan and against
-    the grouped plain loop, on the same inputs."""
-    js, ts = _both(_inputs(s, with_state), dtype)
+    """h, C and n of the two parts against the reference's scan, on the same
+    inputs; with ``save`` the same bits, and the nc - 1 states between
+    chunks, C and n entering chunk j > 0, against the reference's scan over
+    chunks 0 .. j-1."""
+    arrays = _inputs(s, with_state)
+    js, ts = _both(arrays, dtype)
     got = _two_parts(*ts)
     for g, want in zip(got, jxl._mlstm_chunk_scan(*js)):
         close(g, want, TOL[dtype])
-    for g, want in zip(got, mlstm.mlstm_chunk_scan_plain(*ts)):
-        close(g, want, TOL[dtype])
+    q, k, v, i, logf, C0, n0 = ts
+    saved = mlstm.mlstm_carry_plain(q, k, v, i, *mlstm.mlstm_intra_terms(q, k, v, i, logf),
+                                    C0, n0, save=True)
+    assert all(torch.equal(a, b) for a, b in zip(saved[:3], got))
+    L, nc = mlstm._chunks(s)
+    assert saved[3].shape == (1, nc - 1, 2, 8, 8) and saved[4].shape == (1, nc - 1, 2, 8)
+    for j in range(1, nc):
+        head = [x[:, :j * L] for x in js[:5]]
+        _, want_C, want_n = jxl._mlstm_chunk_scan(*head, js[5], js[6])
+        close(saved[3][:, j - 1], want_C, TOL[dtype])
+        close(saved[4][:, j - 1], want_n, TOL[dtype])
 
 
 @pytest.mark.parametrize("group", [1, 2, 5])
@@ -92,20 +104,22 @@ def test_intra_group_caps_the_bytes():
 
 @pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "autograd"])
 def test_ops_on_the_cpu_is_the_plain_loop_and_launches_nothing(grad):
-    """``ops.mlstm_chunk_scan`` on CPU tensors runs ``mlstm_chunk_scan_plain``
-    (its bits), with and without autograd, and launches no kernel; under
-    autograd the gradients flow through it."""
+    """``ops.mlstm_chunk_scan`` on CPU tensors runs the two plain parts (their
+    bits), with and without autograd (the saving forward), and launches no
+    kernel; under autograd the gradients flow through the backward's plain
+    route."""
     _, ts = _both(_inputs(S_LONG, True), "float32")
     ts = [t.clone().requires_grad_(grad) for t in ts]
     before = kernels.launch_counts()
     with torch.set_grad_enabled(grad):
         got = ops.mlstm_chunk_scan(*ts)
-        want = mlstm.mlstm_chunk_scan_plain(*ts)
-    assert kernels.launch_counts() == before
+    with torch.no_grad():
+        want = _two_parts(*ts)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     if grad:
         sum(x.sum() for x in got).backward()
         assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in ts)
+    assert kernels.launch_counts() == before
 
 
 @pytest.mark.parametrize("s", [S_LONG, 100, 512])
@@ -113,8 +127,9 @@ def test_meta_branch_counts_the_plain_loops_flops(s):
     """On meta tensors ``ops.mlstm_chunk_scan`` runs the intra terms and the
     kernel's meta branch: empty outputs of the kernel's shapes and dtypes,
     no launch, and, with ``kernels.meta_flops()``, the FLOPs that
-    ``torch.utils.flop_counter`` counts for the grouped plain loop on the
-    same meta tensors. On mixed devices the kernel's wrapper raises."""
+    ``torch.utils.flop_counter`` counts for the two plain parts on the same
+    meta tensors (the ragged last chunk padded, as the kernel runs it). On
+    mixed devices the kernel's wrapper raises."""
     b, nh, dh = 2, 4, 32
 
     def meta(*shape, dt=torch.float32):
@@ -124,7 +139,7 @@ def test_meta_branch_counts_the_plain_loops_flops(s):
     i, logf = meta(b, s, nh), meta(b, s, nh)
     C0, n0 = meta(b, nh, dh, dh), meta(b, nh, dh)
     with FlopCounterMode(display=False) as plain:
-        mlstm.mlstm_chunk_scan_plain(q, k, v, i, logf, C0, n0)
+        _two_parts(q, k, v, i, logf, C0, n0)
     kernels.reset_meta_flops()
     before = kernels.launch_counts()
     with torch.no_grad(), FlopCounterMode(display=False) as intra:
@@ -164,7 +179,8 @@ def test_plan_at_the_paths_shapes_and_its_refusals():
 
 def test_source_exports_the_symbol_the_wrapper_binds():
     """``repro_mlstm_scan``'s C parameters are the ctypes signature the
-    wrapper binds, and the block's constants are the wrapper's."""
+    wrapper binds, and the block's constants (``mlstm.cuh``, shared with the
+    backward) are the wrapper's."""
     symbol, argtypes = mlstm.KERNEL
     text = (_build.CSRC / "mlstm_scan.cu").read_text()
     found = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', text)
@@ -172,6 +188,7 @@ def test_source_exports_the_symbol_the_wrapper_binds():
     declared = [ctypes.c_void_p if "*" in p else ctypes.c_int
                 for p in (p.strip() for p in found.group(1).split(","))]
     assert declared == argtypes
+    text = (_build.CSRC / "mlstm.cuh").read_text()
     consts = {name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
               for name in ("THREADS", "ROWS", "MMA_COLS", "MMA_DT")}
     assert consts == {"THREADS": mlstm.THREADS, "ROWS": mlstm.CHUNK,

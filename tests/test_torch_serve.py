@@ -126,7 +126,8 @@ def test_prefill_and_decode_match_reference(arch, dtype):
                                "flash_attention_sm90": 0,
                                "flash_attention_bwd": 0,
                                "flash_attention_bwd_sm90": 0, "rmsnorm_bwd": 0,
-                               "rglru_scan_bwd": 0, "slstm_scan_bwd": 0}
+                               "rglru_scan_bwd": 0, "slstm_scan_bwd": 0,
+                               "mlstm_scan_bwd": 0}
 
 
 def test_kv_quantize_matches_reference_exactly():

@@ -6,14 +6,15 @@ card.
     python3 tools/mlstm_variants.py
 
 Run from the root of a checkout on a machine with one NVIDIA H100 and the
-CUDA toolkit. Writes each variant (a text edit of the source) into
+CUDA toolkit. Writes each variant (a text edit of the source, with the update it shares
+with the backward, ``csrc/mlstm.cuh``, inlined) into
 ``build/mlstm_variants/`` and builds them all at once with ``nvcc`` and the
 port's flags: the kernel as it is; without the q and k slices' loads
 (``nofetch``: each slice reads the staged data of the chunk's first);
 without the read's or the update's ``mma.sync`` (``noread``, ``noupdate``)
 or both; both and the loads; the update's four mma chains as one
-(``one_chain``); and its loop over the chunk's rows only (``rolled``: a
-count the compiler does not unroll). Variants without a part compute wrong
+(``one_chain``); and its loop over the chunk's rows not unrolled
+(``rolled``). Variants without a part compute wrong
 values: they are timed, not checked; ``one_chain`` and ``rolled`` are held
 to ``mlstm_carry_plain``.
 Times each with CUDA events in turns, three rounds, at (1, 65536, 4, 1024)
@@ -32,13 +33,13 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = [(1, 65536, 4, 1024), (4, 2048, 4, 1024)]
-UPDATE = """            mma_bf16(uh[p], fk, fw[0], fw[1]);
-            mma_bf16(ul[p], fk, fw[2], fw[3]);"""
+UPDATE = """      mma_bf16(uh[p], fk, fw[0], fw[1]);
+      mma_bf16(ul[p], fk, fw[2], fw[3]);"""
 READ = "for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt], fa[mt], b0, b1);"
 FETCH = "if (t + 1 < nslices) st.fetch(q, k, rowbase, NH, dh, lv, t + 1);"
 STAGE = "if (t + 1 < nslices) st.stage(qs, ks, o.qs);"
 SUM = "u[x] = __fadd_rn(__fadd_rn(uh[0][x], uh[1][x]), __fadd_rn(ul[0][x], ul[1][x]));"
-LOOP = "for (int lk = 0; lk < ROWS; lk += 32) {"
+LOOP = "#pragma unroll\n  for (int lk = 0; lk < ROWS; lk += 32) {"
 
 
 def variants(src: str) -> dict[str, str]:
@@ -51,13 +52,13 @@ def variants(src: str) -> dict[str, str]:
             text = text.replace(p, "")
         return text
 
-    one_chain = src.replace(UPDATE, """            mma_bf16(uh[0], fk, fw[0], fw[1]);
-            mma_bf16(uh[0], fk, fw[2], fw[3]);""").replace(SUM, "u[x] = uh[0][x];")
+    one_chain = src.replace(UPDATE, """      mma_bf16(uh[0], fk, fw[0], fw[1]);
+      mma_bf16(uh[0], fk, fw[2], fw[3]);""").replace(SUM, "u[x] = uh[0][x];")
     return {"kernel": src, "nofetch": cut(FETCH, STAGE), "noread": cut(READ),
             "noupdate": cut(UPDATE), "noread_noupdate": cut(READ, UPDATE),
             "noread_noupdate_nofetch": cut(READ, UPDATE, FETCH, STAGE),
             "one_chain": one_chain,
-            "rolled": src.replace(LOOP, "for (int lk = 0; lk < lv; lk += 32) {")}
+            "rolled": src.replace(LOOP, LOOP.replace("unroll", "unroll 1"))}
 
 
 def main() -> int:
@@ -75,8 +76,9 @@ def main() -> int:
     print(nvidia_smi(), flush=True)
     out_dir = os.path.join(ROOT, "build", "mlstm_variants")
     os.makedirs(out_dir, exist_ok=True)
-    src = (_build.CSRC / "mlstm_scan.cu").read_text().replace(
+    header = (_build.CSRC / "mlstm.cuh").read_text().replace(
         '#include "hopper.cuh"', f'#include "{_build.CSRC / "hopper.cuh"}"')
+    src = (_build.CSRC / "mlstm_scan.cu").read_text().replace('#include "mlstm.cuh"', header)
     procs = {}
     for name, text in variants(src).items():
         cu, lib = (os.path.join(out_dir, f"{name}.{x}") for x in ("cu", "so"))
@@ -105,7 +107,7 @@ def main() -> int:
         C = q.new_empty((b, nh, dh, dh), dtype=torch.float32)
         n = q.new_empty((b, nh, dh), dtype=torch.float32)
         err = fn(*(x.data_ptr() for x in (q, k, v, i, cl, h_intra, d_intra, C0, n0, h, C, n)),
-                 b, s, nh, dh, 1, torch.cuda.current_stream().cuda_stream)
+                 None, None, b, s, nh, dh, 1, torch.cuda.current_stream().cuda_stream)
         assert err == 0, f"launch failed: cudaError {err}"
         return h, C, n
 
