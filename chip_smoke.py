@@ -4360,9 +4360,11 @@ def _time_slstm(state, path, b, s, iters, launches, err_key):
         del lstm
     except RuntimeError as e:     # the yardstick only: the port never calls it
         lib_note = f"cuDNN LSTM failed: {str(e)[:200]}"
+    cluster, cpb, grid, smem = sl.fwd_plan(b, d, nh, gx0)
     del sets, gx0, r0
     torch.cuda.empty_cache()
     return {"name": "slstm_scan", "route": "cuda", "path": PATH_NAME[path],
+            "cluster": cluster, "cpb": cpb, "grid": grid, "smem_bytes": smem,
             "source": "src/repro_torch/kernels/csrc/slstm_scan.cu",
             "replaces": "none: the reference's jax.lax.scan of _slstm_cell, "
                         "src/repro/models/xlstm.py:229 (cell :198)",
@@ -4647,6 +4649,7 @@ def _time_slstm_train(state):
     bwd_bytes = (2 * b * s * d4 + 4 * b * s * d + 2 * nh * dh * 4 * dh + 2 * b * s * d
                  + 2 * b * s * d4 + 4 * b * d)
     bwd_bound = _bound(bwd_bytes, sl.flops(b, s - 1, nh, dh), "bfloat16")
+    cluster, cpb, grid, smem = sl.fwd_plan(b, d, nh, sets[0][0])
     del sets, bsets
     torch.cuda.empty_cache()
     common = {"route": "cuda", "path": PATH_NAME["xlstm_train"],
@@ -4660,6 +4663,7 @@ def _time_slstm_train(state):
          "replaces": "none: the reference's jax.lax.scan of _slstm_cell under autograd, "
                      "src/repro/models/xlstm.py:229 (cell :198)",
          "launches": by.get(("slstm_scan", XLSTM_TRAIN_GX), 0),
+         "cluster": cluster, "cpb": cpb, "grid": grid, "smem_bytes": smem,
          "max_abs_err": state["serving_err"]["slstm_scan_save_train"],
          "ms": ms_save, "plain_ms": plain_save_ms, "bound_ms": save_bound[0],
          "bound_by": save_bound[1], "library_ms": lib_fwd,

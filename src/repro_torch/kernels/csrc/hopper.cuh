@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (csrc/flash_attention_sm90.cu, csrc/flash_attention_bwd_sm90.cu): mbarrier
-// waits, TMA tile and bulk loads, 128-byte-swizzle wgmma descriptors, the
-// wgmma instructions the kernels issue, the async-proxy fence and named
-// barriers, and the host-side tensor-map encoder.
+// (csrc/flash_attention_sm90.cu, csrc/flash_attention_bwd_sm90.cu) and the
+// sLSTM forward (csrc/slstm_scan.cu): mbarrier waits, TMA tile and bulk
+// loads, 128-byte-swizzle wgmma descriptors, the wgmma instructions the
+// kernels issue, the async-proxy fence and named barriers, thread-block
+// clusters (ranks, mapa, st.async, the cluster barrier), and the host-side
+// tensor-map encoder.
 // Included by each source; kernels/_build.py hashes every csrc/*.cuh into
 // each library's build key, so an edited header rebuilds its users.
 #pragma once
@@ -294,6 +296,43 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Thread-block clusters: this block's rank in its cluster; the address in
+// the shared memory of the cluster's block `rank` of the variable at this
+// block's shared address `addr`; a barrier over every thread of the cluster
+// (release, then acquire).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Makes this thread's mbarrier.init visible to the other blocks of the
+// cluster (before a cluster_sync, ahead of their first remote arrival).
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Store 16 bytes at `addr` in a block of the cluster (a mapa address),
+// completing 16 bytes on that block's mbarrier `bar` (also a mapa address).
+__device__ __forceinline__ void st_async16(uint32_t addr, uint4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
       : "memory");
 }
 

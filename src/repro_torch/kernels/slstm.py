@@ -20,7 +20,10 @@ channel ``idx % D`` (with xlstm-1.3b's 4 heads the gate is the head).
 ``slstm_scan_plain`` on a CPU tensor; it never falls back from one to the
 other. Each launch adds one to ``launches``. With ``save=True`` both also
 return each step's gates g_t = gx_t + flat(gr_t) and c_t, what the
-backward reads.
+backward reads. The kernel's grid runs in thread-block clusters whose
+blocks are all resident at once: ``plan`` picks the cluster size and the
+channels a block from the residency the card reports for the kernel
+(``repro_slstm_scan_clusters``), and a shape no such grid takes raises.
 
 The backward has no TPU kernel either (the reference differentiates its
 scan in XLA). ``slstm_scan_bwd`` runs it in reverse time in
@@ -52,16 +55,22 @@ launches = 0          # forward kernel launches since the last reset
 launches_bwd = 0      # backward kernel launches since the last reset
 meta_flops = 0        # FLOPs of the calls on meta tensors (the dry run)
 _fns: dict = {}
+_plans: dict = {}     # the forward's plan by shapes, dtype and card
 
 # The kernels' block (csrc/slstm.cuh): THREADS threads, each keeping c
 # for up to MAX_PAIRS (batch row, channel) pairs.
 THREADS, MAX_PAIRS = 512, 4
+# The forward's (csrc/slstm_scan.cu): gx stages, bytes after each row of h,
+# and the bf16 products' k-splits
+NST, HPAD, KS = 8, 32, 4
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 # C symbols and argument types: the forward (csrc/slstm_scan.cu) and the
-# backward (csrc/slstm_scan_bwd.cu), each named after its source
+# backward (csrc/slstm_scan_bwd.cu), each named after its source, and the
+# forward's residency (in the forward's source)
 KERNEL = ("repro_slstm_scan", [_VP] * 10 + [_I] * 6 + [_VP])
+CLUSTERS = ("repro_slstm_scan_clusters", [_I] * 6)    # the forward's residency
 KERNEL_BWD = ("repro_slstm_scan_bwd", [_VP] * 11 + [_I] * 6 + [_VP])
 
 
@@ -70,7 +79,8 @@ def _kernel(which=KERNEL):
         from repro_torch.kernels import _build
 
         symbol, argtypes = which
-        fn = getattr(_build.load(symbol.removeprefix("repro_")), symbol)
+        source = symbol.removeprefix("repro_").removesuffix("_clusters")
+        fn = getattr(_build.load(source), symbol)
         fn.argtypes = argtypes
         fn.restype = _I
         _fns[symbol] = fn
@@ -182,11 +192,16 @@ def _a16(n):
 
 
 def smem_bytes(elem: int, b: int, d: int, dh: int, cpb: int) -> int:
-    """Shared-memory bytes of one forward block (``smem_bytes`` in the
-    source): its 4 x cpb columns of r_gates, h_{t-1}, the products and its
-    new h."""
-    return (_a16(elem * 4 * cpb * dh) + _a16(elem * b * d) + _a16(4 * 4 * cpb * b)
-            + _a16(elem * b * cpb))
+    """Shared-memory bytes of one forward block (``Layout`` in the source):
+    its barriers (two for h, one a gx stage); in fp32 its 4 x cpb columns of
+    r_gates (bf16 keeps them in registers); two buffers of h (B rows of D
+    values and HPAD bytes); the products (fp32: B sums a column; bf16: KS
+    partial sums a column for B rounded up to 8); its new h; NST gx stages
+    of 4 x B x cpb values."""
+    mma = elem == 2
+    return (_a16(8 * (2 + NST)) + (0 if mma else _a16(elem * 4 * cpb * dh))
+            + 2 * b * (elem * d + HPAD) + _a16(4 * 4 * cpb * (KS * -(-b // 8) * 8 if mma else b))
+            + _a16(elem * b * cpb) + NST * _a16(elem * 4 * b * cpb))
 
 
 def heads_spanned(d: int, dh: int, cpb: int) -> int:
@@ -202,25 +217,69 @@ def smem_bytes_bwd(elem: int, b: int, d: int, dh: int, cpb: int) -> int:
             + _a16(4 * 4 * cpb * b) + _a16(elem * b * 4 * cpb))
 
 
-def plan(b: int, d: int, dh: int, elem: int, sms: int, *,
-         smem_fn=smem_bytes) -> tuple[int, int, int]:
-    """(channels a block, blocks, shared bytes a block) on a card of ``sms``
-    SMs: the fewest channels a block, rounded up to even (a block publishes
-    its values in 4-byte words), that keep the grid within one block an SM,
-    as the exchange between blocks needs. ``smem_fn`` is the forward's
-    ``smem_bytes`` or the backward's ``smem_bytes_bwd``. Raises where the
-    kernel cannot take the shapes."""
-    cpb = -(-d // sms)
-    cpb += cpb % 2
-    grid = -(-d // cpb)
-    smem = smem_fn(elem, b, d, dh, cpb)
+def _step(elem: int, fwd: bool) -> int:
+    """cpb's granularity: even in the backward (a block publishes 4-byte
+    words); in the forward 16 bytes of fp32 values (its gx slices and h
+    chunks move 16 bytes at a time) or 16 bf16 channels (an m-tile of its
+    products)."""
+    return (4 if elem == 4 else 16) if fwd else 2
+
+
+def channels_a_block(d: int, elem: int, sms: int, fwd: bool = True) -> int:
+    """The fewest channels a block that keep the grid within one block an
+    SM, rounded up to ``_step``."""
+    step = _step(elem, fwd)
+    return -(-d // (sms * step)) * step
+
+
+def plan(b: int, d: int, dh: int, elem: int, sms: int, resident=None, *,
+         smem_fn=smem_bytes):
+    """The grid on a card of ``sms`` SMs. Raises where the kernel cannot
+    take the shapes.
+
+    The forward (``resident`` given: a function of a cluster size giving
+    the most clusters of it the card holds at once, which the wrapper reads
+    from the card) returns (cluster size, cpb, blocks, shared bytes a
+    block): the largest cluster of 16, 8, 4 and 2 blocks (none larger than
+    the grid but 2) for which the fewest channels a block whose grid the
+    card holds at once fit the block's shared memory (and, in bf16, its
+    products' registers: at most 32 channels and dh 512); the grid padded
+    to whole clusters (the source's ``cluster_for`` picks the same size for
+    that cpb). The backward (``resident`` None, ``smem_fn`` its
+    ``smem_bytes_bwd``) returns (cpb, blocks, shared bytes a block) of its
+    cooperative grid, ``channels_a_block`` channels a block."""
+    fwd = resident is not None
+    cpb = channels_a_block(d, elem, sms, fwd)
     if b * cpb > MAX_PAIRS * THREADS:
         raise ValueError(f"slstm_scan: batch {b} x {cpb} channels a block exceeds "
                          f"{MAX_PAIRS * THREADS} (row, channel) pairs")
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"slstm_scan: {smem} bytes of shared memory a block at batch "
-                         f"{b}, width {d}, head dim {dh} exceed {SMEM_LIMIT}")
-    return cpb, grid, smem
+    if not fwd:
+        smem = smem_fn(elem, b, d, dh, cpb)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"slstm_scan: {smem} bytes of shared memory a block at batch "
+                             f"{b}, width {d}, head dim {dh} exceed {SMEM_LIMIT}")
+        return cpb, -(-d // cpb), smem
+    step, why = _step(elem, True), set()
+    for cluster in (16, 8, 4, 2):
+        hold = resident(cluster) * cluster       # blocks the card holds in such clusters
+        if hold <= 0:
+            why.add("residency")
+            continue
+        c = max(cpb, -(-d // (hold * step)) * step)
+        blocks = -(-d // c)
+        if cluster > blocks and cluster > 2:
+            continue
+        smem = smem_fn(elem, b, d, dh, c)
+        if b * c > MAX_PAIRS * THREADS:
+            why.add("(row, channel) pairs")
+        elif smem > SMEM_LIMIT:
+            why.add("shared memory")
+        elif elem == 2 and not (c <= 32 and dh % 16 == 0 and dh <= 512 and 4 % (d // dh) == 0):
+            why.add("the bf16 products' tiles (cpb <= 32, dh <= 512, nh dividing 4)")
+        else:
+            return cluster, c, -(-blocks // cluster) * cluster, smem
+    raise ValueError(f"slstm_scan: no grid of clusters the card holds at once takes batch {b}, "
+                     f"width {d}, head dim {dh} in {elem}-byte values: " + ", ".join(sorted(why)))
 
 
 def _check_shapes(what, named, b, s, d, r_gates, **extra):
@@ -241,6 +300,28 @@ def _check_shapes(what, named, b, s, d, r_gates, **extra):
 
 def _sms(x):
     return torch.cuda.get_device_properties(x.device).multi_processor_count
+
+
+def fwd_plan(b, d, nh, x):
+    """``plan`` of the forward at B rows of width d in x's dtype on x's
+    card, with the residency the card reports for the kernel's instance
+    (``repro_slstm_scan_clusters``); kept for the next call."""
+    key = (b, d, nh, x.dtype, x.device)
+    if key not in _plans:
+        elem, bf16 = x.element_size(), int(x.dtype == torch.bfloat16)
+        sms = _sms(x)
+        cpb = channels_a_block(d, elem, sms)
+        fn = _kernel(CLUSTERS)
+
+        def resident(cluster):
+            with torch.cuda.device(x.device):
+                n = fn(cluster, b, d, nh, cpb, bf16)
+            if n < 0:
+                raise RuntimeError(f"slstm_scan: the residency query failed: cudaError {-n}")
+            return n
+
+        _plans[key] = plan(b, d, d // nh, elem, sms, resident)
+    return _plans[key]
 
 
 def slstm_scan(gx, r_gates, h0=None, c0=None, save=False):
@@ -275,9 +356,9 @@ def slstm_scan(gx, r_gates, h0=None, c0=None, save=False):
         return (out, h_n.copy_(h0) if h0 is not None else h_n.zero_(),
                 c_n.copy_(c0) if c0 is not None else c_n.zero_(), *saved)
     nh, dh = r_gates.shape[:2]
-    cpb, _, _ = plan(b, d, dh, gx.element_size(), _sms(gx))
-    # the blocks' exchange of h: two buffers of B x D values in 8-byte words
-    # of 4 data bytes and a tag
+    _, cpb, _, _ = fwd_plan(b, d, nh, gx)
+    # the clusters' exchange of h in L2: two buffers of B x D values in
+    # 8-byte words of 4 data bytes and a tag
     xch = torch.empty(2 * b * d * gx.element_size() // 4, dtype=torch.int64,
                       device=gx.device)
     g_ptr, c_ptr = (saved[0].data_ptr(), saved[1].data_ptr()) if save else (None, None)
@@ -289,7 +370,7 @@ def slstm_scan(gx, r_gates, h0=None, c0=None, save=False):
                  torch.cuda.current_stream(gx.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"slstm_scan kernel launch failed: cudaError {err} (720: "
-                           "the grid cannot be resident at once)")
+                           "the grid's clusters cannot be resident at once)")
     launches += 1
     return out, h_n, c_n, *saved
 

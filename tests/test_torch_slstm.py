@@ -212,19 +212,22 @@ def test_meta_branch_counts_the_plain_loops_flops():
 
 
 def test_plan_at_the_paths_shapes_and_its_refusals():
-    """xlstm-1.3b (D 2048, dh 512) on the H100's 132 SMs: 16 channels a
-    block, 128 blocks, 83,072 bytes of shared memory at (4, bf16) and
-    165,120 at (4, fp32); the reduced config 2 channels a block (an even
-    count: a block publishes h in 4-byte words). Beyond 227 KB, or more
-    (row, channel) pairs than the block keeps, it raises."""
-    assert slstm.plan(4, 2048, 512, 2, 132) == (16, 128, 83072)
-    assert slstm.plan(4, 2048, 512, 4, 132) == (16, 128, 165120)
-    assert slstm.plan(1, 2048, 512, 2, 132) == (16, 128, 69920)
-    assert slstm.plan(2, 64, 16, 4, 132) == (2, 32, 1104)
+    """xlstm-1.3b (D 2048, dh 512) on the H100's 132 SMs, which hold 7
+    clusters of 16 blocks, 15 of 8, 30 of 4 and 66 of 2 at once: in bf16 32
+    channels a block in clusters of 16 (64 blocks), 57,936 bytes of shared
+    memory at batch 4 and 26,832 at batch 1; in fp32 at batch 4 16 channels
+    a block in clusters of 2 (128 blocks, 206,416 bytes); the reduced
+    config 4 channels a block (16 bytes of fp32 values). Beyond 227 KB, or
+    more (row, channel) pairs than the block keeps, it raises."""
+    h100 = {16: 7, 8: 15, 4: 30, 2: 66}.get
+    assert slstm.plan(4, 2048, 512, 2, 132, h100) == (16, 32, 64, 57936)
+    assert slstm.plan(4, 2048, 512, 4, 132, h100) == (2, 16, 128, 206416)
+    assert slstm.plan(1, 2048, 512, 2, 132, h100) == (16, 32, 64, 26832)
+    assert slstm.plan(2, 64, 16, 4, 132, h100) == (16, 4, 16, 3440)
     with pytest.raises(ValueError, match="shared memory"):
-        slstm.plan(16, 2048, 512, 4, 132)
+        slstm.plan(16, 2048, 512, 4, 132, h100)
     with pytest.raises(ValueError, match="pairs"):
-        slstm.plan(129, 2048, 8, 2, 132)
+        slstm.plan(129, 2048, 8, 2, 132, h100)
 
 
 def test_source_exports_the_symbol_the_wrapper_binds():
