@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (csrc/flash_attention_sm90.cu, csrc/flash_attention_bwd_sm90.cu) and the
-// sLSTM forward (csrc/slstm_scan.cu): mbarrier waits, TMA tile and bulk
-// loads, 128-byte-swizzle wgmma descriptors, the wgmma instructions the
-// kernels issue, the async-proxy fence and named barriers, thread-block
-// clusters (ranks, mapa, st.async, the cluster barrier), and the host-side
-// tensor-map encoder.
+// (csrc/flash_attention_sm90.cu, csrc/flash_attention_bwd_sm90.cu), the
+// sLSTM forward (csrc/slstm_scan.cu) and the mLSTM forward
+// (csrc/mlstm_scan.cu): mbarrier waits, TMA tile and bulk loads,
+// 128-byte-swizzle wgmma descriptors, the wgmma instructions the kernels
+// issue, the async-proxy fence and named barriers, register hand-over
+// between warpgroups, thread-block clusters (ranks, mapa, st.async, the
+// cluster barrier), and the host-side tensor-map encoder.
 // Included by each source; kernels/_build.py hashes every csrc/*.cuh into
 // each library's build key, so an edited header rebuilds its users.
 #pragma once
@@ -321,6 +322,18 @@ __device__ __forceinline__ void cluster_sync() {
       "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// Hand registers between the warpgroups of a block (every warp of the
+// warpgroup executes it): lower this thread's count to N, or raise it to N
+// once other warpgroups have released enough.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // Makes this thread's mbarrier.init visible to the other blocks of the
 // cluster (before a cluster_sync, ahead of their first remote arrival).
 __device__ __forceinline__ void fence_mbar_init() {
@@ -357,9 +370,12 @@ EncodeTiled encode_tiled() {
 }
 
 // A 4-d map of a (batch, len, heads, D) bf16 tensor with element strides
-// (sb, sl, sh, 1): dims {D, heads, len, batch}, box {64, 1, rows, 1}.
+// (sb, sl, sh, 1): dims {D, heads, len, batch}, box {cols, 1, rows, 1}, in
+// `swizzle` (cols x 2 bytes its span: 64 columns in the 128-byte swizzle,
+// 32 in the 64-byte one).
 int make_map(CUtensorMap* map, const void* ptr, int D, int heads, int len, int batch,
-             long long sb, long long sl, long long sh, int rows) {
+             long long sb, long long sl, long long sh, int rows, int cols = 64,
+             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return -1;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
@@ -367,11 +383,12 @@ int make_map(CUtensorMap* map, const void* ptr, int D, int heads, int len, int b
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sl) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, static_cast<cuuint32_t>(rows),
+                             1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -(1000 + static_cast<int>(r));
 }

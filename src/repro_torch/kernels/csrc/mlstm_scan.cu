@@ -25,19 +25,17 @@
 // 8.8 TFLOP, 8.9 ms at 989 TFLOP/s, against 6.4 ms of bytes.
 //
 // Design. C's columns are independent (column e of C_j needs only column e
-// of v), so a block owns one (batch row, head, 32 columns of C) and needs
-// no exchange with other blocks and no atomics: every call gives the same
-// bits. It keeps C^T[cols][dh] in fp32 (128 KB at dh 1024) and its own
-// copy of n (dh fp32) in shared memory from the first chunk to the last and
-// writes them once at the end. With SAVE (a template argument) it also
+// of v), so a block owns one (batch row, head, E columns of C) and needs
+// no exchange of state with other blocks and no atomics: every call gives
+// the same bits. It keeps C^T[cols][dh] in fp32 (132 KB at dh 1024) and its
+// own copy of n (dh fp32) in shared memory from the first chunk to the last
+// and writes them once at the end. With SAVE (a template argument) it also
 // writes the nc - 1 states between chunks (C_{j-1} and n_{j-1} entering
 // chunk j > 0; the first chunk's is C0, the caller's) for the backward
 // (csrc/mlstm_scan_bwd.cu): 201 MB more at xlstm-1.3b's training shape (4,
-// 1024, 4, 1024), 60 us of bytes; without it the code is as before. The
-// update and its staging are shared with the backward (mlstm.cuh). Per
-// chunk it streams q_j and k_j through
-// shared memory in slices of DT head-dim columns (the next slice's global
-// loads in registers while the current one is used) and, per slice d0:
+// 1024, 4, 1024), 60 us of bytes; without it the code is the same. Per
+// chunk q_j and k_j pass through shared memory in slices of DT head-dim
+// columns and, per slice d0:
 //   1. the read: P[l, cols] += q[l, d0:] . bf16(C[d0:, cols]) and the
 //      normalizer's q[l, d0:] . n[d0:], for every row l;
 //   2. the update of C[d0:, cols] and n[d0:] with the slice of k: the rows
@@ -45,48 +43,69 @@
 //      one pass over q and k, and a barrier between them; n's update is
 //      split over all threads by rows, the partial sums added in a fixed
 //      order after the barrier;
-// then combines P with h_intra and d_intra and writes h. The 32 blocks of
-// a head read the same q and k, from L2.
+// then combines P with h_intra and d_intra and writes h.
 //
-// Routes. "mma" (bf16 at dh a multiple of 32): 8 warps; the read gives
-// warp w rows 32w..32w+31 (2 x 4 m16n8k16 tiles, ldmatrix A from q, B
-// converted from C's fp32); the update gives warp w one 16 x 8 tile of
-// C[d0:d0+32, cols] over all 256 rows (ldmatrix.trans of k and of w v; rows
-// past the chunk are zero, so the loop has a fixed count and is unrolled).
-// The reference's dC is fp32 from fp32 w and upcast k and v. A bf16
-// product of w v would keep 8 bits of it, so w v is split into bf16 high
-// and low parts, hi = bf16(wv), lo = bf16(wv - hi), and k . hi + k . lo
-// runs as two products (k is exact in bf16; the tensor cores sum in fp32):
-// about 16 bits of w v. The high and low parts and even and odd steps of
-// 16 rows sum apart, four independent mma chains. The read's normalizer
-// sums run in fp32 from the fragments' own registers. "simt" (fp32 at any
-// supported dh, bf16 at dh 8 and 16): a thread a row for the read and the
+// Routes. "mma" (bf16 at dh a multiple of 32, mlstm_scan_mma_kernel): two
+// warpgroups of consumers and a producer warpgroup, which keeps 40
+// registers a thread and hands the rest to the consumers (232 each). One
+// producer thread brings each slice of q and k by TMA (a 4-d map over (dh,
+// NH, S, B), so the ragged last chunk's rows past S arrive as zeros) into a
+// ring of NST stages. A stage is full on its mbarrier's byte count and
+// empty once every consumer warp has arrived on its other mbarrier. The
+// consumers meet once a slice, at a named barrier over them alone, and
+// apply each slice's update while the next slice is read. w v's B fragments, constant over a chunk,
+// stay in registers for the whole chunk (64 a thread, built from v's tile,
+// which TMA brings once a chunk); each slice of C is converted to bf16
+// once, into one of two small tiles, two slices ahead, and read by
+// ldmatrix. The read gives warp w rows 32w..32w+31 (2 x 4 m16n8k16 tiles);
+// the update gives warp w one 16 x 8 tile of C[d0:d0+32, cols] over all
+// 256 rows (ldmatrix.trans of k; rows past the chunk are zero, so the loop
+// has a fixed count and is unrolled). The reference's dC is fp32 from fp32
+// w and upcast k and v. A bf16 product of w v would keep 8 bits of it, so
+// w v is split into bf16 high and low parts, hi = bf16(wv), lo = bf16(wv -
+// hi), and k . hi + k . lo runs as two products (k is exact in bf16; the
+// tensor cores sum in fp32): about 16 bits of w v. The high and low parts
+// and even and odd steps of 16 rows sum apart, four independent mma chains.
+// The read's normalizer sums run in fp32 from the fragments' own
+// registers, and n's update from the update's k fragments: the four warps
+// of a 16-row half of the slice each sum a quarter of the chunk's rows in
+// fp32, added in a fixed order. The read's and C's sums take the same
+// terms in the same order as the earlier one-block design's (which staged
+// q and k through registers, re-read them from L2 in every block and read
+// w v from shared memory every slice), so h and C keep its bits where n
+// does; n's sums run in another order. The loads and products are asm
+// volatile, issued in the order written, so each k fragment is loaded a
+// step ahead of its products, and h_intra a slice ahead of the combine.
+// "simt" (fp32 at any supported dh, bf16 at dh 8 and 16,
+// mlstm_scan_kernel): 256 threads, a thread a row for the read and the
 // combine, each slice's sums blocked (started from zero, then added to the
-// running ones), plain FMAs; the C update a thread per (d, column) pair;
-// the same rounding points.
+// running ones), plain FMAs; the C update a thread per (d, column) pair; q
+// and k staged through registers; the same rounding points.
 //
-// What bounds it (tools/mlstm_variants.py, PERF.md): not the products. At
-// dh 1024 a chunk takes about 85 us a block; taking out the slices' loads
-// saves about a third, the update's mma about a fifth, the read's a
-// twentieth. The 32-fold re-read of q and k and the kernel's two barriers
-// and shared-memory traffic a slice set the time. wgmma, TMA multicast over
-// a cluster of a head's blocks and keeping C in registers are later work.
+// What bounds it (tools/mlstm_variants.py, PERF.md): not the products nor
+// L2. At dh 1024 a slice takes a block about 2,000 clocks against some 600
+// of mma.sync issue; taking out the read's or the update's products saves
+// a tenth each. The dh / 32 blocks of a (row, head) read the same q and k
+// from L2, but sharing them by TMA multicast in thread-block clusters of 2
+// saved nothing measurable, so the grid runs without clusters. The ring's
+// depth (two stages fit beside C^T) and the slice's shared-memory traffic,
+// most of it the four warps of a half that load the same k fragments, set
+// the time.
 #include "mlstm.cuh"
 
 namespace {
 
-// Byte offsets in a block's shared memory (kernels/mlstm.py `smem_bytes`
-// computes the total).
+// The SIMT route's byte offsets in a block's shared memory
+// (kernels/mlstm.py `smem_bytes` computes the total).
 struct Layout {
-  int cs, qs, ws;  // row strides (elements) of C^T, of staged q and k, of w v
+  int cs, qs;  // row strides (elements) of C^T and of staged q and k
   size_t c, n, q, k, wv, vec, red, total;
 };
 
-__host__ __device__ inline Layout layout(int dh, int E, int DT, int elem, bool mma) {
+__host__ __device__ inline Layout layout(int dh, int E, int DT, int elem) {
   Layout o;
-  o.cs = dh + (mma ? 8 : 4);
-  o.qs = DT + (mma ? KPAD : (elem == 2 ? 2 : 1));
-  o.ws = mma ? E + KPAD : E;
+  o.cs = dh + 4;
+  o.qs = DT + (elem == 2 ? 2 : 1);
   size_t off = 0;
   o.c = off;
   off += align16(size_t(4) * E * o.cs);
@@ -97,12 +116,58 @@ __host__ __device__ inline Layout layout(int dh, int E, int DT, int elem, bool m
   o.k = off;
   off += align16(size_t(elem) * ROWS * o.qs);
   o.wv = off;
-  off += mma ? 2 * align16(size_t(2) * ROWS * o.ws) : align16(size_t(4) * ROWS * o.ws);
+  off += align16(size_t(4) * ROWS * E);
   o.vec = off;
   off += 3 * align16(size_t(4) * ROWS);  // exp(cl), w, d_intra of the chunk's rows
   o.red = off;
   off += align16(size_t(4) * THREADS);   // the n update's partial sums
   o.total = off;
+  return o;
+}
+
+// The mma route's: the ring's NST stages (a slice of q, then of k: ROWS rows
+// of MMA_DT bf16, 64-byte rows in TMA's 64-byte swizzle), v's tile of the
+// chunk (ROWS rows of the block's MMA_COLS columns, the same swizzle), C^T,
+// n, two bf16 tiles of C's slices (rows of CBS), exp(cl), w and d_intra of
+// the chunk's rows, two buffers of the n update's partial sums (NPART a
+// slice) and the mbarriers (full and empty a stage, v's full and empty);
+// the base rounded up to 1024 bytes, the swizzle's period.
+constexpr int NST = 2;                            // the ring's stages
+constexpr int SLICE_BYTES = ROWS * MMA_DT * 2;    // a slice of q (or k)
+constexpr int CBS = MMA_DT + KPAD;                // row stride of a bf16 tile of C
+// the block: the consumers' two warpgroups (warps 0 .. 7) and the
+// producer's (warp PRODUCER loads, the other three idle), which keeps 40
+// registers a thread and hands the rest to the consumers (232)
+constexpr int PRODUCER = THREADS / 32, BLOCK = THREADS + 128;
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int NPART = 4 * MMA_DT;                 // n's partial sums a slice: 4 a row
+
+struct MmaLayout {
+  int cs;  // C^T's row stride (floats)
+  size_t stage, v, c, n, cb, vec, red, bar, total;
+};
+
+__host__ __device__ inline MmaLayout mma_layout(int dh) {
+  MmaLayout o;
+  o.cs = dh + 4;
+  size_t off = 0;
+  o.stage = off;
+  off += size_t(NST) * 2 * SLICE_BYTES;
+  o.v = off;
+  off += size_t(2) * ROWS * MMA_COLS;
+  o.c = off;
+  off += align16(size_t(4) * MMA_COLS * o.cs);
+  o.n = off;
+  off += align16(size_t(4) * dh);
+  o.cb = off;
+  off += 2 * align16(size_t(2) * MMA_COLS * CBS);
+  o.vec = off;
+  off += 3 * align16(size_t(4) * ROWS);
+  o.red = off;
+  off += 2 * align16(size_t(4) * NPART);
+  o.bar = off;
+  off += align16(size_t(8) * (2 * NST + 2));
+  o.total = off + 1024;
   return o;
 }
 
@@ -118,15 +183,15 @@ struct Args {
   int S, NH, dh;
 };
 
-// One block: batch row blockIdx.z, head blockIdx.y, columns blockIdx.x E ..
-// + E - 1 of C. MMA: the tensor-core route (bf16, E = 32, DT = 32). SAVE:
-// also write C and n between chunks (the backward's inputs); the rest is
-// the same code, so h, C and n keep their bits.
-template <typename T, bool MMA, int E, int DT, bool SAVE>
+// The SIMT route. One block: batch row blockIdx.z, head blockIdx.y, columns
+// blockIdx.x E .. + E - 1 of C. SAVE: also write C and n between chunks
+// (the backward's inputs); the rest is the same code, so h, C and n keep
+// their bits.
+template <typename T, int E, int DT, bool SAVE>
 __global__ void __launch_bounds__(THREADS, 1) mlstm_scan_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = a.S, NH = a.NH, dh = a.dh;
-  const Layout o = layout(dh, E, DT, sizeof(T), MMA);
+  const Layout o = layout(dh, E, DT, sizeof(T));
   float* Cs = reinterpret_cast<float*>(smem + o.c);  // C^T: Cs[e * cs + d] = C[d][col0 + e]
   float* ns = reinterpret_cast<float*>(smem + o.n);
   T* qs = reinterpret_cast<T*>(smem + o.q);
@@ -135,8 +200,6 @@ __global__ void __launch_bounds__(THREADS, 1) mlstm_scan_kernel(Args a) {
   float* w_s = ecl_s + ROWS;
   float* di_s = w_s + ROWS;
   float* red = reinterpret_cast<float*>(smem + o.red);
-  __nv_bfloat16* whi = reinterpret_cast<__nv_bfloat16*>(smem + o.wv);
-  __nv_bfloat16* wlo = whi + align16(size_t(2) * ROWS * o.ws) / 2;
   float* wvf = reinterpret_cast<float*>(smem + o.wv);
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
@@ -144,7 +207,7 @@ __global__ void __launch_bounds__(THREADS, 1) mlstm_scan_kernel(Args a) {
   const T* hin = static_cast<const T*>(a.hin);
   T* hout = static_cast<T*>(a.h);
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, qd = lane & 3;
+  const int tid = threadIdx.x;
   const int col0 = blockIdx.x * E, hd = blockIdx.y, b = blockIdx.z;
   const size_t cbase = (size_t(b) * NH + hd) * dh * dh, nbase = (size_t(b) * NH + hd) * dh;
   for (int idx = tid; idx < dh * E; idx += THREADS) {
@@ -155,7 +218,7 @@ __global__ void __launch_bounds__(THREADS, 1) mlstm_scan_kernel(Args a) {
 
   const int L = S < ROWS ? S : ROWS;
   const int nchunks = (S + L - 1) / L, nslices = dh / DT;
-  Stager<T, MMA, DT> st;
+  Stager<T, false, DT> st;
   for (int j = 0; j < nchunks; ++j) {
     const int s0 = j * L, lv = min(L, S - s0);
     const size_t rowbase = (size_t(b) * S + s0) * NH + hd;  // (b, s0, hd) in (B, S, NH)
@@ -181,98 +244,372 @@ __global__ void __launch_bounds__(THREADS, 1) mlstm_scan_kernel(Args a) {
         di_s[l] = a.din[ri];
       }
       w_s[l] = w;
-      stage_b<T, MMA, E>(v + (rowbase + size_t(l) * NH) * dh + col0, w, l < lv, whi + l * o.ws,
-                         wlo + l * o.ws, wvf + l * o.ws);
+      stage_b<T, false, E>(v + (rowbase + size_t(l) * NH) * dh + col0, w, l < lv, nullptr,
+                           nullptr, wvf + l * E);
     }
     st.stage(qs, ks, o.qs);
     __syncthreads();
 
-    // the read's sums: MMA, rows 32 warp + 16 mt + g (+ 8) and columns 8 nt +
-    // 2 qd (+ 1); SIMT, row tid and every column
-    float acc[MMA ? 2 : 1][MMA ? 4 : E][MMA ? 4 : 1];
-    float dnp[2][2];
+    // the read's sums: row tid and every column
+    float acc[E];
+    float dnp = 0.f;
 #pragma unroll
-    for (int x = 0; x < (MMA ? 2 : 1); ++x) {
-#pragma unroll
-      for (int y = 0; y < (MMA ? 4 : E); ++y)
-#pragma unroll
-        for (int z = 0; z < (MMA ? 4 : 1); ++z) acc[x][y][z] = 0.f;
-      dnp[x][0] = dnp[x][1] = 0.f;
-    }
+    for (int y = 0; y < E; ++y) acc[y] = 0.f;
     for (int t = 0; t < nslices; ++t) {
       const int d0 = t * DT;
       if (t + 1 < nslices) st.fetch(q, k, rowbase, NH, dh, lv, t + 1);
-      // the update's sums, written after the barrier (update_mma, update_simt)
+      // the update's sums, written after the barrier (update_simt)
       float u[4] = {0.f, 0.f, 0.f, 0.f};
       x_partial<T, DT>(w_s, ks, o.qs, red);  // n's
-      if constexpr (MMA) {
-        if (warp * 32 < lv) {
+      const int l = tid;
+      if (l < lv) {
+        float qv[DT];
 #pragma unroll
-          for (int kk = 0; kk < DT / 16; ++kk) {
-            uint32_t fa[2][4];
+        for (int dd = 0; dd < DT; ++dd) qv[dd] = to_f(qs[l * o.qs + dd]);
+        // each slice's sums start from zero and are then added to the
+        // running ones (blocked: about 2.7 times less rounding than one
+        // running sum over dh = 1024 terms)
+        float dn = 0.f;
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
-              ldsm_x4(fa[mt], qs + (warp * 32 + mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                       o.qs + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) {
-              const float* cp = Cs + (nt * 8 + g) * o.cs + d0 + kk * 16 + 2 * qd;
-              const float2 c0 = *reinterpret_cast<const float2*>(cp);
-              const float2 c1 = *reinterpret_cast<const float2*>(cp + 8);
-              const uint32_t b0 = pack_bf16(c0.x, c0.y), b1 = pack_bf16(c1.x, c1.y);
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt], fa[mt], b0, b1);
-            }
-            const float* np = ns + d0 + kk * 16 + 2 * qd;
-            const float n0 = np[0], n1 = np[1], n8 = np[8], n9 = np[9];
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              dnp[mt][0] += lo_f(fa[mt][0]) * n0 + hi_f(fa[mt][0]) * n1 + lo_f(fa[mt][2]) * n8 +
-                            hi_f(fa[mt][2]) * n9;
-              dnp[mt][1] += lo_f(fa[mt][1]) * n0 + hi_f(fa[mt][1]) * n1 + lo_f(fa[mt][3]) * n8 +
-                            hi_f(fa[mt][3]) * n9;
-            }
-          }
+        for (int dd = 0; dd < DT; dd += 4) {
+          const float4 nv = *reinterpret_cast<const float4*>(ns + d0 + dd);
+          dn += qv[dd] * nv.x + qv[dd + 1] * nv.y + qv[dd + 2] * nv.z + qv[dd + 3] * nv.w;
         }
-        update_mma(u, ks, o.qs, whi, wlo, o.ws);
-      } else {
-        const int l = tid;
-        if (l < lv) {
-          float qv[DT];
+        dnp += dn;
 #pragma unroll
-          for (int dd = 0; dd < DT; ++dd) qv[dd] = to_f(qs[l * o.qs + dd]);
-          // each slice's sums start from zero and are then added to the
-          // running ones (blocked: about 2.7 times less rounding than one
-          // running sum over dh = 1024 terms)
-          float dn = 0.f;
+        for (int e = 0; e < E; ++e) {
+          float p = 0.f;
 #pragma unroll
           for (int dd = 0; dd < DT; dd += 4) {
-            const float4 nv = *reinterpret_cast<const float4*>(ns + d0 + dd);
-            dn += qv[dd] * nv.x + qv[dd + 1] * nv.y + qv[dd + 2] * nv.z + qv[dd + 3] * nv.w;
+            const float4 cv = *reinterpret_cast<const float4*>(Cs + e * o.cs + d0 + dd);
+            p += qv[dd] * rnd<T>(cv.x) + qv[dd + 1] * rnd<T>(cv.y) + qv[dd + 2] * rnd<T>(cv.z) +
+                 qv[dd + 3] * rnd<T>(cv.w);
           }
-          dnp[0][0] += dn;
-#pragma unroll
-          for (int e = 0; e < E; ++e) {
-            float p = 0.f;
-#pragma unroll
-            for (int dd = 0; dd < DT; dd += 4) {
-              const float4 cv = *reinterpret_cast<const float4*>(Cs + e * o.cs + d0 + dd);
-              p += qv[dd] * rnd<T>(cv.x) + qv[dd + 1] * rnd<T>(cv.y) + qv[dd + 2] * rnd<T>(cv.z) +
-                   qv[dd + 3] * rnd<T>(cv.w);
-            }
-            acc[0][e][0] += p;
-          }
+          acc[e] += p;
         }
-        update_simt<T, E, DT>(u, ks, o.qs, wvf, o.ws, lv);
       }
+      update_simt<T, E, DT>(u, ks, o.qs, wvf, E, lv);
       __syncthreads();  // every read of C[d0:], n[d0:] and of the staged slice is done
-      apply_update<MMA, E, DT>(Cs, o.cs, ns, red, d0, e_end, u);
+      apply_update<false, E, DT>(Cs, o.cs, ns, red, d0, e_end, u);
       if (t + 1 < nslices) st.stage(qs, ks, o.qs);
       __syncthreads();
     }
 
     // combine: h = (h_intra + h_inter) / max(|d_intra + d_inter|, 1)
-    if constexpr (MMA) {
+    const int l = tid;
+    if (l < lv) {
+      const float ecl = ecl_s[l];
+      const float denom = fmaxf(fabsf(__fadd_rn(di_s[l], __fmul_rn(dnp, ecl))), 1.f);
+      const size_t hb = (rowbase + size_t(l) * NH) * dh + col0;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float x = rnd<T>(__fmul_rn(rnd<T>(acc[e]), rnd<T>(ecl)));
+        hout[hb + e] = from_f<T>(__fdiv_rn(__fadd_rn(to_f(hin[hb + e]), x), denom));
+      }
+    }
+  }
+  __syncthreads();
+  write_state(a.C + cbase, a.n + nbase, Cs, o.cs, ns, dh, E, col0, blockIdx.x == 0);
+}
+
+// Element (r, c) of a tile of 32-column bf16 rows in TMA's 64-byte swizzle:
+// 16-byte chunk c / 8 of row r lies at chunk (c / 8) ^ (r / 2 % 4) (the
+// tile 512-byte aligned). Eight rows in a row at one chunk hit eight
+// distinct bank groups, so ldmatrix, plain or transposed, has no conflicts.
+__device__ __forceinline__ int sw64(int r, int c) {
+  return r * 32 + ((((c >> 3) ^ (r >> 1)) & 3) << 3) + (c & 7);
+}
+
+// The update's sums of one slice on a swizzled slice of k with w v's B
+// fragments in registers (wf[r]: rows 16 r .. 16 r + 15 of this warp's 8
+// columns, b0, b1 of the high part, then of the low part): update_mma's
+// sums in update_mma's order. From the same k fragments, n's: warp (um,
+// un) sums w_l k[l, d] over the rows of k-steps 4 un .. 4 un + 3 (rows 16 s
+// + 2 qd, + 1, + 8, + 9 of step s a lane, w of them in wn) for d = 16 um + g
+// and + 8, into xn.
+__device__ __forceinline__ void update_mma_n(float (&u)[4], float (&xn)[2],
+                                             const __nv_bfloat16* ks,
+                                             const uint32_t (&wf)[ROWS / 16][4],
+                                             const float (&wn)[4][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, um = warp >> 2, un = warp & 3;
+  float uh[2][4] = {}, ul[2][4] = {};
+  xn[0] = xn[1] = 0.f;
+  // the loads and the products are asm volatile, issued in the order
+  // written: each step's k fragment is loaded AHEAD steps before its
+  // products, so they need not wait out the load
+  constexpr int AHEAD = 1;
+  uint32_t fq[ROWS / 16][4];
+  auto load = [&](int st) {
+    ldsm_x4_t(fq[st], ks + sw64(16 * st + (lane & 7) + (lane >> 4) * 8,
+                                um * 16 + ((lane >> 3) & 1) * 8));
+  };
+#pragma unroll
+  for (int st = 0; st < AHEAD; ++st) load(st);
+#pragma unroll
+  for (int qq = 0; qq < 4; ++qq) {
+#pragma unroll
+    for (int p4 = 0; p4 < 4; ++p4) {
+      const int st = 4 * qq + p4;
+      if (st + AHEAD < ROWS / 16) load(st + AHEAD);
+      mma_bf16(uh[st & 1], fq[st], wf[st][0], wf[st][1]);
+      mma_bf16(ul[st & 1], fq[st], wf[st][2], wf[st][3]);
+    }
+    if (qq == un) {
+#pragma unroll
+      for (int p4 = 0; p4 < 4; ++p4) {
+        const uint32_t* f = fq[4 * qq + p4];
+        xn[0] += lo_f(f[0]) * wn[p4][0] + hi_f(f[0]) * wn[p4][1] + lo_f(f[2]) * wn[p4][2] +
+                 hi_f(f[2]) * wn[p4][3];
+        xn[1] += lo_f(f[1]) * wn[p4][0] + hi_f(f[1]) * wn[p4][1] + lo_f(f[3]) * wn[p4][2] +
+                 hi_f(f[3]) * wn[p4][3];
+      }
+    }
+  }
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+    u[x] = __fadd_rn(__fadd_rn(uh[0][x], uh[1][x]), __fadd_rn(ul[0][x], ul[1][x]));
+}
+
+// n[d0 + d] = e_end n[d0 + d] + its four partial sums in a fixed order, d =
+// tid < 32 (part: a slice's NPART, part[32 un + d])
+__device__ __forceinline__ void apply_n(float* ns, const float* part, int d0, float e_end) {
+  const int d = threadIdx.x;
+  ns[d0 + d] = __fadd_rn(__fmul_rn(e_end, ns[d0 + d]),
+                         __fadd_rn(__fadd_rn(part[d], part[32 + d]),
+                                   __fadd_rn(part[64 + d], part[96 + d])));
+}
+
+// bf16(C[d0 .. d0 + 31][cols]) into a tile cb[e * CBS + dd] (the read's B
+// operand), four values a consumer thread
+__device__ __forceinline__ void convert_slice(const float* Cs, int cstride, int d0,
+                                              __nv_bfloat16* cb) {
+  const int e = threadIdx.x >> 3, dd = (threadIdx.x & 7) * 4;
+  const float4 c = *reinterpret_cast<const float4*>(Cs + e * cstride + d0 + dd);
+  *reinterpret_cast<uint2*>(cb + e * CBS + dd) = make_uint2(pack_bf16(c.x, c.y),
+                                                            pack_bf16(c.z, c.w));
+}
+
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return uint32_t(__bfloat16_as_ushort(lo)) | (uint32_t(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// The mma route (bf16, E = MMA_COLS, DT = MMA_DT): block (blockIdx.x, head
+// blockIdx.y, batch row blockIdx.z) owns columns 32 blockIdx.x .. + 31 of C.
+// tq, tk and tv map q, k and v (dh, NH, S, B) in the 64-byte swizzle, box
+// (32, 1, ROWS, 1).
+template <bool SAVE>
+__global__ void __launch_bounds__(BLOCK, 1)
+    mlstm_scan_mma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, Args a) {
+  using T = __nv_bfloat16;
+  constexpr int E = MMA_COLS, DT = MMA_DT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int S = a.S, NH = a.NH, dh = a.dh;
+  const MmaLayout o = mma_layout(dh);
+  T* stages = reinterpret_cast<T*>(smem + o.stage);  // stage s: q at 2 s ROWS DT, then k
+  const T* vs = reinterpret_cast<const T*>(smem + o.v);
+  float* Cs = reinterpret_cast<float*>(smem + o.c);  // C^T: Cs[e * cs + d] = C[d][col0 + e]
+  float* ns = reinterpret_cast<float*>(smem + o.n);
+  T* cb = reinterpret_cast<T*>(smem + o.cb);
+  constexpr int CB = int(align16(size_t(2) * MMA_COLS * CBS) / 2);  // elements a tile of C
+  float* ecl_s = reinterpret_cast<float*>(smem + o.vec);
+  float* w_s = ecl_s + ROWS;
+  float* di_s = w_s + ROWS;
+  float* red = reinterpret_cast<float*>(smem + o.red);
+  const uint32_t full0 = smem_u32(smem + o.bar), empty0 = full0 + 8 * NST;
+  const uint32_t vfull = full0 + 16 * NST, vempty = vfull + 8;
+  const T* hin = static_cast<const T*>(a.hin);
+  T* hout = static_cast<T*>(a.h);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, qd = lane & 3;
+  const int col0 = blockIdx.x * E, hd = blockIdx.y, b = blockIdx.z;
+  const size_t cbase = (size_t(b) * NH + hd) * dh * dh, nbase = (size_t(b) * NH + hd) * dh;
+  if (tid == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, THREADS / 32);  // every consumer warp
+    }
+    mbar_init(vfull, 1);
+    mbar_init(vempty, THREADS / 32);
+  }
+  if (warp < PRODUCER) {
+    for (int idx = tid; idx < dh * E; idx += THREADS) {
+      const int d = idx / E, e = idx % E;
+      Cs[e * o.cs + d] = a.C0 ? a.C0[cbase + size_t(d) * dh + col0 + e] : 0.f;
+    }
+    for (int d = tid; d < dh; d += THREADS) ns[d] = a.n0 ? a.n0[nbase + d] : 0.f;
+  }
+  __syncthreads();  // the mbarriers are initialised before any load or arrival
+
+  const int L = S < ROWS ? S : ROWS;
+  const int nchunks = (S + L - 1) / L, nslices = dh / DT;
+  if (warp >= PRODUCER) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == PRODUCER && lane == 0) {
+      int it = 0;
+      for (int j = 0; j < nchunks; ++j) {
+        const int s0 = j * L;
+        if (j) mbar_wait(vempty, (j - 1) & 1);  // the consumers hold chunk j - 1's w v
+        mbar_expect_tx(vfull, 2 * ROWS * E);
+        tma_load(smem_u32(vs), &tv, vfull, col0, hd, s0, b);
+        for (int t = 0; t < nslices; ++t, ++it) {
+          const int s = it % NST, use = it / NST;
+          // every consumer warp is done with the stage's last use
+          if (use) mbar_wait(empty0 + 8 * s, (use - 1) & 1);
+          const uint32_t full = full0 + 8 * s, dq = smem_u32(stages + 2 * s * ROWS * DT);
+          mbar_expect_tx(full, 2 * SLICE_BYTES);
+          tma_load(dq, &tq, full, t * DT, hd, s0, b);
+          tma_load(dq + SLICE_BYTES, &tk, full, t * DT, hd, s0, b);
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    uint32_t wf[ROWS / 16][4];  // w v's B fragments of the chunk (update_mma_n)
+    float wn[4][4];             // w of this lane's rows of n's sums (update_mma_n)
+    int it = 0;
+    for (int j = 0; j < nchunks; ++j) {
+      const int s0 = j * L, lv = min(L, S - s0);
+      const size_t rowbase = (size_t(b) * S + s0) * NH + hd;  // (b, s0, hd) in (B, S, NH)
+      named_bar_sync(1, THREADS);  // the previous chunk's updates and combine are done
+      if constexpr (SAVE) {  // C_{j-1}, n_{j-1}: between chunks j - 1 and j (C0 is the caller's)
+        if (j > 0) {
+          const size_t sb = (size_t(b) * (nchunks - 1) + j - 1) * NH + hd;
+          write_state(a.Csave + sb * dh * dh, a.nsave + sb * dh, Cs, o.cs, ns, dh, E, col0,
+                      blockIdx.x == 0);
+        }
+      }
+      const float cl_end = a.cl[rowbase + size_t(lv - 1) * NH];
+      const float e_end = expf(cl_end);
+      {  // row tid: exp(cl), w, d_intra
+        const int l = tid;
+        float w = 0.f;
+        if (l < lv) {
+          const size_t ri = rowbase + size_t(l) * NH;
+          const float c = a.cl[ri];
+          ecl_s[l] = expf(c);
+          w = __fmul_rn(expf(__fsub_rn(cl_end, c)), a.ig[ri]);
+          di_s[l] = a.din[ri];
+        }
+        w_s[l] = w;
+      }
+      convert_slice(Cs, o.cs, 0, cb);
+      if (nslices > 1) convert_slice(Cs, o.cs, DT, cb + CB);
+      named_bar_sync(1, THREADS);
+      {  // w v = w x v of rows 16 r + 8 h + 2 qd (+ 1), column 8 (warp % 4) + g: hi, lo
+        mbar_wait(vfull, j & 1);
+        const int e = (warp & 3) * 8 + g;
+#pragma unroll
+        for (int r = 0; r < ROWS / 16; ++r)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int l = 16 * r + 8 * h + 2 * qd;
+            const float p0 = __fmul_rn(w_s[l], __bfloat162float(vs[sw64(l, e)]));
+            const float p1 = __fmul_rn(w_s[l + 1], __bfloat162float(vs[sw64(l + 1, e)]));
+            const T h0 = __float2bfloat16_rn(p0), h1 = __float2bfloat16_rn(p1);
+            wf[r][h] = pack2(h0, h1);
+            wf[r][2 + h] = pack2(__float2bfloat16_rn(__fsub_rn(p0, __bfloat162float(h0))),
+                                 __float2bfloat16_rn(__fsub_rn(p1, __bfloat162float(h1))));
+          }
+#pragma unroll
+        for (int p4 = 0; p4 < 4; ++p4)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            wn[p4][x] = w_s[16 * (4 * (warp & 3) + p4) + 2 * qd + (x & 1) + 8 * (x >> 1)];
+        __syncwarp();
+        if (lane == 0) mbar_arrive(vempty);
+      }
+
+      // the read's sums: rows 32 warp + 16 mt + g (+ 8) and columns 8 nt + 2 qd (+ 1)
+      float acc[2][4][4], dnp[2][2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+#pragma unroll
+        for (int y = 0; y < 4; ++y)
+#pragma unroll
+          for (int z = 0; z < 4; ++z) acc[x][y][z] = 0.f;
+        dnp[x][0] = dnp[x][1] = 0.f;
+      }
+      uint32_t hpre[2][2][4];  // h_intra of the combine's rows, loaded a slice ahead
+      for (int t = 0; t < nslices; ++t, ++it) {
+        const int s = it % NST, d0 = t * DT;
+        if (t == nslices - 1) {
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int l = warp * 32 + mt * 16 + g + 8 * r;
+              const size_t hb = (rowbase + size_t(l) * NH) * dh + col0 + 2 * qd;
+#pragma unroll
+              for (int nt = 0; nt < 4; ++nt)
+                hpre[mt][r][nt] =
+                    l < lv ? *reinterpret_cast<const uint32_t*>(hin + hb + nt * 8) : 0u;
+            }
+        }
+        mbar_wait(full0 + 8 * s, (it / NST) & 1);
+        const T* qs = stages + 2 * s * ROWS * DT;
+        const T* ks = qs + ROWS * DT;
+        if (warp * 32 < lv) {
+          const T* cbt = cb + (t & 1) * CB;
+          uint32_t fb[4][4];  // C's slice: [nt] = b0, b1 of kk 0, then of kk 1
+          uint32_t fa[DT / 16][2][4];
+          // every fragment first (asm volatile: issued in the order written)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            ldsm_x4(fb[nt], cbt + (nt * 8 + (lane & 7)) * CBS + (lane >> 3) * 8);
+#pragma unroll
+          for (int kk = 0; kk < DT / 16; ++kk)
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+              ldsm_x4(fa[kk][mt],
+                      qs + sw64(warp * 32 + mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                kk * 16 + (lane >> 4) * 8));
+#pragma unroll
+          for (int kk = 0; kk < DT / 16; ++kk) {
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt)
+                mma_bf16(acc[mt][nt], fa[kk][mt], fb[nt][2 * kk], fb[nt][2 * kk + 1]);
+            const float* np = ns + d0 + kk * 16 + 2 * qd;
+            const float n0 = np[0], n1 = np[1], n8 = np[8], n9 = np[9];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              const uint32_t* f = fa[kk][mt];
+              dnp[mt][0] += lo_f(f[0]) * n0 + hi_f(f[0]) * n1 + lo_f(f[2]) * n8 + hi_f(f[2]) * n9;
+              dnp[mt][1] += lo_f(f[1]) * n0 + hi_f(f[1]) * n1 + lo_f(f[3]) * n8 + hi_f(f[3]) * n9;
+            }
+          }
+        }
+        float u[4], xn[2];
+        update_mma_n(u, xn, ks, wf, wn);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty0 + 8 * s);  // this warp is done with the stage
+        float* part = red + (t & 1) * NPART;
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          xn[x] += __shfl_xor_sync(0xffffffffu, xn[x], 1);
+          xn[x] += __shfl_xor_sync(0xffffffffu, xn[x], 2);
+          if (qd == 0) part[(warp & 3) * 32 + (warp >> 2) * 16 + 8 * x + g] = xn[x];
+        }
+        // every read of C's slice tile and n[d0:] is done, and every
+        // partial sum of n written
+        named_bar_sync(1, THREADS);
+        {  // C[d0 + 16 um + g (+ 8)][8 un + 2 qd (+ 1)] += u
+          float* c = Cs + ((warp & 3) * 8 + 2 * qd) * o.cs + d0 + (warp >> 2) * 16 + g;
+          c[0] = __fadd_rn(__fmul_rn(e_end, c[0]), u[0]);
+          c[o.cs] = __fadd_rn(__fmul_rn(e_end, c[o.cs]), u[1]);
+          c[8] = __fadd_rn(__fmul_rn(e_end, c[8]), u[2]);
+          c[o.cs + 8] = __fadd_rn(__fmul_rn(e_end, c[o.cs + 8]), u[3]);
+        }
+        if (warp == 0) apply_n(ns, part, d0, e_end);
+        if (t + 2 < nslices) convert_slice(Cs, o.cs, d0 + 2 * DT, cb + (t & 1) * CB);
+      }
+
+      // combine: h = (h_intra + h_inter) / max(|d_intra + d_inter|, 1)
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -292,37 +629,23 @@ __global__ void __launch_bounds__(THREADS, 1) mlstm_scan_kernel(Args a) {
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt) {
             const int e = nt * 8 + 2 * qd;
-            const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(hin + hb + e);
             const float x0 = rnd<T>(__fmul_rn(rnd<T>(acc[mt][nt][2 * r]), eb));
             const float x1 = rnd<T>(__fmul_rn(rnd<T>(acc[mt][nt][2 * r + 1]), eb));
             *reinterpret_cast<__nv_bfloat162*>(hout + hb + e) = __floats2bfloat162_rn(
-                __fdiv_rn(__fadd_rn(__low2float(hv), x0), denom),
-                __fdiv_rn(__fadd_rn(__high2float(hv), x1), denom));
+                __fdiv_rn(__fadd_rn(lo_f(hpre[mt][r][nt]), x0), denom),
+                __fdiv_rn(__fadd_rn(hi_f(hpre[mt][r][nt]), x1), denom));
           }
         }
-    } else {
-      const int l = tid;
-      if (l < lv) {
-        const float ecl = ecl_s[l];
-        const float denom = fmaxf(fabsf(__fadd_rn(di_s[l], __fmul_rn(dnp[0][0], ecl))), 1.f);
-        const size_t hb = (rowbase + size_t(l) * NH) * dh + col0;
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          const float x = rnd<T>(__fmul_rn(rnd<T>(acc[0][e][0]), rnd<T>(ecl)));
-          hout[hb + e] = from_f<T>(__fdiv_rn(__fadd_rn(to_f(hin[hb + e]), x), denom));
-        }
-      }
     }
+    named_bar_sync(1, THREADS);
+    write_state(a.C + cbase, a.n + nbase, Cs, o.cs, ns, dh, E, col0, blockIdx.x == 0);
   }
-  __syncthreads();
-  write_state(a.C + cbase, a.n + nbase, Cs, o.cs, ns, dh, E, col0, blockIdx.x == 0);
 }
 
-template <typename T, bool MMA, int E, int DT>
-int launch(const Args& a, int B, cudaStream_t stream) {
-  const Layout o = layout(a.dh, E, DT, sizeof(T), MMA);
-  auto kern = a.Csave ? mlstm_scan_kernel<T, MMA, E, DT, true>
-                      : mlstm_scan_kernel<T, MMA, E, DT, false>;
+template <typename T, int E, int DT>
+int launch_simt_at(const Args& a, int B, cudaStream_t stream) {
+  const Layout o = layout(a.dh, E, DT, sizeof(T));
+  auto kern = a.Csave ? mlstm_scan_kernel<T, E, DT, true> : mlstm_scan_kernel<T, E, DT, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(o.total));
   if (err != cudaSuccess) return err;
@@ -334,10 +657,32 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 // takes the mma route there).
 template <typename T>
 int launch_simt(const Args& a, int B, cudaStream_t stream) {
-  if (a.dh == 8) return launch<T, false, 8, 8>(a, B, stream);
-  if (a.dh == 16) return launch<T, false, 16, 16>(a, B, stream);
-  if constexpr (sizeof(T) == 4) return launch<T, false, 32, 16>(a, B, stream);
+  if (a.dh == 8) return launch_simt_at<T, 8, 8>(a, B, stream);
+  if (a.dh == 16) return launch_simt_at<T, 16, 16>(a, B, stream);
+  if constexpr (sizeof(T) == 4) return launch_simt_at<T, 32, 16>(a, B, stream);
   return cudaErrorInvalidValue;
+}
+
+template <bool SAVE>
+int launch_mma(const Args& a, int B, cudaStream_t stream) {
+  auto kern = mlstm_scan_mma_kernel<SAVE>;
+  const size_t smem = mma_layout(a.dh).total;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  CUtensorMap tq, tk, tv;
+  const long long sl = (long long)a.NH * a.dh, sb = sl * a.S;
+  int err = make_map(&tq, a.q, a.dh, a.NH, a.S, B, sb, sl, a.dh, ROWS, MMA_DT,
+                     CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err == 0)
+    err = make_map(&tk, a.k, a.dh, a.NH, a.S, B, sb, sl, a.dh, ROWS, MMA_DT,
+                   CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err == 0)
+    err = make_map(&tv, a.v, a.dh, a.NH, a.S, B, sb, sl, a.dh, ROWS, MMA_COLS,
+                   CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err != 0) return cudaErrorInvalidValue;
+  kern<<<dim3(a.dh / MMA_COLS, a.NH, B), BLOCK, smem, stream>>>(tq, tk, tv, a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -346,7 +691,8 @@ int launch_simt(const Args& a, int B, cudaStream_t stream) {
 // d_intra (B, S, NH) fp32; C0, n0 (null: zeros) and C, n fp32; Csave, nsave
 // (null: not saved) fp32 (B, nc - 1, NH, dh, dh) and (B, nc - 1, NH, dh), nc =
 // ceil(S / min(S, 256)): C and n between chunks, as they enter chunks 1 ..
-// nc - 1. dh is 8, 16 or a multiple of 32. Launches on `stream`; returns the launch's cudaError_t.
+// nc - 1. dh is 8, 16 or a multiple of 32 (in bf16 at most 1024). Launches on
+// `stream`; returns the launch's cudaError_t.
 extern "C" int repro_mlstm_scan(const void* q, const void* k, const void* v, const void* ig,
                                 const void* cl, const void* h_intra, const void* d_intra,
                                 const void* C0, const void* n0, void* h, void* C, void* n,
@@ -373,6 +719,6 @@ extern "C" int repro_mlstm_scan(const void* q, const void* k, const void* v, con
                NH,
                dh};
   auto s = static_cast<cudaStream_t>(stream);
-  if (bf16 && dh % 32 == 0) return launch<__nv_bfloat16, true, MMA_COLS, MMA_DT>(a, B, s);
+  if (bf16 && dh % 32 == 0) return Csave ? launch_mma<true>(a, B, s) : launch_mma<false>(a, B, s);
   return bf16 ? launch_simt<__nv_bfloat16>(a, B, s) : launch_simt<float>(a, B, s);
 }

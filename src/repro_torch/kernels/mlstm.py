@@ -25,7 +25,8 @@ products of every chunk: at xlstm-1.3b's dh 1024 in bf16 the products bound
 it (4 B S nh dh^2 FLOPs against 2 B S nh dh x 5 bytes), so its bf16 route
 runs them on the tensor cores (``mma.sync``); w v is split into a bf16 high
 and low part, so C's update keeps about 16 bits of w v where one bf16
-product would keep 8 (see the source's note). With ``save`` it also writes
+product would keep 8 (see the source's note); there a producer warp brings
+q and k by TMA through a ring of mbarrier stages. With ``save`` it also writes
 the nc - 1 states (C, n) between chunks, what the backward reads.
 
 The backward (``mlstm_backward``), given dh and the cotangents dC, dn of the
@@ -77,6 +78,9 @@ _fns: dict = {}
 # chunk (one a thread), MMA_COLS columns of the state and MMA_DT head-dim
 # columns of q and k staged at a time on the mma route
 THREADS, ROWS, MMA_COLS, MMA_DT = 256, 256, 32, 32
+# The forward's mma route (csrc/mlstm_scan.cu): the ring's stages of q and k
+# and the row stride (bf16) of its tiles of C's slices
+NST, CBS = 2, MMA_DT + 8
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
@@ -262,17 +266,24 @@ def _a16(n):
 
 
 def smem_bytes(dh: int, elem: int, mma: bool) -> int:
-    """Shared-memory bytes of one forward block (``layout`` in the source):
-    C^T's columns of the block (fp32, rows padded), n, a staged slice of q
-    and of k, w v (bf16 high and low parts, or fp32), exp(cl), w and d_intra
-    of the chunk's rows, and the n update's partial sums."""
+    """Shared-memory bytes of one forward block (``layout`` and
+    ``mma_layout`` in the source). The mma route: the ring's NST stages of a
+    slice of q and of k, v's tile of the chunk, C^T's columns of the block
+    (fp32, rows padded), n, two bf16 tiles of C's slices, exp(cl), w and
+    d_intra of the chunk's rows, two buffers of the n update's partial sums
+    (4 a row of the slice), the mbarriers, and 1024 bytes to align the
+    base. The SIMT route: C^T, n, a staged slice of q and of k, w v (fp32),
+    the three vectors and the partial sums."""
     e = cols(dh)
-    dt = MMA_DT if mma else min(e, 16)
-    cs = dh + (8 if mma else 4)
-    qs = dt + (8 if mma else (2 if elem == 2 else 1))
-    wv = 2 * _a16(2 * ROWS * (e + 8)) if mma else _a16(4 * ROWS * e)
-    return (_a16(4 * e * cs) + _a16(4 * dh) + 2 * _a16(elem * ROWS * qs) + wv
-            + 3 * _a16(4 * ROWS) + _a16(4 * THREADS))
+    vec = 3 * _a16(4 * ROWS)
+    if mma:
+        return (NST * 2 * 2 * ROWS * MMA_DT + 2 * ROWS * e + _a16(4 * e * (dh + 4))
+                + _a16(4 * dh) + 2 * _a16(2 * e * CBS) + vec + 2 * _a16(4 * 4 * MMA_DT)
+                + _a16(8 * (2 * NST + 2)) + 1024)
+    dt = min(e, 16)
+    qs = dt + (2 if elem == 2 else 1)
+    return (_a16(4 * e * (dh + 4)) + _a16(4 * dh) + 2 * _a16(elem * ROWS * qs)
+            + _a16(4 * ROWS * e) + vec + _a16(4 * THREADS))
 
 
 def smem_bytes_bwd(dh: int, elem: int, mma: bool) -> int:
@@ -299,8 +310,10 @@ def plan(b: int, nh: int, dh: int, elem: int, *, smem_fn=smem_bytes,
     """(columns of the state a block, blocks, shared bytes a block);
     ``smem_fn`` is the forward's ``smem_bytes`` or the backward's
     ``smem_bytes_bwd``. The blocks own disjoint columns and need not be
-    resident together, so the grid may take several waves. Raises where the
-    kernel cannot take the shape."""
+    resident together, so the grid may take several waves (at xlstm-1.3b's
+    dh 1024 a block an SM: one wave of 128 blocks at batch 1 on an H100's
+    132 SMs, four at batch 4). Raises where the kernel cannot take the
+    shape."""
     if dh not in (8, 16) and dh % 32:
         raise ValueError(f"{what}: head dim {dh} must be 8, 16 or a multiple of 32")
     smem = smem_fn(dh, elem, route(elem, dh) == "mma")

@@ -157,14 +157,15 @@ def test_meta_branch_counts_the_plain_loops_flops(s):
 
 def test_plan_at_the_paths_shapes_and_its_refusals():
     """xlstm-1.3b (4 heads of 1024): 32 columns of C a block, B x 4 x 32
-    blocks, 222,208 bytes of shared memory on the mma route (bf16) and
-    207,360 on the SIMT route (fp32); the reduced config's dh 32 one block a
-    head; the tests' dh 8 the whole head. Head dims other than 8, 16 and
-    multiples of 32, and C^T beyond 227 KB, raise."""
-    assert mlstm.plan(4, 4, 1024, 2) == (32, 512, 222208)
-    assert mlstm.plan(1, 4, 1024, 2) == (32, 128, 222208)
+    blocks, 227,888 bytes of shared memory on the mma route (bf16: two ring
+    stages of q and k beside C^T) and 207,360 on the SIMT route (fp32); the
+    reduced config's dh 32 one block a head; the tests' dh 8 the whole
+    head. Head dims other than 8, 16 and multiples of 32, and C^T beyond
+    227 KB, raise."""
+    assert mlstm.plan(4, 4, 1024, 2) == (32, 512, 227888)
+    assert mlstm.plan(1, 4, 1024, 2) == (32, 128, 227888)
     assert mlstm.plan(4, 4, 1024, 4) == (32, 512, 207360)
-    assert mlstm.plan(2, 4, 32, 2) == (32, 8, 91264)
+    assert mlstm.plan(2, 4, 32, 2) == (32, 8, 96944)
     assert mlstm.plan(2, 4, 32, 4) == (32, 8, 76416)
     assert mlstm.plan(1, 2, 8, 2) == (8, 2, 22944)
     assert mlstm.plan(1, 2, 8, 4) == (8, 2, 31136)

@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
-"""Hold the mLSTM chunk kernel's forward (``csrc/mlstm_scan.cu``) to another
-checkout's build of it, to the bit, on one CUDA card.
+"""Hold the mLSTM chunk kernels (``csrc/mlstm_scan.cu``, ``csrc/mlstm_scan_bwd.cu``)
+to themselves and to another checkout's builds, to the bit, on one CUDA card.
 
     python3 tools/mlstm_same_bits.py OTHER_CHECKOUT
 
 Run from the root of a checkout on a machine with one NVIDIA H100 and the
-CUDA toolkit. Builds this checkout's kernel (``kernels._build``) and
-OTHER_CHECKOUT's ``src/repro_torch/kernels/csrc/mlstm_scan.cu`` (``nvcc``
-with the port's flags and that directory on the include path, into
-``build/mlstm_same_bits/``), reads the other build's C signature from its
-source (an older one takes no save pointers), and runs both on the same
+CUDA toolkit. Builds this checkout's kernels (``kernels._build``) and
+OTHER_CHECKOUT's ``mlstm_scan.cu`` and ``mlstm_scan_bwd.cu`` (``nvcc`` with
+the port's flags and that directory on the include path, into
+``build/mlstm_same_bits/``), reads the other forward's C signature from its
+source (an older one takes no save pointers), and runs them on the same
 inputs at the shapes of ``chip_smoke.py``'s ``_mlstm_checks`` but long_500k
 (dh 8, 32 and 1024; bf16 and fp32; from zeros and from a state; one
-chunk, a ragged last chunk, S = 1): this checkout's forward, with and
-without saving the states between chunks, against the other's forward,
-h, C and n equal to the bit. Prints the card's name and power limit, then
-one JSON line a shape; exits 1 on any difference.
+chunk, a ragged last chunk, S = 1). It checks, and exits 1 on any
+difference:
+
+- this checkout's saving forward gives its forward's h, C and n, and a
+  second call of each the first's;
+- the backward kernel gives the other checkout's backward's dC_j, dn_j,
+  dC0 and dn0 (on random g, u and cotangents), and a second call the
+  first's;
+- on the SIMT route (fp32, and bf16 at dh 8) the forward gives the other
+  checkout's h, C and n.
+
+On the mma route (bf16 at dh a multiple of 32) it reports whether the
+forward gives the other's bits too (h, C and n apiece), without gating on
+it. Prints the
+card's name and power limit, then one JSON line a case.
 """
 from __future__ import annotations
 
@@ -30,27 +41,29 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = [((1, 5 * 256 + 37, 2, 8), True), ((1, 5 * 256 + 37, 2, 8), False),
           ((1, 100, 2, 8), True), ((2, 300, 4, 32), True), ((4, 2048, 4, 1024), False),
           ((4, 2048, 4, 1024), True), ((2, 1000, 4, 1024), True), ((4, 1, 4, 1024), True),
-          ((4, 1024, 4, 1024), False)]
+          ((4, 1024, 4, 1024), False),
+          # dh 1024 again after dh 32: the kernel's shared bytes set anew
+          ((2, 300, 4, 32), False), ((2, 1000, 4, 1024), False)]
 
 
-def _other(checkout: str):
-    """The other checkout's kernel, built and bound: (function, number of
-    pointer arguments before the sizes)."""
+def _other(checkout: str, name: str, symbol: str):
+    """The other checkout's ``csrc/<name>.cu``, built and bound: (function,
+    number of pointer arguments before the sizes)."""
     from repro_torch.kernels import _build
 
     csrc = os.path.join(os.path.abspath(checkout), "src", "repro_torch", "kernels", "csrc")
-    src = os.path.join(csrc, "mlstm_scan.cu")
-    params = re.search(r'extern "C" int repro_mlstm_scan\(([^)]*)\)', open(src).read())
+    src = os.path.join(csrc, f"{name}.cu")
+    params = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', open(src).read())
     kinds = [p.strip() for p in params.group(1).split(",")]
     n_ptr = next(j for j, p in enumerate(kinds) if "*" not in p)
     out = os.path.join(ROOT, "build", "mlstm_same_bits")
     os.makedirs(out, exist_ok=True)
-    so = os.path.join(out, "other.so")
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-o", so, src]
-    done = subprocess.run(cmd, capture_output=True, text=True)
+    so = os.path.join(out, f"other_{name}.so")
+    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-o", so, src],
+                          capture_output=True, text=True)
     if done.returncode:
         sys.exit(f"nvcc failed on {src}:\n{done.stdout}{done.stderr}")
-    fn = ctypes.CDLL(so).repro_mlstm_scan
+    fn = getattr(ctypes.CDLL(so), symbol)
     fn.argtypes = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in kinds]
     fn.restype = ctypes.c_int
     return fn, n_ptr
@@ -74,6 +87,14 @@ def _inputs(gen, shape, dt, with_state):
     return q, k, v, i, logf, randn(b, nh, dh, dh) * scale, randn(b, nh, dh) * scale
 
 
+def _equal(xs, ys):
+    """Each pair both None or equal to the bit."""
+    import torch
+
+    return all(x is y is None or (x is not None and y is not None and torch.equal(x, y))
+               for x, y in zip(xs, ys))
+
+
 def main() -> int:
     if len(sys.argv) != 2:
         sys.exit(__doc__)
@@ -85,31 +106,54 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True)
     print(card.stdout.strip(), flush=True)
-    other, n_ptr = _other(sys.argv[1])
+    other, n_ptr = _other(sys.argv[1], "mlstm_scan", "repro_mlstm_scan")
+    other_bwd, _ = _other(sys.argv[1], "mlstm_scan_bwd", "repro_mlstm_scan_bwd")
+    stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(89)
     ok = True
     for shape, with_state in SHAPES:
+        b, s, nh, dh = shape
         for dt in (torch.bfloat16, torch.float32):
+            bf16 = int(dt == torch.bfloat16)
             q, k, v, i, logf, C0, n0 = _inputs(gen, shape, dt, with_state)
             cl, h_intra, d_intra = ml.mlstm_intra_terms(q, k, v, i, logf)
             args = (q, k, v, i, cl, h_intra, d_intra, C0, n0)
             mine = ml.mlstm_carry(*args)
-            saving = ml.mlstm_carry(*args, save=True)[:3]
+            again = ml.mlstm_carry(*args)
+            saving = ml.mlstm_carry(*args, save=True)
+            saving2 = ml.mlstm_carry(*args, save=True)
             theirs = (torch.empty_like(q), torch.empty_like(C0), torch.empty_like(n0))
             ptrs = [x.data_ptr() for x in (*args, *theirs)] + [None] * (n_ptr - 12)
-            b, s, nh, dh = shape
-            err = other(*ptrs, b, s, nh, dh, int(dt == torch.bfloat16),
-                        torch.cuda.current_stream().cuda_stream)
+            err = other(*ptrs, b, s, nh, dh, bf16, stream)
+            # the backward on random g, u and cotangents of the last state
+            g = torch.randn(shape, generator=gen, device="cuda")
+            u = torch.randn((b, s, nh), generator=gen, device="cuda")
+            dCn, dnn = (C0 * 10, n0 * 10) if with_state else (None, None)
+            bwd = ml.mlstm_carry_bwd(q, g, u, cl, dCn, dnn, need_state=with_state)
+            bwd2 = ml.mlstm_carry_bwd(q, g, u, cl, dCn, dnn, need_state=with_state)
+            their_bwd = [torch.empty_like(x) if x is not None else None for x in bwd]
+            err_bwd = other_bwd(*(None if x is None else x.data_ptr()
+                                  for x in (q, g, u, cl, dCn, dnn, *their_bwd)),
+                                b, s, nh, dh, bf16, stream)
             torch.cuda.synchronize()
-            same = err == 0 and all(torch.equal(a, c) for a, c in zip(mine, theirs))
-            same_saving = err == 0 and all(torch.equal(a, c) for a, c in zip(saving, theirs))
-            ok = ok and same and same_saving
-            print(json.dumps({"shape": list(shape), "state": with_state,
-                              "dtype": str(dt).removeprefix("torch."),
-                              "route": ml.route(dt.itemsize, dh), "other_error": err,
-                              "forward_equal": same, "saving_forward_equal": same_saving}),
-                  flush=True)
-            del q, k, v, i, logf, C0, n0, cl, h_intra, d_intra, args, mine, saving, theirs
+            simt = ml.route(dt.itemsize, dh) == "simt"
+            row = {"shape": list(shape), "state": with_state,
+                   "dtype": str(dt).removeprefix("torch."), "route": ml.route(dt.itemsize, dh),
+                   "other_error": err, "other_bwd_error": err_bwd,
+                   "saving_equals_forward": _equal(saving[:3], mine),
+                   "second_call_equal": _equal(again, mine) and _equal(saving2, saving),
+                   "forward_equals_other": err == 0 and _equal(mine, theirs),
+                   "forward_hCn_equal_other": [err == 0 and _equal([a], [c])
+                                               for a, c in zip(mine, theirs)],
+                   "backward_equals_other": err_bwd == 0 and _equal(bwd, their_bwd),
+                   "backward_second_call_equal": _equal(bwd2, bwd)}
+            gated = ["saving_equals_forward", "second_call_equal", "backward_equals_other",
+                     "backward_second_call_equal"] + (["forward_equals_other"] if simt else [])
+            row["ok"] = all(row[x] for x in gated)
+            ok = ok and row["ok"]
+            print(json.dumps(row), flush=True)
+            del q, k, v, i, logf, C0, n0, cl, h_intra, d_intra, args, mine, again, saving
+            del saving2, theirs, g, u, dCn, dnn, bwd, bwd2, their_bwd
             torch.cuda.empty_cache()
     print(json.dumps({"all_equal": ok}))
     return 0 if ok else 1
