@@ -63,7 +63,12 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    training shape (4, 1024, 8192) in bf16 and fp32, from zeros and from a
    state (``_slstm_bwd_checks``), the saving forward equal to the bit to
    the forward that saves nothing, its g and c against
-   ``slstm_scan_plain(save=True)``, the sLSTM's backward kernel against
+   ``slstm_scan_plain(save=True)``, the sLSTM's backward kernel (bf16 in
+   thread-block clusters of 16, a cluster a head, with dg sent by
+   ``st.async`` and relayed across clusters from tagged L2 words, the
+   recurrent product on ``mma.sync`` and g, c and dy by ``cp.async.bulk``;
+   fp32 on the cooperative grid of tagged words and SIMT products; the
+   training row names the route and its grid) against
    ``slstm_scan_bwd_plain`` (relative L2 of dgx, dh0 and dc0: fp32 within
    1e-4, bf16 within 2e-2) and equal to a second call to the bit, and the
    gradients of ``ops.slstm_scan`` (dgx, dr_gates, dh0, dc0) against
@@ -3188,7 +3193,8 @@ _GROUPS = (("K1 forward (attn_fwd)", ("attn_fwd",)),
            ("K3 (rglru_scan_fwd)", ("rglru_scan_fwd",)),
            ("K3 backward (rglru_scan_bwd)", ("rglru_scan_bwd",)),
            ("sLSTM (slstm_scan_kernel)", ("slstm_scan_kernel",)),
-           ("sLSTM backward (slstm_scan_bwd_kernel)", ("slstm_scan_bwd_kernel",)),
+           ("sLSTM backward (slstm_scan_bwd_kernel, slstm_scan_bwd_cluster_kernel)",
+            ("slstm_scan_bwd_kernel", "slstm_scan_bwd_cluster_kernel")),
            ("GEMMs (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
            ("copies and dtype casts", ("copy",)))
 
@@ -4596,7 +4602,9 @@ def _time_slstm_train(state):
     steps), its plain loop over all S steps, and cuDNN's LSTM
     (``_cudnn_lstm``, its c in bf16): forward with the input's gradient
     recorded, and its backward to the input alone (cuDNN's backward also
-    multiplies by W_ih, one (B S, 4D) x (4D, 4D) product)."""
+    multiplies by W_ih, one (B S, 4D) x (4D, 4D) product). Each row names
+    its grid (cluster size, channels a block, blocks, shared bytes), the
+    backward's also its route."""
     import torch
 
     from repro_torch.kernels import slstm as sl
@@ -4650,6 +4658,7 @@ def _time_slstm_train(state):
                  + 2 * b * s * d4 + 4 * b * d)
     bwd_bound = _bound(bwd_bytes, sl.flops(b, s - 1, nh, dh), "bfloat16")
     cluster, cpb, grid, smem = sl.fwd_plan(b, d, nh, sets[0][0])
+    b_cluster, b_cpb, b_grid, b_smem = sl.bwd_plan(b, d, nh, sets[0][0])
     del sets, bsets
     torch.cuda.empty_cache()
     common = {"route": "cuda", "path": PATH_NAME["xlstm_train"],
@@ -4677,6 +4686,10 @@ def _time_slstm_train(state):
          "replaces": "none: XLA's transpose of the reference's jax.lax.scan of "
                      "_slstm_cell, src/repro/models/xlstm.py:229 (cell :198)",
          "launches": by.get(("slstm_scan_bwd", XLSTM_TRAIN_GX), 0),
+         "cluster": b_cluster, "cpb": b_cpb, "grid": b_grid, "smem_bytes": b_smem,
+         "variant": (f"thread-block clusters of {b_cluster}: dg by st.async and relays, "
+                     "mma.sync products, g, c and dy by cp.async.bulk" if b_cluster > 1 else
+                     "cooperative grid: dg as tagged L2 words, SIMT products"),
          "max_abs_err": state["serving_err"]["slstm_scan_bwd_train"],
          "ms": ms_bwd, "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound[0],
          "bound_by": bwd_bound[1], "library_ms": lib_bwd, "host_ms": host_bwd,

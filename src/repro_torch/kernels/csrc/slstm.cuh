@@ -1,15 +1,23 @@
 // Shared by the sLSTM recurrence's kernels for Hopper (sm_90a):
-// slstm_scan.cu (the forward) and slstm_scan_bwd.cu (its backward). One
-// cooperative grid of THREADS threads a block; the blocks exchange a step's
-// values as 8-byte words of 4 data bytes and the step's tag, polled from
-// L2 (a poll that waits 10 s traps); the products of a block's columns run
-// in a fixed order, so every call gives the same bits.
+// slstm_scan.cu (the forward) and slstm_scan_bwd.cu (its backward). Each
+// runs one grid whose blocks of THREADS threads are all resident at once
+// and exchange a step's values: in thread-block clusters (the forward, and
+// the backward in bf16), within a cluster by st.async into each block's
+// shared memory and across clusters as 8-byte words of 4 data bytes and
+// the step's tag, stored to L2 and polled (a poll that waits 10 s traps);
+// or, in the backward's cooperative route (fp32), as such words alone,
+// gathered by every block. The recurrent products run in a fixed order,
+// so every call gives the same bits: on tensor cores by mma.sync (bf16) or
+// as the SIMT products below (fp32). Here: the block's constants, the
+// tagged words, the SIMT products, the m16n8k16 product, and the launches
+// of a cooperative grid and of a grid of clusters.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -182,6 +190,23 @@ __device__ __forceinline__ void products(const T* rs, Src src, int stride, int n
   }
 }
 
+// The number of blocks in this block's cluster.
+__device__ __forceinline__ int cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return int(n);
+}
+
+// d += a b on the tensor cores: m16n8k16, bf16 in, fp32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Launch ``kernel`` cooperatively over ceil(D / cpb) blocks after zeroing
 // the exchange words (no tag may be found before it is written). Refuses a
 // grid that cannot be resident at once, as the exchange needs.
@@ -204,6 +229,63 @@ int launch_coop(K kernel, void** args, size_t smem, int D, int cpb, void* xch, s
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
                                     dim3(THREADS), args, smem, stream);
   if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The most clusters of `cs` blocks of `kernel` (THREADS threads, `smem`
+// bytes of shared memory each) that the card holds at once, or a negative
+// cudaError_t.
+template <typename K>
+int max_clusters(K kernel, size_t smem, int cs) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return -int(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cs;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err == cudaSuccess ? n : -int(err);
+}
+
+// Launch `kernel` (its shared memory allowed by max_clusters) over
+// `blocks` blocks padded to whole clusters of `cs`, after zeroing the first
+// `xch_bytes` of the exchange's words (no tag may be found before it is
+// written), with the cluster dimension and the cooperative attribute
+// together (the driver takes the pair): a grid that cannot be resident at
+// once is refused.
+template <typename K>
+int launch_clusters(K kernel, void** args, size_t smem, int blocks, int cs, void* xch,
+                    size_t xch_bytes, cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  if (xch_bytes && (err = cudaMemsetAsync(xch, 0, xch_bytes, stream)) != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((blocks + cs - 1) / cs * cs);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  if ((err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args)) !=
+      cudaSuccess)
+    return err;
   return cudaGetLastError();
 }
 

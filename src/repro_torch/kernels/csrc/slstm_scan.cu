@@ -141,22 +141,6 @@ struct Layout {
   }
 };
 
-// The number of blocks in this block's cluster.
-__device__ __forceinline__ int cluster_size() {
-  uint32_t n;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
-  return int(n);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ float tanh_approx(float x) {
   float y;
   asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -457,32 +441,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   cluster_sync();
 }
 
-// The most clusters of `cs` blocks of `kernel` (THREADS threads, `smem`
-// bytes of shared memory each) that the card holds at once, or a negative
-// cudaError_t.
-template <typename K>
-int max_clusters(K kernel, size_t smem, int cs) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return -int(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cs;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
-  return err == cudaSuccess ? n : -int(err);
-}
-
 // The cluster size of a grid of `blocks` blocks (kernels/slstm.py `plan`
 // chooses the same): the largest of 16, 8, 4 and 2 blocks, none larger
 // than the grid but 2, whose clusters the card holds all at once (the
@@ -514,30 +472,8 @@ int launch(K kernel, int elem, const void* gx, const void* r, const void* h0, co
   if (cs < 0) return -cs;
   // the exchange needs every block resident at once
   if (cs == 0) return cudaErrorCooperativeLaunchTooLarge;
-  cudaError_t err = cudaSuccess;
-  if (blocks > cs &&
-      (err = cudaMemsetAsync(xch, 0, 2 * size_t(B) * D * elem / 4 * 8, stream)) != cudaSuccess)
-    return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((blocks + cs - 1) / cs * cs);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  // the cluster dimension and the cooperative attribute together (the
-  // driver takes the pair): a grid that cannot be resident is refused
-  cudaLaunchAttribute attr[2];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  attr[1].id = cudaLaunchAttributeCooperative;
-  attr[1].val.cooperative = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 2;
-  if ((err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args)) !=
-      cudaSuccess)
-    return err;
-  return cudaGetLastError();
+  return launch_clusters(kernel, args, smem, blocks, cs, xch,
+                         blocks > cs ? 2 * size_t(B) * D * elem / 4 * 8 : 0, stream);
 }
 
 // The forward kernel's instance for B rows in bf16 (bf16 != 0, products on

@@ -27,11 +27,16 @@ channels a block from the residency the card reports for the kernel
 
 The backward has no TPU kernel either (the reference differentiates its
 scan in XLA). ``slstm_scan_bwd`` runs it in reverse time in
-``csrc/slstm_scan_bwd.cu`` (``repro_slstm_scan_bwd``, the forward's grid
-and exchange from ``csrc/slstm.cuh``) on a CUDA tensor and
+``csrc/slstm_scan_bwd.cu`` (``repro_slstm_scan_bwd``) on a CUDA tensor and
 ``slstm_scan_bwd_plain``, a reverse step loop written out by hand, on a CPU
-tensor; each launch adds one to ``launches_bwd``. Per step, with the gate
-activations recomputed from g_t as the forward rounded them:
+tensor; each launch adds one to ``launches_bwd``. ``plan_bwd`` picks its
+route by shape and dtype: in bf16 the forward's design turned round
+(thread-block clusters, dg exchanged by ``st.async`` within a cluster and
+relayed across clusters from L2, the products on ``mma.sync``; the
+residency from ``repro_slstm_scan_bwd_clusters``), in fp32 (and in bf16
+where the clusters' shared memory does not fit) one cooperative grid of
+tagged words and SIMT products. Per step, with the gate activations
+recomputed from g_t as the forward rounded them:
 
     dh_t = dy_t + dh_rec_t
     dc_t = dc_{t+1} sigmoid(f_{t+1}) + dh_t so (1 - tanh^2 c_t)
@@ -55,23 +60,29 @@ launches = 0          # forward kernel launches since the last reset
 launches_bwd = 0      # backward kernel launches since the last reset
 meta_flops = 0        # FLOPs of the calls on meta tensors (the dry run)
 _fns: dict = {}
-_plans: dict = {}     # the forward's plan by shapes, dtype and card
+_plans: dict = {}     # the plans by direction, shapes, dtype and card
 
 # The kernels' block (csrc/slstm.cuh): THREADS threads, each keeping c
-# for up to MAX_PAIRS (batch row, channel) pairs.
-THREADS, MAX_PAIRS = 512, 4
+# for up to MAX_PAIRS (batch row, channel) pairs (CPAIRS in the backward's
+# clusters).
+THREADS, MAX_PAIRS, CPAIRS = 512, 4, 2
 # The forward's (csrc/slstm_scan.cu): gx stages, bytes after each row of h,
 # and the bf16 products' k-splits
 NST, HPAD, KS = 8, 32, 4
+# The backward's clusters (csrc/slstm_scan_bwd.cu): stages of g, dy and c,
+# bytes after each row of dg, the products' k parts (partial sums an
+# output), and floats a row of partial sums
+NST_BWD, HPAD_BWD, KP, GS = 8, 32, 8, 36
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 # C symbols and argument types: the forward (csrc/slstm_scan.cu) and the
 # backward (csrc/slstm_scan_bwd.cu), each named after its source, and the
-# forward's residency (in the forward's source)
+# residency of each (in its source)
 KERNEL = ("repro_slstm_scan", [_VP] * 10 + [_I] * 6 + [_VP])
 CLUSTERS = ("repro_slstm_scan_clusters", [_I] * 6)    # the forward's residency
-KERNEL_BWD = ("repro_slstm_scan_bwd", [_VP] * 11 + [_I] * 6 + [_VP])
+KERNEL_BWD = ("repro_slstm_scan_bwd", [_VP] * 11 + [_I] * 7 + [_VP])
+CLUSTERS_BWD = ("repro_slstm_scan_bwd_clusters", [_I] * 6)   # the backward's
 
 
 def _kernel(which=KERNEL):
@@ -210,25 +221,39 @@ def heads_spanned(d: int, dh: int, cpb: int) -> int:
 
 
 def smem_bytes_bwd(elem: int, b: int, d: int, dh: int, cpb: int) -> int:
-    """Shared-memory bytes of one backward block (``smem_bytes_bwd`` in the
-    source): its rows of r_gates, dg_t of its heads, the products and its
-    own dg_t."""
+    """Shared-memory bytes of one block of the backward's clusters
+    (``BwdLayout`` in the source): its barriers (two for dg, one a stage);
+    where each block of a cluster of up to 16 keeps its row of dg (an int
+    each); two buffers of dg, B rows of its heads' range and HPAD_BWD
+    bytes; the KP partial sums of each output (B rounded up to 8, rows of
+    GS floats); its new dg; NST_BWD stages of g (4 x B x cpb), dy (B x cpb)
+    and c (B x cpb fp32)."""
+    row = elem * heads_spanned(d, dh, cpb) * 4 * dh + HPAD_BWD
+    stage = _a16(elem * 4 * b * cpb) + _a16(elem * b * cpb) + _a16(4 * b * cpb)
+    return (_a16(8 * (2 + NST_BWD)) + 4 * 16 + 2 * b * row
+            + _a16(4 * KP * -(-b // 8) * 8 * GS) + _a16(elem * b * 4 * cpb) + NST_BWD * stage)
+
+
+def smem_bytes_bwd_coop(elem: int, b: int, d: int, dh: int, cpb: int) -> int:
+    """Shared-memory bytes of one block of the backward's cooperative grid
+    (``smem_bytes_coop`` in the source): its rows of r_gates, dg_t of its
+    heads, the products and its own dg_t."""
     return (_a16(elem * 4 * cpb * dh) + _a16(elem * b * heads_spanned(d, dh, cpb) * 4 * dh)
             + _a16(4 * 4 * cpb * b) + _a16(elem * b * 4 * cpb))
 
 
-def _step(elem: int, fwd: bool) -> int:
-    """cpb's granularity: even in the backward (a block publishes 4-byte
-    words); in the forward 16 bytes of fp32 values (its gx slices and h
-    chunks move 16 bytes at a time) or 16 bf16 channels (an m-tile of its
-    products)."""
-    return (4 if elem == 4 else 16) if fwd else 2
+def _step(elem: int, clusters: bool) -> int:
+    """cpb's granularity: even in the cooperative grid (``clusters`` False:
+    a block publishes 4-byte words); in clusters 16 bytes of fp32 values (the
+    forward's gx slices and h chunks move 16 bytes at a time) or 16 bf16
+    channels (an m-tile of the products)."""
+    return (4 if elem == 4 else 16) if clusters else 2
 
 
-def channels_a_block(d: int, elem: int, sms: int, fwd: bool = True) -> int:
+def channels_a_block(d: int, elem: int, sms: int, clusters: bool = True) -> int:
     """The fewest channels a block that keep the grid within one block an
     SM, rounded up to ``_step``."""
-    step = _step(elem, fwd)
+    step = _step(elem, clusters)
     return -(-d // (sms * step)) * step
 
 
@@ -245,20 +270,21 @@ def plan(b: int, d: int, dh: int, elem: int, sms: int, resident=None, *,
     card holds at once fit the block's shared memory (and, in bf16, its
     products' registers: at most 32 channels and dh 512); the grid padded
     to whole clusters (the source's ``cluster_for`` picks the same size for
-    that cpb). The backward (``resident`` None, ``smem_fn`` its
-    ``smem_bytes_bwd``) returns (cpb, blocks, shared bytes a block) of its
-    cooperative grid, ``channels_a_block`` channels a block."""
-    fwd = resident is not None
-    cpb = channels_a_block(d, elem, sms, fwd)
+    that cpb); the backward's clusters take the same with ``smem_fn``
+    ``smem_bytes_bwd``. ``resident`` None: the backward's cooperative grid
+    (``smem_fn`` ``smem_bytes_bwd_coop``), (1, cpb, blocks, shared bytes a
+    block), ``channels_a_block`` channels a block."""
+    clusters = resident is not None
+    cpb = channels_a_block(d, elem, sms, clusters)
     if b * cpb > MAX_PAIRS * THREADS:
         raise ValueError(f"slstm_scan: batch {b} x {cpb} channels a block exceeds "
                          f"{MAX_PAIRS * THREADS} (row, channel) pairs")
-    if not fwd:
+    if not clusters:
         smem = smem_fn(elem, b, d, dh, cpb)
         if smem > SMEM_LIMIT:
             raise ValueError(f"slstm_scan: {smem} bytes of shared memory a block at batch "
                              f"{b}, width {d}, head dim {dh} exceed {SMEM_LIMIT}")
-        return cpb, -(-d // cpb), smem
+        return 1, cpb, -(-d // cpb), smem
     step, why = _step(elem, True), set()
     for cluster in (16, 8, 4, 2):
         hold = resident(cluster) * cluster       # blocks the card holds in such clusters
@@ -282,6 +308,20 @@ def plan(b: int, d: int, dh: int, elem: int, sms: int, resident=None, *,
                      f"width {d}, head dim {dh} in {elem}-byte values: " + ", ".join(sorted(why)))
 
 
+def plan_bwd(b: int, d: int, dh: int, elem: int, sms: int, resident):
+    """The backward's route and grid, (cluster size, cpb, blocks, shared
+    bytes a block), by shape and dtype: in bf16 the clusters' (``plan`` with
+    the backward's ``resident`` and ``smem_bytes_bwd``) where the forward's
+    bf16 tiles take the shape and a block of 32 channels fits its shared
+    memory and CPAIRS pairs a thread, raising where the card cannot hold the
+    grid; otherwise the cooperative grid (cluster size 1,
+    ``smem_bytes_bwd_coop``)."""
+    if (elem == 2 and dh % 16 == 0 and dh <= 512 and 4 % (d // dh) == 0
+            and b * 32 <= CPAIRS * THREADS and smem_bytes_bwd(elem, b, d, dh, 32) <= SMEM_LIMIT):
+        return plan(b, d, dh, elem, sms, resident, smem_fn=smem_bytes_bwd)
+    return plan(b, d, dh, elem, sms, smem_fn=smem_bytes_bwd_coop)
+
+
 def _check_shapes(what, named, b, s, d, r_gates, **extra):
     """Raise unless r_gates is (nh, D/nh, 4D/nh) and each tensor of
     ``named`` has the shape given for it: ``bd`` (B, D), ``bsd`` (B, S, D)
@@ -302,16 +342,17 @@ def _sms(x):
     return torch.cuda.get_device_properties(x.device).multi_processor_count
 
 
-def fwd_plan(b, d, nh, x):
-    """``plan`` of the forward at B rows of width d in x's dtype on x's
-    card, with the residency the card reports for the kernel's instance
-    (``repro_slstm_scan_clusters``); kept for the next call."""
-    key = (b, d, nh, x.dtype, x.device)
+def _card_plan(fwd, b, d, nh, x):
+    """The plan of the forward (``plan``) or the backward (``plan_bwd``) at
+    B rows of width d in x's dtype on x's card, with the residency the card
+    reports for the kernel's instance (``repro_slstm_scan_clusters``,
+    ``repro_slstm_scan_bwd_clusters``); kept for the next call."""
+    key = (fwd, b, d, nh, x.dtype, x.device)
     if key not in _plans:
         elem, bf16 = x.element_size(), int(x.dtype == torch.bfloat16)
         sms = _sms(x)
         cpb = channels_a_block(d, elem, sms)
-        fn = _kernel(CLUSTERS)
+        fn = _kernel(CLUSTERS if fwd else CLUSTERS_BWD)
 
         def resident(cluster):
             with torch.cuda.device(x.device):
@@ -320,8 +361,18 @@ def fwd_plan(b, d, nh, x):
                 raise RuntimeError(f"slstm_scan: the residency query failed: cudaError {-n}")
             return n
 
-        _plans[key] = plan(b, d, d // nh, elem, sms, resident)
+        _plans[key] = (plan if fwd else plan_bwd)(b, d, d // nh, elem, sms, resident)
     return _plans[key]
+
+
+def fwd_plan(b, d, nh, x):
+    """``plan`` of the forward on x's card (``_card_plan``)."""
+    return _card_plan(True, b, d, nh, x)
+
+
+def bwd_plan(b, d, nh, x):
+    """``plan_bwd`` of the backward on x's card (``_card_plan``)."""
+    return _card_plan(False, b, d, nh, x)
 
 
 def slstm_scan(gx, r_gates, h0=None, c0=None, save=False):
@@ -413,7 +464,7 @@ def slstm_scan_bwd(g, c, r_gates, dy, c0=None, dh_n=None, dc_n=None, need_dh0=Tr
         if dh0 is not None:
             dh0.copy_(dh_n) if dh_n is not None else dh0.zero_()
         return dgx, dh0, dc0.copy_(dc_n) if dc_n is not None else dc0.zero_()
-    cpb, _, _ = plan(b, d, dh, g.element_size(), _sms(g), smem_fn=smem_bytes_bwd)
+    cluster, cpb, _, _ = bwd_plan(b, d, nh, g)
     # the exchange of dg: two buffers of B x 4D values in tagged words
     xch = torch.empty(2 * b * d4 * g.element_size() // 4, dtype=torch.int64,
                       device=g.device)
@@ -421,7 +472,7 @@ def slstm_scan_bwd(g, c, r_gates, dy, c0=None, dh_n=None, dc_n=None, need_dh0=Tr
     with torch.cuda.device(g.device):
         err = fn(g.data_ptr(), c.data_ptr(), _ptr(c0), r_gates.data_ptr(), dy.data_ptr(),
                  _ptr(dh_n), _ptr(dc_n), dgx.data_ptr(), _ptr(dh0), dc0.data_ptr(),
-                 xch.data_ptr(), b, s, d, nh, cpb, int(g.dtype == torch.bfloat16),
+                 xch.data_ptr(), b, s, d, nh, cpb, cluster, int(g.dtype == torch.bfloat16),
                  torch.cuda.current_stream(g.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"slstm_scan_bwd kernel launch failed: cudaError {err} (720: "

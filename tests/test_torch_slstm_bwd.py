@@ -356,14 +356,17 @@ def test_dryrun_train_cell_counts_the_same_flops_on_both_routes(fake_group, monk
 
 
 def test_plan_bwd_at_the_paths_shapes_and_the_exported_symbol():
-    """The backward's grid is the forward's (16 channels a block, 128 blocks
-    at xlstm-1.3b's D 2048 on 132 SMs); its shared memory holds r_gates'
-    rows, dg of one head (B x 4dh), the products and its own dg: 83,456
-    bytes at (4, bf16), 165,888 at (4, fp32); 6 channels over dh 4 span two
-    heads. The source exports the symbol with the wrapper's argument
-    types."""
-    assert slstm.plan(4, 2048, 512, 2, 132, smem_fn=slstm.smem_bytes_bwd) == (16, 128, 83456)
-    assert slstm.plan(4, 2048, 512, 4, 132, smem_fn=slstm.smem_bytes_bwd) == (16, 128, 165888)
+    """The backward's cooperative grid (fp32's route, and bf16's where its
+    clusters' shared memory does not fit) is the earlier forward's (16
+    channels a block, 128 blocks at xlstm-1.3b's D 2048 on 132 SMs, cluster
+    size 1); its shared memory holds r_gates' rows, dg of one head (B x
+    4dh), the products and its own dg: 83,456 bytes at (4, bf16), 165,888 at
+    (4, fp32); 6 channels over dh 4 span two heads. The source exports the
+    symbol with the wrapper's argument types."""
+    coop = slstm.smem_bytes_bwd_coop
+    assert slstm.plan(4, 2048, 512, 2, 132, smem_fn=coop) == (1, 16, 128, 83456)
+    assert slstm.plan(4, 2048, 512, 4, 132, smem_fn=coop) == (1, 16, 128, 165888)
+    assert slstm.plan_bwd(4, 2048, 512, 4, 132, None) == (1, 16, 128, 165888)
     assert slstm.heads_spanned(2048, 512, 16) == 1 and slstm.heads_spanned(16, 4, 6) == 2
     text = (_build.CSRC / "slstm_scan_bwd.cu").read_text()
     symbol, argtypes = slstm.KERNEL_BWD

@@ -14,8 +14,11 @@ from zeros and from a state, at xlstm-1.3b's training shape (4, 1024, 8192)
 and a small ragged (3, 37, 256); the forward also at the prefill's (4, 2048,
 8192)) checks:
 
-- the backward, ``slstm_scan_bwd`` against the other build, equal to the bit
-  (dgx, dh0, dc0);
+- the backward, ``slstm_scan_bwd`` against the other build: equal to the bit
+  (dgx, dh0, dc0) where both take the cooperative route (fp32, PR 29's
+  SIMT products and exchange); in bf16, whose products here run on tensor
+  cores in thread-block clusters, the distance is reported (relative L2
+  and max abs of dgx, dh0 and dc0) and ``chip_smoke.py``'s gates decide;
 - this checkout's forward with saving (the ``SAVE`` build) against it without,
   h, h_n and c_n equal to the bit;
 - this checkout's forward against the other build's: equal to the bit where
@@ -23,9 +26,10 @@ and a small ragged (3, 37, 256); the forward also at the prefill's (4, 2048,
   products run on tensor cores here, the distance is reported (relative L2
   and max abs of h and c_n) and ``chip_smoke.py``'s gates decide.
 
-The other forward is called with its own grid: the cooperative grid's
-(the fewest channels a block, even) unless its source exports the
-clusters' residency.
+Each of the other's kernels is called with its own grid: the cooperative
+grid's (the fewest channels a block, even) unless its source exports the
+clusters' residency; its backward by the parameter names of its C
+signature.
 Prints the card's name and power limit, then one JSON line a case; exits 1
 on any difference that must not be.
 """
@@ -53,9 +57,16 @@ def _bind(lib, src, symbol):
     return fn
 
 
+def _names(src, symbol):
+    """The parameter names of the C function ``symbol`` in ``src``."""
+    params = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', src)
+    return [p.strip().split()[-1].lstrip("*") for p in params.group(1).split(",")]
+
+
 def _other(checkout: str):
-    """The other checkout's forward and backward, built and bound, and
-    whether its forward plans clusters."""
+    """The other checkout's forward, its residency (or None), and its
+    backward with its parameter names and its residency (or None), built
+    and bound."""
     from repro_torch.kernels import _build
 
     csrc = os.path.join(os.path.abspath(checkout), "src", "repro_torch", "kernels", "csrc")
@@ -78,7 +89,10 @@ def _other(checkout: str):
     clusters = "repro_slstm_scan_clusters" in src
     fwd = _bind(lib, src, "repro_slstm_scan")
     res = _bind(lib, src, "repro_slstm_scan_clusters") if clusters else None
-    bwd = _bind(*fns["slstm_scan_bwd"], "repro_slstm_scan_bwd")
+    blib, bsrc = fns["slstm_scan_bwd"]
+    bwd = (_bind(blib, bsrc, "repro_slstm_scan_bwd"), _names(bsrc, "repro_slstm_scan_bwd"),
+           _bind(blib, bsrc, "repro_slstm_scan_bwd_clusters")
+           if "repro_slstm_scan_bwd_clusters" in bsrc else None)
     return fwd, res, bwd
 
 
@@ -136,7 +150,7 @@ def main() -> int:
                 mine = sl.slstm_scan(gx, r, h0, c0)
                 saving = sl.slstm_scan(gx, r, h0, c0, save=True)[:3]
                 if res is None:
-                    cpb = sl.channels_a_block(d, elem, sms, fwd=False)
+                    cpb = sl.channels_a_block(d, elem, sms, clusters=False)
                 else:
                     base = sl.channels_a_block(d, elem, sms)
                     cpb = sl.plan(b, d, d // NH, elem, sms,
@@ -168,17 +182,37 @@ def main() -> int:
                     got = sl.slstm_scan_bwd(g, c, r_, dy, c0_, dh_n, dc_n, need_dh0=with_state)
                     want = (torch.empty_like(g), torch.empty_like(got[1]) if with_state else None,
                             torch.empty_like(got[2]))
-                    bcpb = sl.plan(b, d, d // NH, elem, sms, smem_fn=sl.smem_bytes_bwd)[0]
+                    bfn, bnames, bres = bwd
+                    if bres is None:
+                        grid = (1, sl.channels_a_block(d, elem, sms, clusters=False))
+                    else:
+                        base = sl.channels_a_block(d, elem, sms)
+                        grid = sl.plan_bwd(b, d, d // NH, elem, sms,
+                                           lambda cl: max(bres(cl, b, d, NH, base, bf16), 0))[:2]
+                    mine_grid = sl.bwd_plan(b, d, NH, g)[:2]
                     xb = torch.empty(2 * b * d4 * elem // 4, dtype=torch.int64, device="cuda")
-                    berr = bwd(g.data_ptr(), c.data_ptr(), _ptr(c0_), r_.data_ptr(),
-                               dy.data_ptr(), _ptr(dh_n), _ptr(dc_n), want[0].data_ptr(),
-                               _ptr(want[1]), want[2].data_ptr(), xb.data_ptr(), b, s, d, NH,
-                               bcpb, bf16, stream)
+                    values = {"gsave": g.data_ptr(), "csave": c.data_ptr(), "c0": _ptr(c0_),
+                              "r": r_.data_ptr(), "dy": dy.data_ptr(), "dh_n": _ptr(dh_n),
+                              "dc_n": _ptr(dc_n), "dgx": want[0].data_ptr(),
+                              "dh0": _ptr(want[1]), "dc0": want[2].data_ptr(),
+                              "xch": xb.data_ptr(), "B": b, "S": s, "D": d, "nh": NH,
+                              "cpb": grid[1], "cluster": grid[0], "bf16": bf16,
+                              "stream": stream}
+                    berr = bfn(*(values[n] for n in bnames))
                     torch.cuda.synchronize()
                     same_bwd = berr == 0 and all(
                         torch.equal(a, w) for a, w in zip(got, want) if a is not None)
-                    row.update(other_bwd_error=berr, backward_equal=same_bwd)
-                    ok = ok and same_bwd
+                    row.update(other_bwd_error=berr, backward_equal=same_bwd,
+                               backward_grids={"this": list(mine_grid), "other": list(grid)})
+                    if mine_grid[0] == 1 and grid[0] == 1 or berr:
+                        ok = ok and same_bwd
+                    else:
+                        row["backward_distance_to_other"] = {
+                            f"{n}_{k}": v for n, a, w in zip(("dgx", "dh0", "dc0"), got, want)
+                            if a is not None for k, v in (
+                                ("rel_l2", ((a.double() - w.double()).norm()
+                                            / w.double().norm()).item()),
+                                ("max_abs", (a.float() - w.float()).abs().max().item()))}
                 print(json.dumps(row), flush=True)
                 del gx, r, h0, c0, bargs, mine, saving, theirs, xch
                 torch.cuda.empty_cache()

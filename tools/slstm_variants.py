@@ -138,7 +138,7 @@ ST_CLUSTER = """__device__ __forceinline__ void st_cluster16(uint32_t addr, uint
                : "memory");
 }
 
-__device__ __forceinline__ void mma_bf16("""
+__device__ __forceinline__ float tanh_approx(float x) {"""
 CLUSTER = {
     "noexchange": [
         ("x0 * cs < nfor;", "x0 * cs < 0;"),
@@ -166,7 +166,7 @@ CLUSTER = {
     # h_{t-1} complete at a cluster barrier, the sends plain stores, instead
     # of st.async counted on each block's mbarrier (the first design)
     "clusterbarrier": [(SEND, "    st_cluster16(mapa(at, k), d);"),
-                       ("__device__ __forceinline__ void mma_bf16(", ST_CLUSTER),
+                       ("__device__ __forceinline__ float tanh_approx(float x) {", ST_CLUSTER),
                        (WAIT, "      cluster_sync();")],
     # clusters of at most 8 blocks
     "cluster8": [("for (int cs : {16, 8, 4, 2}) {", "for (int cs : {8, 4, 2}) {")],
@@ -235,7 +235,7 @@ def grid(lib: str, src_kind: str, b: int, d: int, sms: int) -> dict:
     from repro_torch.kernels import slstm as sl
 
     if src_kind == "coop":
-        cpb = sl.channels_a_block(d, 2, sms, fwd=False)
+        cpb = sl.channels_a_block(d, 2, sms, clusters=False)
         return {"cluster": 1, "cpb": cpb, "blocks": -(-d // cpb)}
     fn = ctypes.CDLL(lib).repro_slstm_scan_clusters
     fn.argtypes, fn.restype = [ctypes.c_int] * 6, ctypes.c_int
