@@ -81,10 +81,11 @@ toolkit (``nvcc``) and Triton. Uses ``repro_torch`` only. Phases:
    1000 and dh 8: the saving forward's h, C, n equal to the bit to the
    forward that saves nothing, its states between chunks against
    ``mlstm_carry_plain(save=True)``, the backward kernel against
-   ``mlstm_carry_bwd_plain`` (relative L2 of every dC_j, dn_j, dC0, dn0:
-   fp32 within 1e-4, bf16 within 2e-2, and bf16's fp32 states and
-   cotangents within 1e-4, below a single bf16 product's control) and
-   equal to a second call to the bit, and the gradients of
+   ``mlstm_carry_bwd_plain`` (relative L2 of every dC_j, dn_j, dC0, dn0 and
+   of T = k dC, dv's carried term: fp32 within 1e-4, bf16 within 2e-2, and
+   bf16's fp32 states, cotangents and T within 1e-4, below a single bf16
+   product's control) and equal to a second call to the bit, and the
+   gradients of
    ``ops.mlstm_chunk_scan`` (dq, dk, dv, di, dlogf, dC0, dn0) against
    autograd through the two plain parts on fp32 copies (the sLSTM's
    bounds); the sm90 d-256 backward twice on the same
@@ -1320,13 +1321,13 @@ def _mlstm_bwd_checks(state):
     ``mlstm_carry_plain(save=True)``'s (``_mlstm_gate``); the backward kernel
     (``mlstm_carry_bwd``) on g and u from ``mlstm.py``'s first backward pass
     against ``mlstm_carry_bwd_plain`` on the same tensors (relative L2 of
-    every dC_j, dn_j, dC0 and dn0: fp32 within 1e-4, bf16 within 2e-2) and
-    equal to the bit on a second call. On bf16 the fp32 states and
-    cotangents (C and n of the saving forward, the saved ones, every dC_j,
-    dn_j, dC0, dn0) are held within MLSTM_SPLIT_TOL too, and beside it the
-    control: the plain version with one bf16 product (w v, or g, rounded to
-    bf16), which must read above it. Then the gradient gate
-    (``_mlstm_grad_check``)."""
+    every dC_j, dn_j, dC0, dn0 and of T = k dC: fp32 within 1e-4, bf16
+    within 2e-2) and equal to the bit on a second call. On bf16 the fp32
+    states, cotangents and T (C and n of the saving forward, the saved ones,
+    every dC_j, dn_j, dC0, dn0, T) are held within MLSTM_SPLIT_TOL too, and
+    beside it the controls: the plain version with one bf16 product (w v, g,
+    or dC in T's product, rounded to bf16), which must read above it. Then
+    the gradient gate (``_mlstm_grad_check``)."""
     import torch
 
     from repro_torch.kernels import mlstm as ml
@@ -1361,7 +1362,7 @@ def _mlstm_bwd_checks(state):
         b, s, nh, d = shape
         g, u, *_ = ml._read_cotangents(q, logf, d_intra, ml.entering_n(n0, saved[4]),
                                        saved[0], dh, ml.bwd_group(b, nh, d, s))
-        bargs = (q, g, u, cl, dC, dn_, with_state)
+        bargs = (q, k, g, u, cl, dC, dn_, with_state)
         got = ml.mlstm_carry_bwd(*bargs)
         torch.cuda.synchronize()
         ref = ml.mlstm_carry_bwd_plain(*bargs)
@@ -1370,12 +1371,13 @@ def _mlstm_bwd_checks(state):
         tol = 1e-4 if dn == "float32" else MLSTM_TOL[dn]
         bwd = {x: {"rel_l2": _rel_l2(a, b), "max_abs_err": _max_err(a, b),
                    "max_abs": b.abs().max().item()}
-               for x, a, b in zip(("dCs", "dns", "dC0", "dn0"), got, ref) if a is not None}
+               for x, a, b in zip(("dCs", "dns", "dC0", "dn0", "T"), got, ref) if a is not None}
         if dn == "bfloat16":
-            control = ml.mlstm_carry_bwd_plain(q, g.bfloat16().float(), *bargs[2:])
+            control = ml.mlstm_carry_bwd_plain(q, k, g.bfloat16().float(), *bargs[3:])
             split["dCs_control_rel_l2"] = _rel_l2(control[0], ref[0])
             split["dC0_control_rel_l2"] = (_rel_l2(control[2], ref[2]) if with_state
                                            else None)
+            split["T_control_rel_l2"] = _rel_l2(_mlstm_T_bf16_dC(k, ref[0], dC), ref[4])
             del control
             split["worst_rel_l2"] = max(
                 [fwd["C_rel_l2"], fwd["n_rel_l2"], states["C_rel_l2"], states["n_rel_l2"]]
@@ -1408,6 +1410,26 @@ def _mlstm_bwd_checks(state):
     grads = [_mlstm_grad_check(gen, dn, with_state)
              for dn in ("bfloat16", "float32") for with_state in (False, True)]
     emit(mlstm_grad_checks=grads)
+
+
+def _mlstm_T_bf16_dC(k, dCs, dC_n):
+    """The control of the bf16 split gate for T: k_j bf16(dC_j) on the
+    chunks read (dC_j leaving chunk j: the plain version's dCs, then dC_n
+    where given), a single bf16 product where the kernel splits dC into a
+    high and a low part."""
+    import torch
+
+    from repro_torch.kernels import mlstm as ml
+
+    b, s, nh, dh = k.shape
+    L, _ = ml._chunks(s)
+    leaving = list(dCs.unbind(1)) + ([] if dC_n is None else [dC_n])
+    rows = min(len(leaving) * L, s)
+    out = k.new_empty((b, rows, nh, dh), dtype=torch.float32)
+    for j, dCj in enumerate(leaving):
+        r = slice(j * L, min((j + 1) * L, s))
+        out[:, r] = torch.einsum("blhd,bhde->blhe", k[:, r].float(), dCj.bfloat16().float())
+    return out
 
 
 def _mlstm_wv_bf16_states(q, k, v, i, cl, C0):
@@ -4456,16 +4478,19 @@ def _mlstm_carry_bytes(b, s, nh, dh, elem, save, state=True):
 
 def _mlstm_bwd_bytes(b, s, nh, dh, elem):
     """Bytes the backward kernel must move as training calls it (no dC, dn
-    on the last state, no dC0, dn0: chunk 0's update is not run): q
-    (``elem`` bytes), g fp32 and u of the chunks run (all but the first)
-    read once, cl at their last rows, and the cotangents of the nc - 1
-    states between chunks written once."""
+    on the last state, no dC0, dn0: chunk 0's update is not run, the last
+    chunk's read neither): q (``elem`` bytes), g fp32 and u of the chunks
+    updated (all but the first) read once, cl at their last rows, k of the
+    chunks read (all but the last) read once and T (fp32) written on their
+    rows, and the cotangents of the nc - 1 states between chunks written
+    once."""
     from repro_torch.kernels import mlstm as ml
 
     L, nc = ml._chunks(s)
     rows = s - L                                  # the rows of chunks 1 .. nc - 1
+    read = (nc - 1) * L                           # the rows of chunks 0 .. nc - 2
     return ((elem + 4) * b * rows * nh * dh + 4 * b * rows * nh + 4 * b * (nc - 1) * nh
-            + 4 * b * (nc - 1) * nh * (dh * dh + dh))
+            + (elem + 4) * b * read * nh * dh + 4 * b * (nc - 1) * nh * (dh * dh + dh))
 
 
 def _time_mlstm_train(state):
@@ -4512,7 +4537,7 @@ def _time_mlstm_train(state):
             dh_ = _randn(gen, q.shape, q.dtype)
             g, u, *_ = ml._read_cotangents(q, logf, d_intra, ml.entering_n(n0, ns), h, dh_,
                                            ml.bwd_group(b, nh, dh, s))
-            out.append(((q, g, u, cl),
+            out.append(((q, k, g, u, cl),
                         (q, k, v, i, logf, cl, d_intra, qk, C0, n0, Cs, ns, h, dh_)))
         return out
 

@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
 // (csrc/flash_attention_sm90.cu, csrc/flash_attention_bwd_sm90.cu), the
-// sLSTM forward (csrc/slstm_scan.cu) and the mLSTM forward
-// (csrc/mlstm_scan.cu): mbarrier waits, TMA tile and bulk loads,
-// 128-byte-swizzle wgmma descriptors, the wgmma instructions the kernels
-// issue, the async-proxy fence and named barriers, register hand-over
-// between warpgroups, thread-block clusters (ranks, mapa, st.async, the
-// cluster barrier), and the host-side tensor-map encoder.
+// sLSTM kernels (csrc/slstm_scan.cu, csrc/slstm_scan_bwd.cu) and the mLSTM
+// kernels (csrc/mlstm_scan.cu, csrc/mlstm_scan_bwd.cu): mbarrier waits, TMA
+// tile and bulk loads, 128-byte-swizzle wgmma descriptors, the wgmma
+// instructions the kernels issue, the async-proxy fence and named barriers,
+// register hand-over between warpgroups, thread-block clusters (ranks,
+// mapa, st.async, the cluster barrier), and the host-side tensor-map
+// encoder.
 // Included by each source; kernels/_build.py hashes every csrc/*.cuh into
 // each library's build key, so an edited header rebuilds its users.
 #pragma once

@@ -8,8 +8,8 @@
 //   x[d0 + d]    = e_end x[d0 + d]    + sum_l c[l] a[l, d0 + d]
 // with (a, b, c) = (k, w v, w) in the forward (X = C, x = n) and (q, g, u)
 // in the backward (X = dC, x = dn). The helpers below are that update, its
-// staging and the fragments of the mma route; the sums run in a fixed order
-// and use no atomics, so every call gives the same bits.
+// staging, the mma routes' block, fragments and swizzle; the sums run in a
+// fixed order and use no atomics, so every call gives the same bits.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -70,16 +70,25 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The staged slice t of NM matrices of (B, S, NH, dh) (q and k in the
-// forward, q alone in the backward): rows 0 .. ROWS-1 of the chunk at
-// `rowbase`, head-dim columns t DT .. t DT + DT - 1, rows past lv zero,
-// through registers: fetch() issues the global loads, stage() writes them
-// to shared memory.
-template <typename T, bool MMA, int DT, int NM = 2>
+// The mma routes' block (mlstm_scan_mma_kernel, mlstm_scan_bwd_mma_kernel):
+// the consumers' two warpgroups (warps 0 .. 7) and the producer's (warp
+// PRODUCER loads, the other three idle), which keeps 40 registers a thread
+// and hands the rest to the consumers (232); a ring stage holds slices of
+// SLICE_BYTES, ROWS rows of MMA_DT bf16 in TMA's 64-byte swizzle.
+constexpr int PRODUCER = THREADS / 32, BLOCK = THREADS + 128;
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int SLICE_BYTES = ROWS * MMA_DT * 2;    // a slice of q (or k)
+constexpr int NPART = 4 * MMA_DT;                 // x's partial sums a slice: 4 a row
+
+// The SIMT routes' staged slice t of q and k (B, S, NH, dh): rows 0 ..
+// ROWS-1 of the chunk at `rowbase`, head-dim columns t DT .. t DT + DT - 1,
+// rows past lv zero, through registers: fetch() issues the global loads,
+// stage() writes them to shared memory (rows of `stride` elements).
+template <typename T, int DT>
 struct Stager {
   static constexpr int VEC = 16 / sizeof(T);                 // elements a 16-byte load
   static constexpr int VPR = DT / VEC;                       // loads a staged row
-  static constexpr int N = NM * ROWS * VPR / THREADS;        // a thread's loads
+  static constexpr int N = 2 * ROWS * VPR / THREADS;         // a thread's loads
   uint4 buf[N];
 
   __device__ __forceinline__ void fetch(const T* q, const T* k, size_t rowbase, int NH, int dh,
@@ -101,24 +110,17 @@ struct Stager {
       const int which = it / (ROWS * VPR), rem = it % (ROWS * VPR);
       const int row = rem / VPR, c = rem % VPR;
       T* dst = (which ? ks : qs) + row * stride + c * VEC;
-      if constexpr (MMA) {
-        *reinterpret_cast<uint4*>(dst) = buf[r];
-      } else {
-        const T* x = reinterpret_cast<const T*>(&buf[r]);
+      const T* x = reinterpret_cast<const T*>(&buf[r]);
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) dst[e] = x[e];
-      }
+      for (int e = 0; e < VEC; ++e) dst[e] = x[e];
     }
   }
 };
 
-// Row l's b[l, 0 .. E-1] = w x src[0 .. E-1] (zeros from row lv on) into
-// shared memory: on the mma route as bf16 high and low parts, hi = bf16(p),
-// lo = bf16(p - hi), so the update's bf16 products keep about 16 bits of p;
-// else in fp32.
-template <typename S, bool MMA, int E>
-__device__ __forceinline__ void stage_b(const S* src, float w, bool live, __nv_bfloat16* hi,
-                                        __nv_bfloat16* lo, float* f) {
+// Row l's b[l, 0 .. E-1] = w x src[0 .. E-1] (zeros from row lv on), fp32,
+// into shared memory at f.
+template <typename S, int E>
+__device__ __forceinline__ void stage_b(const S* src, float w, bool live, float* f) {
   constexpr int VEC = 16 / sizeof(S);
 #pragma unroll
   for (int c = 0; c < E / VEC; ++c) {
@@ -126,16 +128,7 @@ __device__ __forceinline__ void stage_b(const S* src, float w, bool live, __nv_b
     if (live) raw = *reinterpret_cast<const uint4*>(src + c * VEC);
     const S* x = reinterpret_cast<const S*>(&raw);
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      const float p = __fmul_rn(w, to_f(x[e]));
-      if constexpr (MMA) {
-        const __nv_bfloat16 h = __float2bfloat16_rn(p);
-        hi[c * VEC + e] = h;
-        lo[c * VEC + e] = __float2bfloat16_rn(__fsub_rn(p, __bfloat162float(h)));
-      } else {
-        f[c * VEC + e] = p;
-      }
-    }
+    for (int e = 0; e < VEC; ++e) f[c * VEC + e] = __fmul_rn(w, to_f(x[e]));
   }
 }
 
@@ -150,39 +143,6 @@ __device__ __forceinline__ void x_partial(const float* c_s, const T* as, int str
 #pragma unroll
   for (int x = 0; x < PER; ++x) sn += c_s[l0 + x] * to_f(as[(l0 + x) * stride + d]);
   red[tid] = sn;
-}
-
-// The mma route's update sums of one slice: warp w takes rows d0 + 16 (w >> 2)
-// + g (+ 8) and columns 8 (w & 3) + 2 qd (+ 1) of the state, over all ROWS rows
-// of a (staged in `as`, read transposed) and b (its high part in `bhi`, low in
-// `blo`). Four independent sums (b's high and low parts, even and odd steps
-// of 16 rows) so the mma of a step need not wait for the last; rows past lv
-// are zero in a and b, so the loop runs over all ROWS, a fixed count the
-// compiler unrolls (the next steps' loads issued before this step's mma).
-__device__ __forceinline__ void update_mma(float (&u)[4], const __nv_bfloat16* as, int astride,
-                                           const __nv_bfloat16* bhi, const __nv_bfloat16* blo,
-                                           int bstride) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int um = warp >> 2, un = warp & 3;
-  float uh[2][4] = {}, ul[2][4] = {};
-#pragma unroll
-  for (int lk = 0; lk < ROWS; lk += 32) {
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int l0 = lk + 16 * p;
-      uint32_t fk[4], fw[4];
-      ldsm_x4_t(fk, as + (l0 + (lane & 7) + (lane >> 4) * 8) * astride + um * 16 +
-                        ((lane >> 3) & 1) * 8);
-      // matrices 0, 1: rows l0 .. l0 + 15 of b's high part; 2, 3: of its low part
-      ldsm_x4_t(fw, (lane < 16 ? bhi : blo) +
-                        (l0 + (lane & 7) + ((lane >> 3) & 1) * 8) * bstride + un * 8);
-      mma_bf16(uh[p], fk, fw[0], fw[1]);
-      mma_bf16(ul[p], fk, fw[2], fw[3]);
-    }
-  }
-#pragma unroll
-  for (int x = 0; x < 4; ++x)
-    u[x] = __fadd_rn(__fadd_rn(uh[0][x], uh[1][x]), __fadd_rn(ul[0][x], ul[1][x]));
 }
 
 // The SIMT route's update sums of one slice: (d, e) pairs tid and tid +
@@ -202,30 +162,19 @@ __device__ __forceinline__ void update_simt(float (&u)[4], const T* as, int astr
   }
 }
 
-// X = e_end X + u on the entries of `update_mma` or `update_simt`, and x =
-// e_end x + the parts' sums in a fixed order (threads tid < DT). After the
-// barrier that ends the slice's sums.
-template <bool MMA, int E, int DT>
+// X = e_end X + u on the entries of `update_simt`, and x = e_end x + the
+// parts' sums in a fixed order (threads tid < DT). After the barrier that
+// ends the slice's sums.
+template <int E, int DT>
 __device__ __forceinline__ void apply_update(float* Xs, int xstride, float* xs, const float* red,
                                              int d0, float e_end, const float (&u)[4]) {
   const int tid = threadIdx.x;
-  if constexpr (MMA) {
-    const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, qd = lane & 3;
-    const int um = warp >> 2, un = warp & 3;
-    const int d = d0 + um * 16 + g, e = un * 8 + 2 * qd;
-    float* c = Xs + e * xstride + d;
-    c[0] = __fadd_rn(__fmul_rn(e_end, c[0]), u[0]);
-    c[xstride] = __fadd_rn(__fmul_rn(e_end, c[xstride]), u[1]);
-    c[8] = __fadd_rn(__fmul_rn(e_end, c[8]), u[2]);
-    c[xstride + 8] = __fadd_rn(__fmul_rn(e_end, c[xstride + 8]), u[3]);
-  } else {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int idx = tid + r * THREADS;
-      if (idx < DT * E) {
-        float* c = Xs + (idx % E) * xstride + d0 + idx / E;
-        *c = __fadd_rn(__fmul_rn(e_end, *c), u[r]);
-      }
+  for (int r = 0; r < 2; ++r) {
+    const int idx = tid + r * THREADS;
+    if (idx < DT * E) {
+      float* c = Xs + (idx % E) * xstride + d0 + idx / E;
+      *c = __fadd_rn(__fmul_rn(e_end, *c), u[r]);
     }
   }
   if (tid < DT) {  // the parts' sums in a fixed order
@@ -247,6 +196,82 @@ __device__ __forceinline__ void write_state(float* X, float* x, const float* Xs,
   }
   if (whole)
     for (int d = threadIdx.x; d < dh; d += THREADS) x[d] = xs[d];
+}
+
+// Element (r, c) of a tile of 32-column bf16 rows in TMA's 64-byte swizzle:
+// 16-byte chunk c / 8 of row r lies at chunk (c / 8) ^ (r / 2 % 4) (the
+// tile 512-byte aligned). Eight rows in a row at one chunk hit eight
+// distinct bank groups, so ldmatrix, plain or transposed, has no conflicts.
+__device__ __forceinline__ int sw64(int r, int c) {
+  return r * 32 + ((((c >> 3) ^ (r >> 1)) & 3) << 3) + (c & 7);
+}
+
+// The mma routes' update sums of one slice: warp (um, un) = (warp >> 2,
+// warp & 3) takes the 16 x 8 tile of X rows d0 + 16 um + g (+ 8) and
+// columns 8 un + 2 qd (+ 1) over all ROWS rows of the chunk, a from the
+// swizzled slice `as` (ldmatrix.trans; rows past the chunk are zero, so
+// the loop has a fixed count and is unrolled), b's B fragments in
+// registers (bf[r]: rows 16 r .. 16 r + 15 of this warp's 8 columns, b0, b1
+// of b's bf16 high part, then of its low part, hi = bf16(b), lo = bf16(b -
+// hi)). Four independent sums (high and low parts, even and odd steps of 16
+// rows), added as (even + odd high) + (even + odd low). From the same a
+// fragments, x's: warp (um, un) sums c_l a[l, d] over the rows of steps 4
+// un .. 4 un + 3 (rows 16 s + 2 qd, + 1, + 8, + 9 of step s a lane, c of
+// them in cn) for d = 16 um + g and + 8, into xn.
+__device__ __forceinline__ void update_mma_n(float (&u)[4], float (&xn)[2],
+                                             const __nv_bfloat16* as,
+                                             const uint32_t (&bf)[ROWS / 16][4],
+                                             const float (&cn)[4][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, um = warp >> 2, un = warp & 3;
+  float uh[2][4] = {}, ul[2][4] = {};
+  xn[0] = xn[1] = 0.f;
+  // the loads and the products are asm volatile, issued in the order
+  // written: each step's a fragment is loaded AHEAD steps before its
+  // products, so they need not wait out the load
+  constexpr int AHEAD = 1;
+  uint32_t fq[ROWS / 16][4];
+  auto load = [&](int st) {
+    ldsm_x4_t(fq[st], as + sw64(16 * st + (lane & 7) + (lane >> 4) * 8,
+                                um * 16 + ((lane >> 3) & 1) * 8));
+  };
+#pragma unroll
+  for (int st = 0; st < AHEAD; ++st) load(st);
+#pragma unroll
+  for (int qq = 0; qq < 4; ++qq) {
+#pragma unroll
+    for (int p4 = 0; p4 < 4; ++p4) {
+      const int st = 4 * qq + p4;
+      if (st + AHEAD < ROWS / 16) load(st + AHEAD);
+      mma_bf16(uh[st & 1], fq[st], bf[st][0], bf[st][1]);
+      mma_bf16(ul[st & 1], fq[st], bf[st][2], bf[st][3]);
+    }
+    if (qq == un) {
+#pragma unroll
+      for (int p4 = 0; p4 < 4; ++p4) {
+        const uint32_t* f = fq[4 * qq + p4];
+        xn[0] += lo_f(f[0]) * cn[p4][0] + hi_f(f[0]) * cn[p4][1] + lo_f(f[2]) * cn[p4][2] +
+                 hi_f(f[2]) * cn[p4][3];
+        xn[1] += lo_f(f[1]) * cn[p4][0] + hi_f(f[1]) * cn[p4][1] + lo_f(f[3]) * cn[p4][2] +
+                 hi_f(f[3]) * cn[p4][3];
+      }
+    }
+  }
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+    u[x] = __fadd_rn(__fadd_rn(uh[0][x], uh[1][x]), __fadd_rn(ul[0][x], ul[1][x]));
+}
+
+// x[d0 + d] = e_end x[d0 + d] + its four partial sums in a fixed order, d =
+// tid < 32 (part: a slice's NPART, part[32 un + d])
+__device__ __forceinline__ void apply_n(float* ns, const float* part, int d0, float e_end) {
+  const int d = threadIdx.x;
+  ns[d0 + d] = __fadd_rn(__fmul_rn(e_end, ns[d0 + d]),
+                         __fadd_rn(__fadd_rn(part[d], part[32 + d]),
+                                   __fadd_rn(part[64 + d], part[96 + d])));
+}
+
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return uint32_t(__bfloat16_as_ushort(lo)) | (uint32_t(__bfloat16_as_ushort(hi)) << 16);
 }
 
 }  // namespace

@@ -133,14 +133,7 @@ __host__ __device__ inline Layout layout(int dh, int E, int DT, int elem) {
 // slice) and the mbarriers (full and empty a stage, v's full and empty);
 // the base rounded up to 1024 bytes, the swizzle's period.
 constexpr int NST = 2;                            // the ring's stages
-constexpr int SLICE_BYTES = ROWS * MMA_DT * 2;    // a slice of q (or k)
 constexpr int CBS = MMA_DT + KPAD;                // row stride of a bf16 tile of C
-// the block: the consumers' two warpgroups (warps 0 .. 7) and the
-// producer's (warp PRODUCER loads, the other three idle), which keeps 40
-// registers a thread and hands the rest to the consumers (232)
-constexpr int PRODUCER = THREADS / 32, BLOCK = THREADS + 128;
-constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
-constexpr int NPART = 4 * MMA_DT;                 // n's partial sums a slice: 4 a row
 
 struct MmaLayout {
   int cs;  // C^T's row stride (floats)
@@ -218,7 +211,7 @@ __global__ void __launch_bounds__(THREADS, 1) mlstm_scan_kernel(Args a) {
 
   const int L = S < ROWS ? S : ROWS;
   const int nchunks = (S + L - 1) / L, nslices = dh / DT;
-  Stager<T, false, DT> st;
+  Stager<T, DT> st;
   for (int j = 0; j < nchunks; ++j) {
     const int s0 = j * L, lv = min(L, S - s0);
     const size_t rowbase = (size_t(b) * S + s0) * NH + hd;  // (b, s0, hd) in (B, S, NH)
@@ -244,8 +237,7 @@ __global__ void __launch_bounds__(THREADS, 1) mlstm_scan_kernel(Args a) {
         di_s[l] = a.din[ri];
       }
       w_s[l] = w;
-      stage_b<T, false, E>(v + (rowbase + size_t(l) * NH) * dh + col0, w, l < lv, nullptr,
-                           nullptr, wvf + l * E);
+      stage_b<T, E>(v + (rowbase + size_t(l) * NH) * dh + col0, w, l < lv, wvf + l * E);
     }
     st.stage(qs, ks, o.qs);
     __syncthreads();
@@ -290,7 +282,7 @@ __global__ void __launch_bounds__(THREADS, 1) mlstm_scan_kernel(Args a) {
       }
       update_simt<T, E, DT>(u, ks, o.qs, wvf, E, lv);
       __syncthreads();  // every read of C[d0:], n[d0:] and of the staged slice is done
-      apply_update<false, E, DT>(Cs, o.cs, ns, red, d0, e_end, u);
+      apply_update<E, DT>(Cs, o.cs, ns, red, d0, e_end, u);
       if (t + 1 < nslices) st.stage(qs, ks, o.qs);
       __syncthreads();
     }
@@ -312,73 +304,6 @@ __global__ void __launch_bounds__(THREADS, 1) mlstm_scan_kernel(Args a) {
   write_state(a.C + cbase, a.n + nbase, Cs, o.cs, ns, dh, E, col0, blockIdx.x == 0);
 }
 
-// Element (r, c) of a tile of 32-column bf16 rows in TMA's 64-byte swizzle:
-// 16-byte chunk c / 8 of row r lies at chunk (c / 8) ^ (r / 2 % 4) (the
-// tile 512-byte aligned). Eight rows in a row at one chunk hit eight
-// distinct bank groups, so ldmatrix, plain or transposed, has no conflicts.
-__device__ __forceinline__ int sw64(int r, int c) {
-  return r * 32 + ((((c >> 3) ^ (r >> 1)) & 3) << 3) + (c & 7);
-}
-
-// The update's sums of one slice on a swizzled slice of k with w v's B
-// fragments in registers (wf[r]: rows 16 r .. 16 r + 15 of this warp's 8
-// columns, b0, b1 of the high part, then of the low part): update_mma's
-// sums in update_mma's order. From the same k fragments, n's: warp (um,
-// un) sums w_l k[l, d] over the rows of k-steps 4 un .. 4 un + 3 (rows 16 s
-// + 2 qd, + 1, + 8, + 9 of step s a lane, w of them in wn) for d = 16 um + g
-// and + 8, into xn.
-__device__ __forceinline__ void update_mma_n(float (&u)[4], float (&xn)[2],
-                                             const __nv_bfloat16* ks,
-                                             const uint32_t (&wf)[ROWS / 16][4],
-                                             const float (&wn)[4][4]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, um = warp >> 2, un = warp & 3;
-  float uh[2][4] = {}, ul[2][4] = {};
-  xn[0] = xn[1] = 0.f;
-  // the loads and the products are asm volatile, issued in the order
-  // written: each step's k fragment is loaded AHEAD steps before its
-  // products, so they need not wait out the load
-  constexpr int AHEAD = 1;
-  uint32_t fq[ROWS / 16][4];
-  auto load = [&](int st) {
-    ldsm_x4_t(fq[st], ks + sw64(16 * st + (lane & 7) + (lane >> 4) * 8,
-                                um * 16 + ((lane >> 3) & 1) * 8));
-  };
-#pragma unroll
-  for (int st = 0; st < AHEAD; ++st) load(st);
-#pragma unroll
-  for (int qq = 0; qq < 4; ++qq) {
-#pragma unroll
-    for (int p4 = 0; p4 < 4; ++p4) {
-      const int st = 4 * qq + p4;
-      if (st + AHEAD < ROWS / 16) load(st + AHEAD);
-      mma_bf16(uh[st & 1], fq[st], wf[st][0], wf[st][1]);
-      mma_bf16(ul[st & 1], fq[st], wf[st][2], wf[st][3]);
-    }
-    if (qq == un) {
-#pragma unroll
-      for (int p4 = 0; p4 < 4; ++p4) {
-        const uint32_t* f = fq[4 * qq + p4];
-        xn[0] += lo_f(f[0]) * wn[p4][0] + hi_f(f[0]) * wn[p4][1] + lo_f(f[2]) * wn[p4][2] +
-                 hi_f(f[2]) * wn[p4][3];
-        xn[1] += lo_f(f[1]) * wn[p4][0] + hi_f(f[1]) * wn[p4][1] + lo_f(f[3]) * wn[p4][2] +
-                 hi_f(f[3]) * wn[p4][3];
-      }
-    }
-  }
-#pragma unroll
-  for (int x = 0; x < 4; ++x)
-    u[x] = __fadd_rn(__fadd_rn(uh[0][x], uh[1][x]), __fadd_rn(ul[0][x], ul[1][x]));
-}
-
-// n[d0 + d] = e_end n[d0 + d] + its four partial sums in a fixed order, d =
-// tid < 32 (part: a slice's NPART, part[32 un + d])
-__device__ __forceinline__ void apply_n(float* ns, const float* part, int d0, float e_end) {
-  const int d = threadIdx.x;
-  ns[d0 + d] = __fadd_rn(__fmul_rn(e_end, ns[d0 + d]),
-                         __fadd_rn(__fadd_rn(part[d], part[32 + d]),
-                                   __fadd_rn(part[64 + d], part[96 + d])));
-}
-
 // bf16(C[d0 .. d0 + 31][cols]) into a tile cb[e * CBS + dd] (the read's B
 // operand), four values a consumer thread
 __device__ __forceinline__ void convert_slice(const float* Cs, int cstride, int d0,
@@ -387,10 +312,6 @@ __device__ __forceinline__ void convert_slice(const float* Cs, int cstride, int 
   const float4 c = *reinterpret_cast<const float4*>(Cs + e * cstride + d0 + dd);
   *reinterpret_cast<uint2*>(cb + e * CBS + dd) = make_uint2(pack_bf16(c.x, c.y),
                                                             pack_bf16(c.z, c.w));
-}
-
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return uint32_t(__bfloat16_as_ushort(lo)) | (uint32_t(__bfloat16_as_ushort(hi)) << 16);
 }
 
 // The mma route (bf16, E = MMA_COLS, DT = MMA_DT): block (blockIdx.x, head

@@ -34,17 +34,23 @@ last state, with g_l = exp(cl_l) dh_l / den_l, den_l = max(|s_l|, 1), s_l =
 d_intra_l + d_inter_l, and u_l = ds_l exp(cl_l), ds_l = -(dh_l . h_l) /
 den_l sign(s_l) [|s_l| > 1]:
 
-    dC_{j-1} = exp(cl_end) dC_j + q_j^T g_j       carried: one launch of
-    dn_{j-1} = exp(cl_end) dn_j + q_j^T u_j       csrc/mlstm_scan_bwd.cu
+    T_j      = k_j dC_j                           carried: one launch of
+    dC_{j-1} = exp(cl_end) dC_j + q_j^T g_j       csrc/mlstm_scan_bwd.cu
+    dn_{j-1} = exp(cl_end) dn_j + q_j^T u_j
 
-(``mlstm_carry_bwd``, the forward's block layout backward over the chunks,
-for j = nc - 1 down to 1, and 0 only where dC0 and dn0 are asked), then,
-carry-free once the states between chunks and their cotangents are known,
-batched torch over groups of chunks: dq, dk, dv, the gates' gradients, and
-the intra terms' backward by hand from the forward's q k^T
-(``_grad_terms``). The edges are the caller's: C0, n0 before the first
-chunk and dC, dn after the last, each None where it is zeros (training
-passes no state), and then the products with it are not run.
+(``mlstm_carry_bwd``: the forward's design turned round, backward over the
+chunks, each slice of dC read by k into T, dv's carried term, before q and
+g update it; the update for j = nc - 1 down to 1, and 0 only where dC0 and
+dn0 are asked; the read where dC_j is not zero: j = nc - 2 down to 0, and
+nc - 1 where dC is given). Its bf16 route runs both products on the tensor
+cores with g and each slice of dC split into bf16 high and low parts, about
+16 bits of the fp32 operand. Then, carry-free once the states between
+chunks, their cotangents and T are known, batched torch over groups of
+chunks: dq, dk, the rest of dv, the gates' gradients, and the intra terms'
+backward by hand from the forward's q k^T (``_grad_terms``). The edges are
+the caller's: C0, n0 before the first chunk and dC, dn after the last, each
+None where it is zeros (training passes no state), and then the products
+with it are not run.
 
 ``mlstm_carry_plain`` and ``mlstm_carry_bwd_plain`` do what the kernels do,
 chunk by chunk in plain torch (a ragged last chunk zero-padded, as the
@@ -78,8 +84,9 @@ _fns: dict = {}
 # chunk (one a thread), MMA_COLS columns of the state and MMA_DT head-dim
 # columns of q and k staged at a time on the mma route
 THREADS, ROWS, MMA_COLS, MMA_DT = 256, 256, 32, 32
-# The forward's mma route (csrc/mlstm_scan.cu): the ring's stages of q and k
-# and the row stride (bf16) of its tiles of C's slices
+# The mma routes (csrc/mlstm_scan.cu, csrc/mlstm_scan_bwd.cu): the ring's
+# stages of q and k and the row stride (bf16) of the tiles of C's (dC's)
+# slices
 NST, CBS = 2, MMA_DT + 8
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
 
@@ -87,7 +94,7 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 # C symbols and argument types: the forward (csrc/mlstm_scan.cu) and the
 # backward (csrc/mlstm_scan_bwd.cu), each named after its source
 KERNEL = ("repro_mlstm_scan", [_VP] * 14 + [_I] * 5 + [_VP])
-KERNEL_BWD = ("repro_mlstm_scan_bwd", [_VP] * 10 + [_I] * 5 + [_VP])
+KERNEL_BWD = ("repro_mlstm_scan_bwd", [_VP] * 12 + [_I] * 5 + [_VP])
 
 
 def _kernel(which=KERNEL):
@@ -246,13 +253,17 @@ def carry_flops(b: int, s: int, nh: int, dh: int) -> int:
     return 4 * b * nc * L * nh * dh * (dh + 1) if s else 0
 
 
-def carry_bwd_flops(b: int, s: int, nh: int, dh: int, need_state: bool) -> int:
+def carry_bwd_flops(b: int, s: int, nh: int, dh: int, need_state: bool,
+                    read_last: bool = False) -> int:
     """The carried products of the backward, what ``flop_counter`` counts in
     ``mlstm_carry_bwd_plain`` over the padded chunks (L rows each): q^T g, 2
-    B L nh dh^2, and q^T u, 2 B L nh dh, for each chunk whose update runs:
-    all but the first, and the first too where ``need_state``."""
+    B L nh dh^2, and q^T u, 2 B L nh dh, for each chunk whose update runs
+    (all but the first, and the first too where ``need_state``), and k dC, 2
+    B L nh dh^2, for each chunk read (all but the last, and the last too
+    where ``read_last``: a dC on the last state is given)."""
     L, nc = _chunks(s) if s else (0, 0)
-    return 2 * b * max(nc - 1 + need_state, 0) * L * nh * dh * (dh + 1)
+    return 2 * b * L * nh * dh * (max(nc - 1 + need_state, 0) * (dh + 1)
+                                  + max(nc - 1 + read_last, 0) * dh)
 
 
 def route(elem: int, dh: int) -> str:
@@ -287,17 +298,23 @@ def smem_bytes(dh: int, elem: int, mma: bool) -> int:
 
 
 def smem_bytes_bwd(dh: int, elem: int, mma: bool) -> int:
-    """Shared-memory bytes of one backward block (``layout`` in
-    ``csrc/mlstm_scan_bwd.cu``): dC^T's columns (fp32, rows padded), dn, a
-    staged slice of q, g's columns of the chunk's rows (bf16 high and low
-    parts, or fp32), u, and the dn update's partial sums."""
+    """Shared-memory bytes of one backward block (``mma_layout`` and
+    ``layout`` in ``csrc/mlstm_scan_bwd.cu``). The mma route: the ring's NST
+    stages of a slice of q and of k, dC^T's columns (fp32, rows padded), dn,
+    four bf16 tiles (the high and low parts of two slices of dC), u of the
+    chunk's rows, two buffers of dn's partial sums, the mbarriers, and 1024
+    bytes to align the base; g's fragments stay in registers, no tile of g.
+    The SIMT route: dC^T, dn, a staged slice of q and of k, g's columns of
+    the chunk's rows (fp32), u and the partial sums."""
     e = cols(dh)
-    dt = MMA_DT if mma else min(e, 16)
-    cs = dh + (8 if mma else 4)
-    qs = dt + (8 if mma else (2 if elem == 2 else 1))
-    gs = 2 * _a16(2 * ROWS * (e + 8)) if mma else _a16(4 * ROWS * e)
-    return (_a16(4 * e * cs) + _a16(4 * dh) + _a16(elem * ROWS * qs) + gs
-            + _a16(4 * ROWS) + _a16(4 * THREADS))
+    if mma:
+        return (NST * 2 * 2 * ROWS * MMA_DT + _a16(4 * e * (dh + 4)) + _a16(4 * dh)
+                + 4 * _a16(2 * e * CBS) + _a16(4 * ROWS) + 2 * _a16(4 * 4 * MMA_DT)
+                + _a16(8 * 2 * NST) + 1024)
+    dt = min(e, 16)
+    qs = dt + (2 if elem == 2 else 1)
+    return (_a16(4 * e * (dh + 4)) + _a16(4 * dh) + 2 * _a16(elem * ROWS * qs)
+            + _a16(4 * ROWS * e) + _a16(4 * ROWS) + _a16(4 * THREADS))
 
 
 def cols(dh: int) -> int:
@@ -387,13 +404,26 @@ def mlstm_carry(q, k, v, i, cl, h_intra, d_intra, C0, n0, save=False):
     return h, C, n, *saved
 
 
-def mlstm_carry_bwd_plain(q, g, u, cl, dC_n=None, dn_n=None, need_state=False):
+def _rows_read(s: int, dC_n) -> int:
+    """R, the rows of the chunks whose read runs (``mlstm_carry_bwd``): all
+    but the last, and the last too where ``dC_n`` is given: a prefix of the
+    sequence."""
+    if not s:
+        return 0
+    L, nc = _chunks(s)
+    return min((nc - 1 + (dC_n is not None)) * L, s)
+
+
+def mlstm_carry_bwd_plain(q, k, g, u, cl, dC_n=None, dn_n=None, need_state=False):
     """What the backward kernel does, chunk by chunk from the last in plain
-    torch: q (B,S,NH,dh), g (B,S,NH,dh), u and cl (B,S,NH), dC_n (B,NH,dh,dh)
-    and dn_n (B,NH,dh) or None (zeros) -> (dCs (B,nc-1,NH,dh,dh), dns
-    (B,nc-1,NH,dh): the cotangents of C and n between chunks, as they leave
-    chunks 0 .. nc - 2; dC0, dn0, or None where not ``need_state``: then
-    chunk 0's update is not run), fp32 (fp64 for fp64 inputs). A ragged last
+    torch: q, k (B,S,NH,dh), g (B,S,NH,dh), u and cl (B,S,NH), dC_n
+    (B,NH,dh,dh) and dn_n (B,NH,dh) or None (zeros) -> (dCs (B,nc-1,NH,dh,dh),
+    dns (B,nc-1,NH,dh): the cotangents of C and n between chunks, as they
+    leave chunks 0 .. nc - 2; dC0, dn0, or None where not ``need_state``:
+    then chunk 0's update is not run; T (B,R,NH,dh): T_j = k_j dC_j on the
+    chunks whose leaving dC_j is not zero, R their rows (``_rows_read``: all
+    chunks but the last, and the last where ``dC_n`` is given), each read
+    before its chunk's update), fp32 (fp64 for fp64 inputs). A ragged last
     chunk is zero-padded to L rows, as the kernel runs it."""
     b, s, nh, dh = q.shape
     acc = _acc(q.dtype)
@@ -402,30 +432,37 @@ def mlstm_carry_bwd_plain(q, g, u, cl, dC_n=None, dn_n=None, need_state=False):
     dn = q.new_zeros((b, nh, dh), dtype=acc) if dn_n is None else dn_n.to(acc)
     dCs = q.new_empty((b, max(nc - 1, 0), nh, dh, dh), dtype=acc)
     dns = q.new_empty((b, max(nc - 1, 0), nh, dh), dtype=acc)
-    for j in range(nc - 1, -1 if need_state else 0, -1):
+    R = _rows_read(s, dC_n)
+    T = q.new_empty((b, R, nh, dh), dtype=acc)
+    for j in range(nc - 1, -1, -1):
         r = slice(j * L, min((j + 1) * L, s))
-        e_end = torch.exp(cl[:, r.stop - 1])                       # (B,NH)
-        qj, gj, uj = _padded_chunk(L, r.stop - r.start, q[:, r].to(acc), g[:, r], u[:, r])
-        dC = e_end[..., None, None] * dC + torch.einsum("blhd,blhe->bhde", qj, gj)
-        dn = e_end[..., None] * dn + torch.einsum("blh,blhd->bhd", uj, qj)
-        if j:
-            dCs[:, j - 1], dns[:, j - 1] = dC, dn
-    return (dCs, dns, dC, dn) if need_state else (dCs, dns, None, None)
+        lv = r.stop - r.start
+        if r.start < R:                                            # the read, before the update
+            kj, = _padded_chunk(L, lv, k[:, r].to(acc))
+            T[:, r] = torch.einsum("blhd,bhde->blhe", kj, dC)[:, :lv]
+        if j or need_state:
+            e_end = torch.exp(cl[:, r.stop - 1])                   # (B,NH)
+            qj, gj, uj = _padded_chunk(L, lv, q[:, r].to(acc), g[:, r], u[:, r])
+            dC = e_end[..., None, None] * dC + torch.einsum("blhd,blhe->bhde", qj, gj)
+            dn = e_end[..., None] * dn + torch.einsum("blh,blhd->bhd", uj, qj)
+            if j:
+                dCs[:, j - 1], dns[:, j - 1] = dC, dn
+    return (dCs, dns, dC, dn, T) if need_state else (dCs, dns, None, None, T)
 
 
-def mlstm_carry_bwd(q, g, u, cl, dC_n=None, dn_n=None, need_state=False):
-    """The backward kernel's wrapper: q (B,S,NH,dh) in bf16 or fp32; g
+def mlstm_carry_bwd(q, k, g, u, cl, dC_n=None, dn_n=None, need_state=False):
+    """The backward kernel's wrapper: q, k (B,S,NH,dh) in bf16 or fp32; g
     (B,S,NH,dh), u, cl (B,S,NH), dC_n (B,NH,dh,dh), dn_n (B,NH,dh) fp32, the
-    last two each or None (zeros) -> (dCs, dns, dC0, dn0) as
-    ``mlstm_carry_bwd_plain``: every chunk in one launch (with one chunk and
-    no ``need_state`` the launch has nothing to run).
+    last two each or None (zeros) -> (dCs, dns, dC0, dn0, T) as
+    ``mlstm_carry_bwd_plain``: every chunk in one launch (with one chunk, no
+    ``dC_n`` and no ``need_state`` the launch has nothing to run).
 
     CUDA tensors go to the kernel, CPU tensors to ``mlstm_carry_bwd_plain``;
     meta tensors get empty outputs and ``carry_bwd_flops`` in
     ``meta_flops``; tensors elsewhere raise."""
     global launches_bwd, meta_flops
     if q.device.type == "cpu":
-        return mlstm_carry_bwd_plain(q, g, u, cl, dC_n, dn_n, need_state)
+        return mlstm_carry_bwd_plain(q, k, g, u, cl, dC_n, dn_n, need_state)
     b, s, nh, dh = q.shape if q.dim() == 4 else (0, 0, 0, 0)
     nc = _chunks(s)[1] if s else 0
     f32 = torch.float32
@@ -433,32 +470,33 @@ def mlstm_carry_bwd(q, g, u, cl, dC_n=None, dn_n=None, need_state=False):
     dns = q.new_empty((b, max(nc - 1, 0), nh, dh), dtype=f32)
     dC0, dn0 = ((q.new_empty((b, nh, dh, dh), dtype=f32), q.new_empty((b, nh, dh), dtype=f32))
                 if need_state else (None, None))
-    named = {"q": q, "g": g, "u": u, "cl": cl, "dC_n": dC_n, "dn_n": dn_n}
+    T = q.new_empty((b, _rows_read(s, dC_n), nh, dh), dtype=f32)
+    named = {"q": q, "k": k, "g": g, "u": u, "cl": cl, "dC_n": dC_n, "dn_n": dn_n}
     if _on_meta(*named.values()):
-        meta_flops += carry_bwd_flops(b, s, nh, dh, need_state)
-        return dCs, dns, dC0, dn0
+        meta_flops += carry_bwd_flops(b, s, nh, dh, need_state, dC_n is not None)
+        return dCs, dns, dC0, dn0, T
     _check(named, q.dtype, ("g", "u", "cl", "dC_n", "dn_n"), "mlstm_carry_bwd")
     if q.dim() != 4:
         raise ValueError(f"mlstm_carry_bwd: bad shapes q {tuple(q.shape)}")
     _bad_shapes("mlstm_carry_bwd", named, {
-        "g": (b, s, nh, dh), "u": (b, s, nh), "cl": (b, s, nh), "dC_n": (b, nh, dh, dh),
-        "dn_n": (b, nh, dh)})
+        "k": (b, s, nh, dh), "g": (b, s, nh, dh), "u": (b, s, nh), "cl": (b, s, nh),
+        "dC_n": (b, nh, dh, dh), "dn_n": (b, nh, dh)})
     if b == 0 or s == 0:                                # no chunk: dC0, dn0 are dC_n, dn_n
         for out, x in ((dC0, dC_n), (dn0, dn_n)):
             if out is not None:
                 out.zero_() if x is None else out.copy_(x)
-        return dCs, dns, dC0, dn0
+        return dCs, dns, dC0, dn0, T
     plan_bwd(b, nh, dh, q.element_size())
     fn = _kernel(KERNEL_BWD)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), g.data_ptr(), u.data_ptr(), cl.data_ptr(), _ptr(dC_n),
-                 _ptr(dn_n), dCs.data_ptr(), dns.data_ptr(), _ptr(dC0), _ptr(dn0), b, s, nh,
-                 dh, int(q.dtype == torch.bfloat16),
+        err = fn(q.data_ptr(), k.data_ptr(), g.data_ptr(), u.data_ptr(), cl.data_ptr(),
+                 _ptr(dC_n), _ptr(dn_n), dCs.data_ptr(), dns.data_ptr(), _ptr(dC0), _ptr(dn0),
+                 T.data_ptr(), b, s, nh, dh, int(q.dtype == torch.bfloat16),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mlstm_carry_bwd kernel launch failed: cudaError {err}")
     launches_bwd += 1
-    return dCs, dns, dC0, dn0
+    return dCs, dns, dC0, dn0, T
 
 
 def entering_n(n0, ns):
@@ -500,23 +538,26 @@ def _read_cotangents(q, logf, d_intra, ns, h, dh, group):
     return g, u, r, ds, qn
 
 
-def _grad_terms(q, k, v, i, logf, qk, r, ds, qn, Cs, ns, dCs, dns, group):
+def _grad_terms(q, k, v, i, logf, qk, r, ds, qn, Cs, ns, dCs, dns, T, group):
     """The backward's carry-free terms, per group of chunks, from the states
     entering the chunks and the cotangents of those leaving them: ``ns``
     for every chunk, ``Cs`` for the last ``Cs.shape[1]`` chunks, ``dCs``
     and ``dns`` for the first ``dCs.shape[1]``, the products with the
     chunks' C or (dC, dn) left out elsewhere (zeros: no C0, no cotangent on
-    the last state). Returns (dq, dk, dv in q's dtype, di, dlogf fp32). The
-    intra terms' backward by hand from the forward's q k^T (``qk``: A = qk
-    exp(cl_l - cl_m) i_m below the diagonal, h_intra = bf16(A) v, d_intra =
-    A's row sums), the read's (h_inter = (q bf16(C)) exp(cl): dq = exp(cl)
-    bf16(C) r; d_inter = (q . n) exp(cl)) and the update's (C_j = e_end
-    C_{j-1} + k^T (w v), n_j = e_end n_{j-1} + k^T w), then dlogf as the
+    the last state); ``T`` (k dC, from ``mlstm_carry_bwd``) on the rows of
+    the first chunks, its product left out on the rest (a zero dC). Returns
+    (dq, dk, dv in q's dtype, di, dlogf fp32). The intra terms' backward by
+    hand from the forward's q k^T (``qk``: A = qk exp(cl_l - cl_m) i_m below
+    the diagonal, h_intra = bf16(A) v, d_intra = A's row sums), the read's
+    (h_inter = (q bf16(C)) exp(cl): dq = exp(cl) bf16(C) r; d_inter = (q .
+    n) exp(cl)) and the update's (C_j = e_end C_{j-1} + k^T (w v), n_j =
+    e_end n_{j-1} + k^T w: dv = w T), then dlogf as the
     reverse cumulative sum of dcl in each chunk."""
     b, s, nh, dh = q.shape
     dt, acc = q.dtype, _acc(q.dtype)
     L, nc = _chunks(s)
     c0, c1 = nc - Cs.shape[1], dCs.shape[1]      # chunks c0.. have a C entering, ..c1 a dC leaving
+    cT = -(-T.shape[1] // L)                     # chunks ..cT have T
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     di, dlogf = (q.new_empty((b, s, nh), dtype=acc) for _ in range(2))
     mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))
@@ -525,6 +566,7 @@ def _grad_terms(q, k, v, i, logf, qk, r, ds, qn, Cs, ns, dCs, dns, group):
         r0, r1, pad = _group_rows(g0, gs, L, s)
         sl = slice(g0, g0 + gs)
         a, e = min(max(c0 - g0, 0), gs), max(min(c1 - g0, gs), 0)   # the group's chunks a.., ..e
+        eT = max(min(cT - g0, gs), 0)
         qc, kc, vc, rc = (_rows(x, r0, r1, pad).reshape(b, gs, L, nh, dh)
                           for x in (q, k, v, r))
         ic, lfc, dsc, qnc = (_rows(x, r0, r1, pad).reshape(b, gs, L, nh)
@@ -561,11 +603,13 @@ def _grad_terms(q, k, v, i, logf, qk, r, ds, qn, Cs, ns, dCs, dns, group):
         w = wdec * ic
         kf = kc.to(acc)
         dw, de_end = torch.zeros_like(w), torch.zeros_like(cl_end)
+        if eT:
+            rT = min(r0 + eT * L, T.shape[1])
+            Tc = _rows(T, r0, rT, eT * L - (rT - r0)).reshape(b, eT, L, nh, dh)
+            dvc[:, :eT] += w[:, :eT, ..., None] * Tc
         if e:
             U = torch.einsum("bglhe,bghde->bglhd", vc[:, :e].to(acc), dCj)
-            T = torch.einsum("bglhd,bghde->bglhe", kf[:, :e], dCj)
             dkc[:, :e] += w[:, :e, ..., None] * (U + dnj[:, :, None])
-            dvc[:, :e] += w[:, :e, ..., None] * T
             dw[:, :e] = (torch.einsum("bglhd,bglhd->bglh", kf[:, :e], U)
                          + torch.einsum("bglhd,bghd->bglh", kf[:, :e], dnj))
             de_end[:, :e] = (dnj * nj[:, :e]).sum(-1)
@@ -590,16 +634,17 @@ def mlstm_backward(q, k, v, i, logf, cl, d_intra, qk, C0, n0, Cs, ns, h, dh, dC=
     cotangent dh of h and dC, dn of the last C and n (each or None: zeros)
     -> (dq, dk, dv, di, dlogf, dC0, dn0; the last two None where not
     ``need_state``): ``_read_cotangents``, the carry in one launch of
-    ``mlstm_carry_bwd``, then ``_grad_terms``, ``bwd_group`` chunks a
-    batch. A C0, or a dC or dn, given is joined to the states between
-    chunks (a copy of them); left None, its products are left out."""
+    ``mlstm_carry_bwd`` (which also gives T = k dC, dv's carried term), then
+    ``_grad_terms``, ``bwd_group`` chunks a batch. A C0, or a dC or dn,
+    given is joined to the states between chunks (a copy of them); left
+    None, its products are left out."""
     b, s, nh, d = q.shape
     if dh is None:
         dh = torch.zeros_like(h)
     group = bwd_group(b, nh, d, s)
     ns = entering_n(n0, ns)
     g, u, r, ds, qn = _read_cotangents(q, logf, d_intra, ns, h, dh, group)
-    dCs, dns, dC0, dn0 = mlstm_carry_bwd(q, g, u, cl, dC, dn, need_state)
+    dCs, dns, dC0, dn0, T = mlstm_carry_bwd(q, k, g, u, cl, dC, dn, need_state)
     del g, u
     if C0 is not None:
         Cs = torch.cat([C0[:, None].to(Cs.dtype), Cs], 1)
@@ -608,4 +653,5 @@ def mlstm_backward(q, k, v, i, logf, cl, d_intra, qk, C0, n0, Cs, ns, h, dh, dC=
                          else dC[:, None].to(dCs.dtype)], 1)
         dns = torch.cat([dns, dns.new_zeros((b, 1, nh, d)) if dn is None
                          else dn[:, None].to(dns.dtype)], 1)
-    return (*_grad_terms(q, k, v, i, logf, qk, r, ds, qn, Cs, ns, dCs, dns, group), dC0, dn0)
+    return (*_grad_terms(q, k, v, i, logf, qk, r, ds, qn, Cs, ns, dCs, dns, T, group), dC0,
+            dn0)

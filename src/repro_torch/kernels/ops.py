@@ -29,7 +29,8 @@ versions.
   ``mlstm.mlstm_intra_terms`` then one launch of ``mlstm.mlstm_carry``
   (saving the states between chunks where autograd records), its
   backward ``mlstm.mlstm_backward`` (one launch of ``mlstm.mlstm_carry_bwd``
-  for the carried cotangents, batched torch for the rest), where XLA
+  for the carried cotangents and dv's carried term k dC, batched torch for
+  the rest), where XLA
   transposes the reference's scan; on the CPU the kernels' plain versions.
 
 The backwards run inside the profiler ranges

@@ -175,7 +175,8 @@ def test_cpu_route_is_the_plain_loops_and_launches_nothing():
     """On CPU tensors ``mlstm_carry(save=True)`` is ``mlstm_carry_plain(save=
     True)`` and ``mlstm_carry_bwd`` is ``mlstm_carry_bwd_plain``, to the bit,
     with no launch; both keep the nc - 1 states between chunks (none with
-    one chunk), and chunk 0's update of the carry runs only for dC0, dn0."""
+    one chunk), chunk 0's update of the carry runs only for dC0, dn0, and T
+    covers the rows of every chunk (a dC on the last state is given)."""
     _, ts = _both(_inputs(S_LONG, True), "bfloat16")
     q, k, v, i, logf, C0, n0 = ts
     nc = mlstm._chunks(S_LONG)[1]
@@ -192,12 +193,14 @@ def test_cpu_route_is_the_plain_loops_and_launches_nothing():
               for x in (C0, n0))
     cl = terms[0]
     for need in (False, True):
-        bwd = mlstm.mlstm_carry_bwd(q, g, u, cl, dC, dn, need)
-        ref = mlstm.mlstm_carry_bwd_plain(q, g, u, cl, dC, dn, need)
+        bwd = mlstm.mlstm_carry_bwd(q, k, g, u, cl, dC, dn, need)
+        ref = mlstm.mlstm_carry_bwd_plain(q, k, g, u, cl, dC, dn, need)
+        assert len(bwd) == 5
         assert all(a is b is None or torch.equal(a, b) for a, b in zip(bwd, ref))
         assert bwd[0].shape == (B, nc - 1, NH, DH, DH) and bwd[1].shape == (B, nc - 1, NH, DH)
-        assert (bwd[2] is None) == (not need)
-    one = mlstm.mlstm_carry_bwd(q[:, :100], g[:, :100], u[:, :100], cl[:, :100], dC, dn)
+        assert (bwd[2] is None) == (not need) and bwd[4].shape == (B, S_LONG, NH, DH)
+    one = mlstm.mlstm_carry_bwd(q[:, :100], k[:, :100], g[:, :100], u[:, :100], cl[:, :100],
+                                dC, dn)
     assert one[0].shape[1] == one[1].shape[1] == 0 and one[2] is None and one[3] is None
     assert kernels.launch_counts() == before
 
@@ -248,7 +251,9 @@ def test_meta_branches_count_the_plain_routes_flops(with_state, s, cot_all, monk
     chunk 0's update of the carry (it yields only dC0) and the read's dq on
     chunk 0 (a product with zeros); with no cotangent on the last state the
     last chunk's update's two gradients. Torch autograd through the two
-    plain parts counts the same, and that one product with zeros more."""
+    plain parts counts the same, and that one product with zeros more. The
+    backward kernel's count holds its updates and its reads (k dC, dv's
+    carried term), one a chunk whose leaving dC is not zero."""
     b, nh, dh = 2, 4, 32
     L, nc = mlstm._chunks(s)
     before = kernels.launch_counts()
@@ -257,7 +262,8 @@ def test_meta_branches_count_the_plain_routes_flops(with_state, s, cot_all, monk
     assert all(g.is_meta and g.shape == x.shape and g.dtype == x.dtype for x, g in grads)
     product = 2 * b * L * nh * dh * dh                 # one (L, dh) x (dh, dh) a chunk
     update = product + 2 * b * L * nh * dh             # and its (L, dh) x (dh,) beside
-    assert mlstm.carry_bwd_flops(b, s, nh, dh, with_state) == (nc - 1 + with_state) * update
+    assert mlstm.carry_bwd_flops(b, s, nh, dh, with_state, cot_all) == (
+        (nc - 1 + with_state) * update + (nc - 1 + cot_all) * product)
     skipped = (0 if with_state else update + product) + (0 if cot_all else 2 * update)
     assert bwd == 2 * fwd - skipped
     auto = _fwd_bwd_flops(_plain_parts, b, s, nh, dh, with_state, cot_all)[:2]
@@ -321,15 +327,16 @@ def test_dryrun_train_cell_counts_the_same_flops_on_both_routes(fake_group, monk
 
 def test_plan_bwd_at_the_paths_shapes_and_the_exported_symbol():
     """The backward's grid is the forward's (32 columns of dC a block, B x 4
-    x 32 blocks at xlstm-1.3b's 4 heads of 1024); its shared memory holds
-    dC^T's columns, dn, one staged slice of q, g's columns (bf16 high and
-    low parts, or fp32), u and the partial sums: 199,680 bytes on the mma
-    route (bf16), 187,904 on the SIMT route (fp32), 68,736 at the reduced
-    config's dh 32; the tests' dh 8 the whole head. The source exports the
-    symbol with the wrapper's argument types."""
-    assert mlstm.plan_bwd(4, 4, 1024, 2) == (32, 512, 199680)
-    assert mlstm.plan_bwd(4, 4, 1024, 4) == (32, 512, 187904)
-    assert mlstm.plan_bwd(2, 4, 32, 2) == (32, 8, 68736)
+    x 32 blocks at xlstm-1.3b's 4 heads of 1024); its shared memory holds,
+    on the mma route (bf16), the ring's two stages of q and k slices, dC^T's
+    columns, dn, four bf16 tiles of dC's slices, u, the partial sums and the
+    mbarriers: 214,560 bytes, 83,616 at the reduced config's dh 32; on the
+    SIMT route (fp32) dC^T, dn, a staged slice of q and of k, g's columns,
+    u and the partial sums: 205,312; the tests' dh 8 the whole head. The
+    source exports the symbol with the wrapper's argument types."""
+    assert mlstm.plan_bwd(4, 4, 1024, 2) == (32, 512, 214560)
+    assert mlstm.plan_bwd(4, 4, 1024, 4) == (32, 512, 205312)
+    assert mlstm.plan_bwd(2, 4, 32, 2) == (32, 8, 83616)
     assert mlstm.plan_bwd(1, 2, 8, 4)[:2] == (8, 2)
     with pytest.raises(ValueError, match="mlstm_carry_bwd: head dim"):
         mlstm.plan_bwd(1, 4, 48, 2)

@@ -17,16 +17,19 @@ difference:
 
 - this checkout's saving forward gives its forward's h, C and n, and a
   second call of each the first's;
-- the backward kernel gives the other checkout's backward's dC_j, dn_j,
-  dC0 and dn0 (on random g, u and cotangents), and a second call the
-  first's;
+- the backward kernel's second call gives the first's dC_j, dn_j, dC0, dn0
+  and T (on random g, u and cotangents);
 - on the SIMT route (fp32, and bf16 at dh 8) the forward gives the other
-  checkout's h, C and n.
+  checkout's h, C and n, and the backward the other checkout's backward's
+  dC_j, dn_j, dC0 and dn0.
 
-On the mma route (bf16 at dh a multiple of 32) it reports whether the
-forward gives the other's bits too (h, C and n apiece), without gating on
-it. Prints the
-card's name and power limit, then one JSON line a case.
+On the mma route (bf16 at dh a multiple of 32) it reports, without gating
+on it, whether the forward gives the other's bits too (h, C and n apiece)
+and whether the backward does (dC_j, dn_j, dC0 and dn0 apiece), with the
+relative L2 from the other's where it does not. The other backward is
+bound by its parameters' names, so a checkout whose backward takes no k
+and writes no T (before the read joined it) is called as it is. Prints
+the card's name and power limit, then one JSON line a case.
 """
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ SHAPES = [((1, 5 * 256 + 37, 2, 8), True), ((1, 5 * 256 + 37, 2, 8), False),
 
 def _other(checkout: str, name: str, symbol: str):
     """The other checkout's ``csrc/<name>.cu``, built and bound: (function,
-    number of pointer arguments before the sizes)."""
+    number of pointer arguments before the sizes, the parameters' names)."""
     from repro_torch.kernels import _build
 
     csrc = os.path.join(os.path.abspath(checkout), "src", "repro_torch", "kernels", "csrc")
@@ -66,7 +69,7 @@ def _other(checkout: str, name: str, symbol: str):
     fn = getattr(ctypes.CDLL(so), symbol)
     fn.argtypes = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in kinds]
     fn.restype = ctypes.c_int
-    return fn, n_ptr
+    return fn, n_ptr, [p.split()[-1].lstrip("*") for p in kinds]
 
 
 def _inputs(gen, shape, dt, with_state):
@@ -85,6 +88,10 @@ def _inputs(gen, shape, dt, with_state):
     logf = F.logsigmoid(randn(b, s, nh) + 3.0)
     scale = 0.1 if with_state else 0.0
     return q, k, v, i, logf, randn(b, nh, dh, dh) * scale, randn(b, nh, dh) * scale
+
+
+def _rel_l2(x, y):
+    return ((x.double() - y.double()).norm() / y.double().norm().clamp_min(1e-30)).item()
 
 
 def _equal(xs, ys):
@@ -106,8 +113,8 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True)
     print(card.stdout.strip(), flush=True)
-    other, n_ptr = _other(sys.argv[1], "mlstm_scan", "repro_mlstm_scan")
-    other_bwd, _ = _other(sys.argv[1], "mlstm_scan_bwd", "repro_mlstm_scan_bwd")
+    other, n_ptr, _ = _other(sys.argv[1], "mlstm_scan", "repro_mlstm_scan")
+    other_bwd, _, bwd_params = _other(sys.argv[1], "mlstm_scan_bwd", "repro_mlstm_scan_bwd")
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(89)
     ok = True
@@ -129,12 +136,14 @@ def main() -> int:
             g = torch.randn(shape, generator=gen, device="cuda")
             u = torch.randn((b, s, nh), generator=gen, device="cuda")
             dCn, dnn = (C0 * 10, n0 * 10) if with_state else (None, None)
-            bwd = ml.mlstm_carry_bwd(q, g, u, cl, dCn, dnn, need_state=with_state)
-            bwd2 = ml.mlstm_carry_bwd(q, g, u, cl, dCn, dnn, need_state=with_state)
+            bwd = ml.mlstm_carry_bwd(q, k, g, u, cl, dCn, dnn, need_state=with_state)
+            bwd2 = ml.mlstm_carry_bwd(q, k, g, u, cl, dCn, dnn, need_state=with_state)
             their_bwd = [torch.empty_like(x) if x is not None else None for x in bwd]
-            err_bwd = other_bwd(*(None if x is None else x.data_ptr()
-                                  for x in (q, g, u, cl, dCn, dnn, *their_bwd)),
-                                b, s, nh, dh, bf16, stream)
+            values = dict(zip(("q", "k", "g", "u", "cl", "dCn", "dnn", "dCs", "dns", "dC0",
+                               "dn0", "kdc"), (q, k, g, u, cl, dCn, dnn, *their_bwd)))
+            values = {n: None if x is None else x.data_ptr() for n, x in values.items()}
+            values.update(B=b, S=s, NH=nh, dh=dh, bf16=bf16, stream=stream)
+            err_bwd = other_bwd(*(values[n] for n in bwd_params))
             torch.cuda.synchronize()
             simt = ml.route(dt.itemsize, dh) == "simt"
             row = {"shape": list(shape), "state": with_state,
@@ -145,10 +154,16 @@ def main() -> int:
                    "forward_equals_other": err == 0 and _equal(mine, theirs),
                    "forward_hCn_equal_other": [err == 0 and _equal([a], [c])
                                                for a, c in zip(mine, theirs)],
-                   "backward_equals_other": err_bwd == 0 and _equal(bwd, their_bwd),
+                   "backward_equals_other": err_bwd == 0 and _equal(bwd[:4], their_bwd[:4]),
+                   "backward_dCs_dns_dC0_dn0_equal_other": [
+                       err_bwd == 0 and _equal([a], [c]) for a, c in zip(bwd[:4], their_bwd)],
+                   "backward_rel_l2_from_other": [
+                       None if a is None or err_bwd or a.numel() == 0 else _rel_l2(a, c)
+                       for a, c in zip(bwd[:4], their_bwd)],
                    "backward_second_call_equal": _equal(bwd2, bwd)}
-            gated = ["saving_equals_forward", "second_call_equal", "backward_equals_other",
-                     "backward_second_call_equal"] + (["forward_equals_other"] if simt else [])
+            gated = ["saving_equals_forward", "second_call_equal",
+                     "backward_second_call_equal"] + (["forward_equals_other",
+                                                       "backward_equals_other"] if simt else [])
             row["ok"] = all(row[x] for x in gated)
             ok = ok and row["ok"]
             print(json.dumps(row), flush=True)

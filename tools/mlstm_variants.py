@@ -57,8 +57,8 @@ SHAPES = [((1, 65536, 4, 1024), False), ((4, 2048, 4, 1024), False),
           ((1, 524288, 4, 1024), False), ((4, 1024, 4, 1024), True)]
 CSRC = "src/repro_torch/kernels/csrc"
 READ = "mma_bf16(acc[mt][nt], fa[kk][mt], fb[nt][2 * kk], fb[nt][2 * kk + 1]);"
-UPDATE = """      mma_bf16(uh[st & 1], fq[st], wf[st][0], wf[st][1]);
-      mma_bf16(ul[st & 1], fq[st], wf[st][2], wf[st][3]);"""
+UPDATE = """      mma_bf16(uh[st & 1], fq[st], bf[st][0], bf[st][1]);
+      mma_bf16(ul[st & 1], fq[st], bf[st][2], bf[st][3]);"""
 LOADS = """          mbar_expect_tx(full, 2 * SLICE_BYTES);
           tma_load(dq, &tq, full, t * DT, hd, s0, b);
           tma_load(dq + SLICE_BYTES, &tk, full, t * DT, hd, s0, b);
